@@ -1,0 +1,91 @@
+"""Model and SEAL configuration. Port of ``repro/config.py``
+(``MoEConfig``, ``ModelConfig``, ``SealConfig``).
+
+A copy, not an import: the port imports nothing from ``repro``. The TPU
+hardware table and the paper's GPU constants are left out; the port states
+no hardware number it did not measure.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    aux_loss_weight: float = 0.01
+    capacity_factor: float = 1.25
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense | moe | vlm | hybrid | audio | ssm
+    num_layers: int
+    d_model: int
+    num_heads: int                   # query heads
+    num_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    pattern: Tuple[str, ...] = ("attn",)   # cycled over num_layers
+    moe: Optional[MoEConfig] = None
+    logit_softcap: float = 0.0
+    attn_softcap: float = 0.0
+    window: int = 0                  # sliding window width for local_attn
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_head_dim: int = 64
+    rglru_block_width: int = 0
+    pad_heads_to: int = 0
+    frontend: Optional[str] = None
+    norm: str = "rmsnorm"
+    act: str = "silu"
+    tie_embeddings: bool = False
+    rope_theta: float = 10_000.0
+    dtype: str = "bfloat16"
+    supports_long_context: bool = False
+
+    @property
+    def heads_eff(self) -> int:
+        return max(self.num_heads, self.pad_heads_to)
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    def n_superblocks(self) -> int:
+        if self.num_layers % len(self.pattern):
+            raise ValueError(
+                f"{self.name}: num_layers {self.num_layers} not divisible by "
+                f"pattern period {len(self.pattern)}")
+        return self.num_layers // len(self.pattern)
+
+    def with_(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class SealConfig:
+    """The paper's technique.
+
+    mode: none | direct | counter | coloe (the port covers counter and coloe;
+      direct/AES comes with a later slice).
+    smart_ratio: fraction of weight rows encrypted (paper's SE default 0.5).
+    fuse_decrypt: decrypt inside the consumer matmul kernel.
+    verify: co-located MACs (a later slice of the port).
+    """
+    mode: str = "coloe"
+    smart_ratio: float = 0.5
+    cipher: str = "chacha20"
+    fuse_decrypt: bool = True
+    verify: bool = False
+    protect_boundary_layers: bool = True

@@ -1,0 +1,25 @@
+"""Architecture registry. Port of ``repro/configs/__init__.py``, holding only
+the architectures the port covers so far."""
+from __future__ import annotations
+
+import importlib
+
+ARCH_IDS = ["internlm2_1_8b"]
+
+_ALIAS = {i.replace("_", "-"): i for i in ARCH_IDS}
+
+
+def _module(arch_id: str):
+    arch_id = _ALIAS.get(arch_id, arch_id)
+    if arch_id not in ARCH_IDS:
+        raise KeyError(f"unknown or not yet ported arch {arch_id!r}; "
+                       f"ported: {ARCH_IDS}")
+    return importlib.import_module(f"repro_torch.configs.{arch_id}")
+
+
+def get_config(arch_id: str):
+    return _module(arch_id).config()
+
+
+def get_reduced(arch_id: str):
+    return _module(arch_id).reduced()

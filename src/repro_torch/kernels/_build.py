@@ -1,0 +1,98 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, loaded with ``ctypes``. Builds go to
+``build/kernels/`` at the root of the checkout (listed in ``.gitignore``),
+named by a hash of the sources, so an edited source rebuilds and an
+unchanged one loads. Nothing is built at import: a kernel is built at its
+first launch, or by ``build_all`` (which starts one ``nvcc`` per source, all
+at once).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List, Tuple
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("chacha20", "sealed_matmul")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the "
+                       "CUDA toolkit is installed")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for p in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def _command(name: str, out: Path) -> List[str]:
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+            "-I", str(CSRC), "-o", str(out), str(CSRC / f"{name}.cu")]
+
+
+def build_all(names=SOURCES) -> Dict[str, str]:
+    """Compile every listed source that has no up-to-date library, one
+    ``nvcc`` per source, all started together. Returns each source's
+    compiler report (``-Xptxas -v``: registers, shared memory, spills);
+    raises if any build fails."""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    procs: List[Tuple[str, Path, Path, subprocess.Popen]] = []
+    reports: Dict[str, str] = {}
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            reports[name] = "up to date"
+            continue
+        tmp = out.with_name(f"tmp{os.getpid()}-{out.name}")
+        procs.append((name, out, tmp, subprocess.Popen(
+            _command(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        reports[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        path = _lib_path(name)
+        if not path.exists():
+            build_all((name,))
+        lib = ctypes.CDLL(str(path))
+        _loaded[name] = lib
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {rc}")

@@ -1,0 +1,62 @@
+"""Public wrappers over the port's kernels. Port of ``repro/kernels/ops.py``
+(``keystream``, ``sealed_matmul``).
+
+A CPU tensor takes a kernel's plain version; a CUDA tensor launches the
+kernel or raises — there is no fallback. ``launch_counts`` reads the plain
+integer each kernel wrapper adds one to per launch.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch import u32
+from repro_torch.kernels import chacha20 as _cc
+from repro_torch.kernels import sealed_matmul as _sm
+
+_COUNTED = {"chacha20": _cc.chacha20_blocks,
+            "sealed_matmul": _sm.sealed_matmul}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in _COUNTED.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _COUNTED.values():
+        fn.launches = 0
+
+
+def keystream(key_words, nonce_words, n_blocks: int, *,
+              counter0: int = 0) -> torch.Tensor:
+    """(16, n_blocks) int32 ChaCha20 keystream, word-major as the
+    reference's. The kernel writes (n, 16); the transpose is a view."""
+    ctr = u32.from_i64(torch.arange(counter0, counter0 + n_blocks,
+                                    dtype=torch.int64,
+                                    device=key_words.device))
+    return _cc.chacha20_blocks(key_words, ctr, nonce_words).T
+
+
+def sealed_matmul(x, w_ct, row_mask, key_words, nonce_words,
+                  write_counter=0, *, bm: int = 128, bk: int = 128,
+                  bn: int = 128, compute_dtype: str = "float32"
+                  ) -> torch.Tensor:
+    """Fused decrypt + matmul: ``x @ f32(w_ct ^ pad)``, (M, N) f32.
+
+    K and N must be multiples of the seal's (bk, bn). M is padded as the
+    reference pads it: not at all when M < bm, else up to a multiple of bm.
+    The CUDA kernel masks a ragged M itself and works on M rows at most 64 at
+    a time, so the padding only keeps the reference's shapes."""
+    if not torch.is_tensor(write_counter):
+        write_counter = torch.tensor(u32.const(int(write_counter)),
+                                     dtype=torch.int32, device=x.device)
+    m = x.shape[0]
+    bm = min(bm, m) if m % bm else bm
+    pad = (-m) % bm
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+    out = _sm.sealed_matmul(x, w_ct, row_mask, key_words, nonce_words,
+                            write_counter, bk=bk, bn=bn,
+                            compute_dtype=compute_dtype)
+    return out[:m]

@@ -1,0 +1,125 @@
+"""Fused decrypt-in-matmul over tile-sealed weights: the Hopper kernel and
+its plain PyTorch version.
+
+Port of ``repro/kernels/sealed_matmul.py::sealed_matmul`` (kernel body
+``_make_kernel``). The CUDA source is ``csrc/sealed_matmul.cu``; its header
+comment gives the keystream contract and the design.
+
+What bounds it on this card: at decode it reads 4 bytes of ciphertext per
+weight word and makes one ChaCha block (976 integer operations) per 16
+encrypted words. At full internlm2-1.8B width one decode tick reads about
+6.8 GB (1.70 B words) and, with every row encrypted, needs about 106 M
+blocks; so the bound is the ChaCha arithmetic or the weight reads, whichever
+is larger: the arithmetic where more than about 65% of rows are encrypted,
+the reads at SE ratio 0.5. The kernel makes each pad once per word (all M
+rows of a column strip in one block, split-K for occupancy) and skips the
+pads of plaintext rows.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.chacha20 import chacha20_blocks_plain
+
+BK, BN = 32, 64          # the CUDA kernel's K step and column strip
+_TARGET_BLOCKS = 1600    # ~2 waves of resident blocks on 132 SMs
+
+
+def sealed_matmul_plain(x, w_ct, row_mask, key_words, nonce_words,
+                        write_counter, *, bk: int, bn: int,
+                        compute_dtype: str = "float32") -> torch.Tensor:
+    """Unseal in PyTorch (plain ChaCha rounds), then round both operands to
+    ``compute_dtype`` and multiply in f32."""
+    cdt = getattr(torch, compute_dtype)
+    w = _ref.unseal_weights_ref(w_ct, key_words, nonce_words, bk, bn,
+                                row_mask, write_counter,
+                                block_fn=chacha20_blocks_plain)
+    return x.to(cdt).float() @ w.to(cdt).float()
+
+
+def _launch_shape(m: int, k: int, n: int):
+    """(bm, splits, rows per split). bm: the fewest rows of M a block takes
+    (8, 16, 32 or 64) that hold M; then split K until there are enough
+    blocks to fill the card."""
+    bm = 8 if m <= 8 else 16 if m <= 16 else 32 if m <= 32 else 64
+    tiles = -(-n // BN) * -(-m // bm)
+    steps = -(-k // BK)
+    want = max(1, min(steps, -(-_TARGET_BLOCKS // tiles)))
+    per = -(-steps // want)
+    return bm, -(-steps // per), per * BK
+
+
+def sealed_matmul_cuda(x, w_ct, row_mask, key_words, nonce_words,
+                       write_counter, *, bk: int, bn: int,
+                       compute_dtype: str = "float32") -> torch.Tensor:
+    """Launch ``csrc/sealed_matmul.cu`` on PyTorch's current stream.
+
+    x (M, K) f32; w_ct (K, N) int32 words; row_mask (K,) bool/uint8; key
+    (8,) and nonce (3,) int32 words; write_counter a (1,) or () int32 word
+    on the card (read by the kernel, so no host sync)."""
+    m, k = x.shape
+    k2, n = w_ct.shape
+    dev = x.device
+    if k != k2:
+        raise ValueError(f"contraction mismatch {tuple(x.shape)} @ "
+                         f"{tuple(w_ct.shape)}")
+    if k % bk or n % bn or bk % 8 or bn % 8:
+        raise ValueError(f"({k}, {n}) not tiled by seal tiles ({bk}, {bn})")
+    if x.dtype != torch.float32:
+        raise TypeError(f"x must be float32, got {x.dtype}")
+    if w_ct.dtype != torch.int32 or key_words.dtype != torch.int32 or \
+            nonce_words.dtype != torch.int32:
+        raise TypeError("w_ct / key / nonce must be int32 u32 words")
+    if compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype {compute_dtype!r}")
+    wc = torch.as_tensor(write_counter, device=dev)
+    if wc.dtype != torch.int32 or wc.numel() != 1:
+        raise TypeError("write_counter must be one int32 word")
+    mask = row_mask.reshape(k)
+    if mask.dtype not in (torch.bool, torch.uint8):
+        raise TypeError(f"row_mask must be bool or uint8, got {mask.dtype}")
+    ops = (x, w_ct, mask, key_words, nonce_words, wc)
+    if any(t.device != dev for t in ops):
+        raise ValueError("sealed_matmul operands must share one device")
+    if key_words.numel() != 8 or nonce_words.numel() != 3:
+        raise ValueError("key must be 8 words and nonce 3 words")
+    if m * n >= 2**31 or k * n >= 2**32:
+        raise ValueError(f"shape ({m}, {k}, {n}) exceeds the kernel's indices")
+    x, w_ct, mask, key_words, nonce_words, wc = (t.contiguous() for t in ops)
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if m == 0:
+        return out
+    bm, splits, kps = _launch_shape(m, k, n)
+    part = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
+            if splits > 1 else out)
+    lib = _build.load("sealed_matmul")
+    fn = lib.sealed_matmul
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(x.data_ptr(), w_ct.data_ptr(), mask.data_ptr(),
+                key_words.data_ptr(), nonce_words.data_ptr(), wc.data_ptr(),
+                part.data_ptr(), out.data_ptr(), m, k, n, bk, bn, bm, splits,
+                kps, int(compute_dtype == "bfloat16"), stream)
+    _build.check(rc, "sealed_matmul")
+    sealed_matmul.launches += 1
+    return out
+
+
+def sealed_matmul(x, w_ct, row_mask, key_words, nonce_words, write_counter,
+                  *, bk: int, bn: int,
+                  compute_dtype: str = "float32") -> torch.Tensor:
+    """(M, N) f32. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises."""
+    fn = sealed_matmul_cuda if x.is_cuda else sealed_matmul_plain
+    return fn(x, w_ct, row_mask, key_words, nonce_words, write_counter,
+              bk=bk, bn=bn, compute_dtype=compute_dtype)
+
+
+sealed_matmul.launches = 0

@@ -1,0 +1,369 @@
+"""Continuous-batching serving over the paged, sealed KV cache. Port of
+``repro/serve/engine.py::ServeEngine``.
+
+A fixed set of decode slots with admission and eviction at every step. The
+per-slot scheduler state (block tables, lengths, write counters, last
+tokens) lives on the device in a ``SchedState`` updated in place
+(``serve/step.py``); the host keeps the block allocator, the request
+bookkeeping and debug mirrors of the device state (``check_device_mirror``).
+Prompts prefill in fixed-size chunks between decode ticks, and a decode
+tick copies only its sampled tokens to the host.
+
+With ``seal`` the weights are sealed (``core/sealed_store.py``) and stay
+ciphertext up to the fused decrypt-in-matmul kernel; with ``seal_cache``
+(default: follows sealed weights) the KV pools hold ciphertext too. Without
+``seal`` the engine keeps the matmul weights and the embedding table once in
+the compute dtype (``_plain_weights``): the roundings every use makes anyway.
+
+Not ported yet, and refused: ``prefix_share`` (copy-on-write prefix
+sharing), ``verify`` (MACs) and ``fault_hooks`` (tamper injection), and
+sampling other than greedy. ``GroupServeEngine`` comes later as well.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig, SealConfig
+from repro_torch.core import sealed_store as SS
+from repro_torch.device import resolve_device
+from repro_torch.models import cache as MC
+from repro_torch.serve import sampling as SM
+from repro_torch.serve import step as ST
+from repro_torch.tree import flatten_with_path, leaves, map_leaves, unflatten
+
+# leaves read only through a rounding to the compute dtype: every weight
+# contraction, and the embedding table's gather
+_ROUNDED_LEAVES = ("w", "wq", "wk", "wv", "wo", "wi", "wg")
+
+
+def _plain_weights(cfg: ModelConfig, params):
+    """``params`` with the leaves in ``_ROUNDED_LEAVES`` stored in the
+    compute dtype; norms stay f32. The results are bit for bit those of the
+    f32 tree, since each such leaf is rounded to the compute dtype before
+    every use."""
+    dt = getattr(torch, cfg.dtype)
+    flat = flatten_with_path(params)
+    return unflatten(params, [t.to(dt) if p[-1] in _ROUNDED_LEAVES else t
+                              for p, t in flat])
+
+
+class StragglerTimeout(RuntimeError):
+    """A serve drain ran past its step budget."""
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray                # (S,) int32
+    max_tokens: int = 32
+    eos: int = -1
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    out: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    t_submit: float = 0.0
+    t_done: float = 0.0
+
+
+class ServeEngine:
+    """Continuous batcher over the paged, sealed KV cache.
+
+    Device side: the decode tick and the chunked-prefill step
+    (``serve/step.py``) over the resident ``SchedState`` and pools. Host
+    side: the refcounted block allocator, per-slot request bookkeeping and
+    debug mirrors (``_tables``/``_lengths``/``_wc``/``_counts``), never read
+    by the hot loop.
+    """
+
+    def __init__(self, cfg: ModelConfig, params, *, batch_slots: int = 4,
+                 max_len: int = 256, seal: Optional[SealConfig] = None,
+                 key_bytes: bytes = bytes(range(32)), block_size: int = 16,
+                 seal_cache: Optional[bool] = None,
+                 admit_batch: Optional[int] = None,
+                 prefix_share: bool = False,
+                 chunk_tokens: Optional[int] = None,
+                 verify: bool = False, fault_hooks=(), device=None):
+        if prefix_share:
+            raise NotImplementedError(
+                "prefix sharing (copy-on-write blocks, PrefixRegistry) comes "
+                "with the prefix-sharing slice of the port")
+        if verify or fault_hooks:
+            raise NotImplementedError(
+                "verify, MACs and fault hooks come with the "
+                "verify/MAC/tamper slice of the port")
+        if cfg.frontend is not None:
+            raise ValueError("serving targets token architectures")
+        bad = [k for k in cfg.pattern if k not in ("attn", "local_attn")]
+        if bad:
+            raise ValueError(f"continuous batching needs attention-only "
+                             f"patterns (got {bad})")
+        self.device = resolve_device(device)
+        params = map_leaves(lambda t: t.to(self.device), params)
+        self.cfg = cfg
+        self.slots = batch_slots
+        self.block_size = block_size
+        self.max_len = -(-max_len // block_size) * block_size
+        weights_sealed = seal is not None and seal.mode != "none"
+        if seal_cache is None:
+            seal_cache = weights_sealed
+        self.seal_cache = seal_cache
+        self.seal = seal
+        self.key_bytes = key_bytes
+        self.sealed = (SS.seal_params(params, seal, key_bytes)
+                       if weights_sealed else None)
+        self._plain_params = (None if weights_sealed
+                              else _plain_weights(cfg, params))
+
+        self.cache_seal = (SS.cache_seal_config(key_bytes, self.device)
+                           if seal_cache else None)
+
+        s, mb = self.slots, self.max_len // block_size
+        self.num_blocks = 1 + s * mb          # block 0 = scratch
+        self._pools = MC.paged_pool_init(cfg, self.num_blocks, block_size,
+                                         self.device)
+        self._state = ST.sched_init(s, mb, self.num_blocks, self.device)
+        self._alloc = MC.BlockAllocator(self.num_blocks)
+        self.chunk_tokens = int(chunk_tokens or 2 * block_size)
+        self._active: List[Optional[Request]] = [None] * s
+        self._slot_blocks: List[List[int]] = [[] for _ in range(s)]
+        self._pending: List[Optional[np.ndarray]] = [None] * s
+        self._tables = np.zeros((s, mb), np.int64)
+        self._lengths = np.zeros((s,), np.int64)
+        self._wc = np.zeros((self.num_blocks,), np.uint32)
+        self._last_tok = np.zeros((s,), np.int64)
+        self._counts = np.zeros((s,), np.int64)
+        self._admit_n = min(admit_batch or max(1, batch_slots // 4),
+                            batch_slots)
+        self._next_rid = 0
+        self.queue: List[Request] = []
+        self._done: List[Request] = []
+
+        itemsize = torch.empty((), dtype=getattr(torch, cfg.dtype)
+                               ).element_size()
+        kv_pt = 0 if seal_cache else (
+            2 * cfg.n_superblocks() * len(cfg.pattern) * s * self.max_len
+            * cfg.num_kv_heads * cfg.head_dim * itemsize)
+        w_pt = (self.sealed.plaintext_bytes_materialized() if self.sealed
+                else sum(t.numel() * t.element_size()
+                         for t in leaves(self._plain_params)))
+        self.stats = {
+            "prefills": 0, "prefill_chunks": 0, "decode_steps": 0,
+            "tokens": 0, "cow_copies": 0,
+            "mac_checks": 0, "mac_failures": 0, "retries": 0,
+            "shared_prefix_blocks": 0, "shared_prefix_tokens": 0,
+            "fused_matmul_leaves": (len(self.sealed.fused_paths())
+                                    if self.sealed else 0),
+            "weights_plaintext_bytes_per_step": w_pt,
+            "kv_plaintext_bytes_per_step": kv_pt,
+            "plaintext_bytes_per_step": w_pt + kv_pt,
+        }
+
+    # -------------------------------------------------- public API
+
+    def params(self):
+        """The serving view for one dispatch: line-layout leaves decrypted,
+        tile-sealed leaves still sealed (the plaintext params when the
+        weights are not sealed)."""
+        if self.sealed is None:
+            return self._plain_params
+        return SS.fused_params(self.sealed, self.key_bytes)
+
+    def submit(self, prompt, max_tokens: int = 32, eos: int = -1,
+               temperature: float = 0.0, top_k: int = 0,
+               top_p: float = 1.0) -> Request:
+        SM.check_greedy(temperature, top_k, top_p)
+        prompt = np.asarray(prompt, np.int32)
+        if not 1 <= len(prompt) < self.max_len:
+            raise ValueError(f"prompt length {len(prompt)} vs max_len "
+                             f"{self.max_len}")
+        r = Request(self._next_rid, prompt, max_tokens, eos,
+                    temperature, top_k, top_p, t_submit=time.time())
+        self._next_rid += 1
+        self.queue.append(r)
+        return r
+
+    @property
+    def busy(self) -> bool:
+        """True while any request is queued or holds a slot."""
+        return bool(self.queue) or any(r is not None for r in self._active)
+
+    @property
+    def _free(self) -> List[int]:
+        return self._alloc._free
+
+    def step(self) -> List[Request]:
+        """Admit what fits, run one prefill chunk for pending prompts,
+        advance every decoding slot one token; returns the requests that
+        completed during this step."""
+        n0 = len(self._done)
+        self._admit()
+        if any(p is not None for p in self._pending):
+            self._chunk_tick()
+        if any(r is not None and self._pending[i] is None
+               for i, r in enumerate(self._active)):
+            self._decode_tick()
+        return self._done[n0:]
+
+    def run(self, max_steps: Optional[int] = None) -> List[Request]:
+        """Drain queue and in-flight work; returns the requests completed
+        by this call. ``max_steps`` bounds the scheduler steps."""
+        n0 = len(self._done)
+        steps = 0
+        while self.busy:
+            before = (len(self.queue), self.stats["decode_steps"],
+                      self.stats["prefills"])
+            self.step()
+            after = (len(self.queue), self.stats["decode_steps"],
+                     self.stats["prefills"])
+            if after == before:
+                raise RuntimeError("scheduler made no progress")
+            steps += 1
+            if max_steps is not None and steps >= max_steps and self.busy:
+                raise StragglerTimeout(
+                    f"serve drain exceeded {max_steps} steps with work still "
+                    f"in flight ({len(self.queue)} queued)")
+        return self._done[n0:]
+
+    def check_device_mirror(self):
+        """The host mirrors must track the device ``SchedState`` exactly."""
+        st = self._state
+        for dev_t, host in ((st.tables, self._tables),
+                            (st.lengths, self._lengths),
+                            (st.counts, self._counts)):
+            if not np.array_equal(dev_t.cpu().numpy(), host):
+                raise AssertionError("device state diverged from its mirror")
+        if not np.array_equal(st.wc.cpu().numpy().view(np.uint32), self._wc):
+            raise AssertionError("device write counters diverged")
+
+    # -------------------------------------------------- scheduling
+
+    def _mt_eff(self, r: Request) -> int:
+        return max(1, min(r.max_tokens, self.max_len - len(r.prompt)))
+
+    def _to_dev(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a)).to(self.device)
+
+    def _admit(self):
+        bs = self.block_size
+        while self.queue:
+            free_slots = [i for i, r in enumerate(self._active) if r is None]
+            if not free_slots:
+                return
+            width = min(self._admit_n, len(free_slots))
+            batch: List[int] = []
+            for r in list(self.queue):
+                if len(batch) >= width:
+                    break
+                need = -(-(len(r.prompt) + self._mt_eff(r)) // bs)
+                table = self._alloc.alloc(need)
+                if table is None:
+                    break               # strict FIFO: head of queue blocks
+                self.queue.remove(r)
+                slot = free_slots[len(batch)]
+                self._active[slot] = r
+                self._slot_blocks[slot] = table
+                self._pending[slot] = np.asarray(r.prompt, np.int32)
+                self._tables[slot] = 0
+                self._tables[slot, :len(table)] = table
+                self._lengths[slot] = 0
+                self._counts[slot] = 0
+                self._last_tok[slot] = 0
+                batch.append(slot)
+            if not batch:
+                return
+            ST.admit(self._state, self._to_dev(np.asarray(batch, np.int64)),
+                     self._to_dev(self._tables[batch]), 0)
+
+    def _chunk_tick(self):
+        """One chunked-prefill dispatch: up to admit-width pending slots
+        each advance ``chunk_tokens`` prompt tokens; rows reaching the end
+        of their prompt sample their first token and switch to decode."""
+        a, c, bs = self._admit_n, self.chunk_tokens, self.block_size
+        rows = [i for i, p in enumerate(self._pending) if p is not None][:a]
+        if not rows:
+            return
+        toks = np.zeros((len(rows), c), np.int64)
+        cl = np.zeros((len(rows),), np.int64)
+        fin = np.zeros((len(rows),), bool)
+        for i, slot in enumerate(rows):
+            pend = self._pending[slot]
+            n = min(len(pend), c)
+            toks[i, :n] = pend[:n]
+            cl[i] = n
+            fin[i] = n == len(pend)
+        tok, _ = ST.chunk_step(
+            self.cfg, self.params(), self._pools, self._state,
+            self._to_dev(np.asarray(rows, np.int64)), self._to_dev(toks),
+            self._to_dev(cl), self._to_dev(fin), self.cache_seal)
+        self.stats["prefills"] += 1
+        self.stats["prefill_chunks"] += len(rows)
+        tok = tok.cpu().numpy()
+        finished: List[int] = []
+        for i, slot in enumerate(rows):
+            n = int(cl[i])
+            r = self._active[slot]
+            length = int(self._lengths[slot])
+            for b in range(length // bs, (length + n - 1) // bs + 1):
+                self._wc[self._tables[slot, b]] += 1
+            self._lengths[slot] += n
+            if not fin[i]:
+                self._pending[slot] = self._pending[slot][n:]
+                continue
+            self._pending[slot] = None
+            nt = int(tok[i])
+            self._counts[slot] = 1
+            self._last_tok[slot] = nt
+            r.out.append(nt)
+            self.stats["tokens"] += 1
+            if len(r.out) >= self._mt_eff(r) or nt == r.eos:
+                finished.append(slot)
+        if finished:
+            self._evict_slots(finished)
+
+    def _decode_tick(self):
+        tok, _ = ST.decode_tick(
+            self.cfg, self.params(), self._pools, self._state,
+            self.cache_seal)
+        self.stats["decode_steps"] += 1
+        tok = tok.cpu().numpy()                # the ONLY d2h copy per tick
+        bs = self.block_size
+        finished: List[int] = []
+        for slot, r in enumerate(self._active):
+            if r is None or self._pending[slot] is not None:
+                continue
+            pb = self._tables[slot, self._lengths[slot] // bs]
+            self._wc[pb] += 1
+            self._lengths[slot] += 1
+            self._counts[slot] += 1
+            nt = int(tok[slot])
+            self._last_tok[slot] = nt
+            r.out.append(nt)
+            self.stats["tokens"] += 1
+            if len(r.out) >= self._mt_eff(r) or nt == r.eos:
+                finished.append(slot)
+        if finished:
+            self._evict_slots(finished)
+
+    def _evict_slots(self, slots: List[int]):
+        """Batched slot teardown: one device evict zeroes the finished rows;
+        the host returns their blocks."""
+        ST.evict(self._state, self._to_dev(np.asarray(slots, np.int64)))
+        for slot in slots:
+            r = self._active[slot]
+            r.done = True
+            r.t_done = time.time()
+            self._done.append(r)
+            self._alloc.decref(self._slot_blocks[slot])
+            self._slot_blocks[slot] = []
+            self._tables[slot] = 0
+            self._lengths[slot] = 0
+            self._counts[slot] = 0
+            self._last_tok[slot] = 0
+            self._active[slot] = None
+            self._pending[slot] = None

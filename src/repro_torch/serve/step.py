@@ -1,0 +1,113 @@
+"""Scheduler state and serve-step transitions on the device. Port of
+``SchedState``, ``admit``, ``evict``, ``chunk_step`` and ``decode_tick``
+from ``repro/serve/step.py``.
+
+The reference's jitted, donated transitions become functions that update
+the device tensors of ``SchedState`` and the pools IN PLACE. A decode tick
+needs nothing from the host, and only its sampled tokens go back to it (the
+engine's one device-to-host copy per tick). Greedy decoding only: the
+reference's per-request PRNG keys and sampling settings come with the
+sampling slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import paged as PG
+from repro_torch.serve import sampling as SM
+
+
+@dataclasses.dataclass
+class SchedState:
+    """Per-slot scheduler state the decode loop touches, on the device.
+
+    tables (S, MB) int64   block table per slot (0 = scratch block)
+    lengths (S,) int64     tokens in the cache per slot
+    wc (NB,) int32         per-pool-block write counters (u32 words)
+    run (S,) bool          slot is decoding (prefill finished)
+    last_tok (S,) int64    token fed at the next decode tick
+    counts (S,) int64      tokens generated so far
+    """
+    tables: torch.Tensor
+    lengths: torch.Tensor
+    wc: torch.Tensor
+    run: torch.Tensor
+    last_tok: torch.Tensor
+    counts: torch.Tensor
+
+
+def sched_init(slots: int, max_blocks: int, num_blocks: int,
+               device=None) -> SchedState:
+    z = lambda: torch.zeros((slots,), dtype=torch.int64, device=device)
+    return SchedState(
+        tables=torch.zeros((slots, max_blocks), dtype=torch.int64,
+                           device=device),
+        lengths=z(),
+        wc=torch.zeros((num_blocks,), dtype=torch.int32, device=device),
+        run=torch.zeros((slots,), dtype=torch.bool, device=device),
+        last_tok=z(),
+        counts=z(),
+    )
+
+
+def admit(state: SchedState, slot_ids, tables, n_shared) -> None:
+    """Write whole rows for the admitted slots; they enter the chunked
+    prefill phase (run=False) with ``lengths`` = shared-prefix tokens."""
+    state.tables[slot_ids] = tables
+    state.lengths[slot_ids] = n_shared
+    state.run[slot_ids] = False
+    state.last_tok[slot_ids] = 0
+    state.counts[slot_ids] = 0
+
+
+def evict(state: SchedState, slot_ids) -> None:
+    """Zero finished rows so the decode tick's masked lanes read benign
+    state."""
+    state.tables[slot_ids] = 0
+    state.lengths[slot_ids] = 0
+    state.run[slot_ids] = False
+    state.last_tok[slot_ids] = 0
+    state.counts[slot_ids] = 0
+
+
+def chunk_step(cfg: ModelConfig, params, pools, state: SchedState, slot_ids,
+               tokens, chunk_len, is_final, cache_seal):
+    """One chunked-prefill step for the listed slots: run the chunk, seal
+    its K/V into the slots' blocks, and on each row's final chunk sample the
+    request's first token. Returns (tok, logits); tok is 0 on rows that are
+    not final."""
+    tables = state.tables[slot_ids]
+    lengths = state.lengths[slot_ids]
+    logits, updates = PG.chunk_logits(cfg, params, pools, tables, lengths,
+                                      state.wc, tokens, chunk_len, cache_seal)
+    PG.append_tokens(cfg, cache_seal, pools, updates, tables, lengths,
+                     chunk_len, state.wc)
+    zero = torch.zeros((), dtype=torch.int64, device=tokens.device)
+    tok = torch.where(is_final, SM.sample_logits(logits), zero)
+    state.lengths[slot_ids] = lengths + chunk_len
+    state.run[slot_ids] = is_final
+    state.counts[slot_ids] = is_final.to(torch.int64)
+    state.last_tok[slot_ids] = tok
+    return tok, logits
+
+
+def decode_tick(cfg: ModelConfig, params, pools, state: SchedState,
+                cache_seal):
+    """Advance every running slot one token: logits over the paged view,
+    sealed tail-block append, greedy sampling. Slots not running write
+    nothing and keep their state. Returns (tok, logits), both on the
+    device."""
+    logits, updates = PG.decode_logits(cfg, params, pools, state.tables,
+                                       state.lengths, state.wc,
+                                       state.last_tok[:, None], cache_seal)
+    cnt = state.run.to(torch.int64)
+    PG.append_tokens(cfg, cache_seal, pools, updates, state.tables,
+                     state.lengths, cnt, state.wc)
+    tok = torch.where(state.run, SM.sample_logits(logits), state.last_tok)
+    state.lengths += cnt
+    state.counts += cnt
+    state.last_tok.copy_(tok)
+    return tok, logits

@@ -1,0 +1,88 @@
+"""The port's CUDA kernels and sealed serving on the card, held against the
+plain PyTorch versions. Marked ``gpu``: each test asks the ``cuda`` fixture
+for the card and skips without one. On a machine with a card:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Tolerances: keystreams bitwise; the fused matmul against the plain version
+at 1e-4 of the output scale in f32 and in bf16 (both round the same operands
+and sum in f32; only the order of the sums differs); the card's sealed
+logits against the CPU's plain f32 logits at 1e-4 relative.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import u32
+from repro_torch.config import SealConfig
+from repro_torch.configs import get_reduced
+from repro_torch.kernels import chacha20 as CC
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import sealed_matmul as SMK
+from repro_torch.models import transformer as T
+from repro_torch.serve.engine import ServeEngine
+from repro_torch.tree import map_leaves
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA); run on the card")
+    return torch.device("cuda")
+
+
+def _words(gen, shape, dev):
+    return torch.randint(-2**31, 2**31, shape, generator=gen, device=dev,
+                         dtype=torch.int64).to(torch.int32)
+
+
+@pytest.mark.parametrize("n", [1, 300, 4097])
+@pytest.mark.parametrize("per_block", [False, True])
+def test_chacha_kernel_bitwise(cuda, n, per_block):
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    key = _words(gen, (8,), cuda)
+    ctr = _words(gen, (n,), cuda)
+    nz = _words(gen, (n, 3) if per_block else (3,), cuda)
+    got = CC.chacha20_blocks(key, ctr, nz)
+    torch.cuda.synchronize()
+    assert torch.equal(got, CC.chacha20_blocks_plain(key, ctr, nz))
+
+
+@pytest.mark.parametrize("m,k,n,bk,bn", [(4, 256, 192, 128, 64),
+                                         (33, 128, 136, 64, 8),
+                                         (70, 96, 32, 32, 32)])
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+def test_sealed_matmul_kernel_matches_plain(cuda, m, k, n, bk, bn, cdt):
+    gen = torch.Generator(device=cuda).manual_seed(m * k)
+    w = torch.randn((k, n), generator=gen, device=cuda)
+    x = torch.randn((m, k), generator=gen, device=cuda)
+    mask = torch.rand((k,), generator=gen, device=cuda) < 0.5
+    key, nonce = _words(gen, (8,), cuda), _words(gen, (3,), cuda)
+    wc = torch.tensor(u32.const(3), dtype=torch.int32, device=cuda)
+    ct = ref.seal_weights_ref(w, key, nonce, bk, bn, mask, wc)
+    before = SMK.sealed_matmul.launches
+    got = ops.sealed_matmul(x, ct, mask, key, nonce, wc, bk=bk, bn=bn,
+                            compute_dtype=cdt)
+    torch.cuda.synchronize()
+    assert SMK.sealed_matmul.launches == before + 1
+    want = SMK.sealed_matmul_plain(x, ct, mask, key, nonce, wc, bk=bk, bn=bn,
+                                   compute_dtype=cdt)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_sealed_serving_on_the_card_matches_cpu(cuda):
+    cfg = get_reduced("internlm2_1_8b").with_(dtype="float32")
+    params = T.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (5, 19, 40)]
+    outs = []
+    for dev, seal in (("cpu", None), (cuda, SealConfig())):
+        eng = ServeEngine(cfg, map_leaves(lambda t: t.to(dev), params),
+                          batch_slots=2, max_len=64, chunk_tokens=8,
+                          seal=seal, device=dev)
+        hs = [eng.submit(p, max_tokens=6) for p in prompts]
+        eng.run()
+        outs.append([h.out for h in hs])
+    assert outs[0] == outs[1]

@@ -1,0 +1,99 @@
+"""The port's fused decrypt-in-matmul (``kernels.sealed_matmul`` through
+``kernels.ops``) held against the JAX package on the CPU, where the wrapper
+takes the kernel's plain PyTorch version.
+
+Tolerances: in f32 the port multiplies the whole unsealed weight in one
+product while the Pallas kernel accumulates per k-tile, so they agree to f32
+summation order — rtol 1e-5, atol 1e-4, the reference's own kernel-vs-oracle
+tolerance (tests/test_kernels.py). With bf16 operands 2e-2, as
+tests/test_sealed_tensor.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as JO
+from repro.kernels import ref as JR
+from repro_torch import u32
+from repro_torch.kernels import ops as TO
+from repro_torch.kernels import ref as TR
+from repro_torch.kernels import sealed_matmul as TSM
+
+KEY = np.frombuffer(bytes(range(32)), np.uint32).copy()
+
+
+def _u32(rng, shape):
+    return rng.randint(0, 2**32, shape, dtype=np.uint64).astype(np.uint32)
+
+
+def _sealed_case(m, k, n, bk, bn, ratio, wc, seed=0):
+    rng = np.random.RandomState(seed)
+    w = rng.randn(k, n).astype(np.float32)
+    x = rng.randn(m, k).astype(np.float32)
+    mask = rng.rand(k) < ratio
+    nonce = _u32(rng, 3)
+    ct = np.asarray(JR.seal_weights_ref(jnp.asarray(w), jnp.asarray(KEY),
+                                        jnp.asarray(nonce), bk, bn,
+                                        jnp.asarray(mask), wc))
+    return w, x, mask, nonce, ct
+
+
+@pytest.mark.parametrize("ratio", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("wc", [0, 5])
+def test_sealed_matmul_plain_matches_oracle(ratio, wc):
+    m, k, n, bk, bn = 4, 64, 128, 32, 64
+    w, x, mask, nonce, ct = _sealed_case(m, k, n, bk, bn, ratio, wc)
+    want = np.asarray(JR.sealed_matmul_ref(
+        jnp.asarray(x), jnp.asarray(ct), jnp.asarray(KEY), jnp.asarray(nonce),
+        bk, bn, jnp.asarray(mask), wc))
+    got = TO.sealed_matmul(torch.from_numpy(x), u32.words(ct),
+                           torch.from_numpy(mask), u32.words(KEY),
+                           u32.words(nonce), wc, bk=bk, bn=bn)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+    own = TR.sealed_matmul_ref(torch.from_numpy(x), u32.words(ct),
+                               u32.words(KEY), u32.words(nonce), bk, bn,
+                               torch.from_numpy(mask), wc)
+    np.testing.assert_allclose(got.numpy(), own.numpy(), rtol=1e-5,
+                               atol=1e-4)
+
+
+def test_sealed_matmul_matches_pallas_interpret():
+    """One small shape against the Pallas kernel in interpret mode, with
+    bf16 operands, write counter 3 and a ragged M (not a multiple of bm)."""
+    m, k, n, bk, bn = 5, 32, 32, 32, 32
+    w, x, mask, nonce, ct = _sealed_case(m, k, n, bk, bn, 0.5, 3, seed=2)
+    want = np.asarray(JO.sealed_matmul(
+        jnp.asarray(x), jnp.asarray(ct), jnp.asarray(mask), jnp.asarray(KEY),
+        jnp.asarray(nonce), 3, bm=8, bk=bk, bn=bn, interpret=True,
+        compute_dtype="bfloat16"))
+    got = TO.sealed_matmul(torch.from_numpy(x), u32.words(ct),
+                           torch.from_numpy(mask), u32.words(KEY),
+                           u32.words(nonce), 3, bm=8, bk=bk, bn=bn,
+                           compute_dtype="bfloat16")
+    assert got.shape == (m, n)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-2, atol=2e-2)
+
+
+def test_sealed_matmul_bf16_rounds_operands():
+    m, k, n, bk, bn = 3, 64, 32, 64, 32
+    w, x, mask, nonce, ct = _sealed_case(m, k, n, bk, bn, 0.5, 0, seed=3)
+    got = TSM.sealed_matmul_plain(torch.from_numpy(x), u32.words(ct),
+                                  torch.from_numpy(mask), u32.words(KEY),
+                                  u32.words(nonce), 0, bk=bk, bn=bn,
+                                  compute_dtype="bfloat16")
+    want = jnp.dot(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16),
+                   preferred_element_type=jnp.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_ops_pads_m_like_the_reference():
+    """M above bm and not a multiple of it is padded and cut back."""
+    m, k, n, bk, bn = 9, 32, 32, 32, 32
+    w, x, mask, nonce, ct = _sealed_case(m, k, n, bk, bn, 1.0, 1, seed=5)
+    got = TO.sealed_matmul(torch.from_numpy(x), u32.words(ct),
+                           torch.from_numpy(mask), u32.words(KEY),
+                           u32.words(nonce), 1, bm=4, bk=bk, bn=bn)
+    assert got.shape == (m, n)
+    np.testing.assert_allclose(got.numpy(), x @ w, rtol=1e-4, atol=1e-3)
