@@ -8,15 +8,30 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (printing
 
 1. the ChaCha20 kernel against its plain PyTorch version, bitwise;
 2. the fused decrypt-in-matmul kernel against its plain version at the
-   full-width internlm2-1.8B shapes (wq, MLP wi/wo, LM head);
-3. sealed continuous-batching serving of internlm2-1.8B at full width (ColoE,
+   full-width internlm2-1.8B shapes (wq, MLP wi/wo, LM head), at decode M
+   and at a ragged prefill M of 1000 rows;
+3. the flash-attention kernel against its plain version: the reference
+   test's grid, the group prefill's full-width shape, a gemma2-like head
+   dim of 256 with window and softcap, and a short-query case, in f32 and
+   bf16;
+4. sealed continuous-batching serving of internlm2-1.8B at full width (ColoE,
    SE ratio 0.5, fused decrypt, sealed KV cache): 8 greedy requests through
    ``ServeEngine``, launch counts read around that run, the first decode
    tick's logits held against a plaintext engine's on the same tokens (in
    bf16, and in f32 where only sum order separates the two), and a
    reduced-size run on the card held against the CPU plain path;
-4. CUDA-event timings of both kernels and of one decode tick, each beside the
-   least time the card could take for the same work.
+5. sealed group-drain serving at full width: 8 greedy requests of 512-1024
+   prompt tokens through ``launch.serve.drive`` on a sealed
+   ``GroupServeEngine`` (one-shot prefill through the flash kernel) and a
+   plaintext one, launch counts read around the sealed run, teacher-forced
+   prefill and first-step logits sealed vs plaintext (bf16 and f32), and
+   one 1024-token prompt's one-shot prefill held against the chunked path
+   of phase 4;
+6. CUDA-event timings of the three kernels (flash beside
+   ``scaled_dot_product_attention`` as the library yardstick), of one decode
+   tick and of one group prefill and decode step, each kernel beside the
+   least time the card could take for the same work, and profiler splits of
+   sealed decode ticks and of a sealed group prefill.
 
 Every phase raises on failure, so the script exits non-zero. The line before
 the last is a JSON ``{"kernels": [...]}`` record; the last line is
@@ -50,12 +65,33 @@ CHACHA_XOR_OPS = 16       # XOR of one block into 16 ciphertext words
 
 SM_REPLACES = "src/repro/kernels/sealed_matmul.py:94"
 CC_REPLACES = "src/repro/kernels/chacha20.py:91"
+FA_REPLACES = "src/repro/kernels/flash_attention.py:88"
 
-# the serve phase: slots, requests and new tokens per request
+# the serve phases: slots, requests and new tokens per request
 SLOTS, REQUESTS, NEW_TOKENS = 4, 8, 16
+# the group phase's prompt lengths and contiguous cache length
+GROUP_PROMPT = (512, 1024)
+GROUP_MAX_LEN = 1040
+# the flash kernel's long-prompt timing shape: one sequence of this length
+FLASH_LONG = 8192
 # Kernel vs plain version, either compute dtype: both round the same operands
 # and sum in f32, so only the order of the sums separates them.
 KERNEL_TOL = 1e-4
+# Flash kernel vs plain version: both sum in f32, so in f32 they agree to
+# 2e-5 of the output scale. A bf16 output is held element by element against
+# the plain version's f32 result on the same bf16 inputs: one bf16 rounding
+# of each element (2^-8 of its size) plus the same 2e-5 of the scale.
+FLASH_TOL = 2e-5
+BF16_ROUNDING = 2.0 ** -8
+
+
+def flash_allowed(torch, want32, dtype):
+    """Per-element tolerance of a flash output in ``dtype`` against the plain
+    version's f32 result ``want32``."""
+    allowed = FLASH_TOL * want32.abs().max()
+    if dtype == torch.bfloat16:
+        allowed = allowed + BF16_ROUNDING * want32.abs()
+    return allowed
 
 
 def log(*a):
@@ -96,7 +132,7 @@ def main(argv=None) -> int:
     log(f"[build] {time.time() - t0:.1f} s")
     for name, text in reports.items():
         for line in text.splitlines():
-            if "ptxas" in line or "up to date" in line:
+            if "ptxas" in line or "spill" in line or "up to date" in line:
                 log(f"[build:{name}] {line.strip()}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -110,7 +146,9 @@ def main(argv=None) -> int:
     resolve_device(dev)
     report["chacha"] = phase_chacha(torch, dev, args.seed)
     report["sealed_matmul"] = phase_sealed_matmul(torch, dev, args.seed)
+    report["flash"] = phase_flash(torch, dev, args.seed)
     report["serve"] = phase_serve(torch, dev, args)
+    report["group"] = phase_group(torch, dev, args, report["serve"])
     report["timing"] = phase_timing(torch, dev, args, report)
 
     t = report["timing"]
@@ -137,6 +175,17 @@ def main(argv=None) -> int:
          "bound_by": t["chacha20"]["bound_by"],
          "library_ms": None,
          "shape": t["chacha20"]["shape"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": FA_REPLACES,
+         "launches": report["group"]["launches"]["flash_attention"],
+         "max_abs_err": report["flash"]["max_abs_err"],
+         "ms": t["flash_attention"]["ms"],
+         "plain_ms": t["flash_attention"]["plain_ms"],
+         "bound_ms": t["flash_attention"]["bound_ms"],
+         "bound_by": t["flash_attention"]["bound_by"],
+         "library_ms": t["flash_attention"]["library_ms"],
+         "shape": t["flash_attention"]["shape"]},
     ]
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
@@ -235,6 +284,9 @@ def phase_sealed_matmul(torch, dev, seed):
             mine = combos                  # the whole grid
         else:                              # each value of each axis
             mine = [c for i, c in enumerate(combos) if i % 4 == i // 4 % 4]
+        if name in ("wq", "mlp_wi"):       # the group prefill's ragged M
+            mine = mine + [(1000, 0.5, 5, cdt)
+                           for cdt in ("float32", "bfloat16")]
         by_seal = {}
         for m, ratio, wc, cdt in mine:
             by_seal.setdefault((ratio, wc), []).append((m, cdt))
@@ -273,7 +325,71 @@ def phase_sealed_matmul(torch, dev, seed):
 
 
 # --------------------------------------------------------------------------
-# phase 3: sealed serving at full width
+# phase 3: flash-attention kernel vs plain
+# --------------------------------------------------------------------------
+
+# b, s, t, hq, hkv, dh, window, softcap
+FLASH_CASES = [
+    (2, 256, 256, 4, 2, 32, 0, 0.0),          # the reference test's grid
+    (1, 512, 512, 8, 1, 32, 128, 50.0),
+    (2, 256, 256, 6, 6, 16, 0, 0.0),
+    (1, 128, 128, 2, 2, 64, 32, 0.0),
+    (4, 1000, 1000, 16, 8, 128, 0, 0.0),      # the group prefill, full width
+    (1, 4608, 4608, 8, 4, 256, 4096, 50.0),   # gemma2-like
+    (2, 300, 700, 16, 8, 128, 0, 0.0),        # s < t: top-left causal
+]
+
+
+def _flash_inputs(torch, gen, dev, b, s, t, hq, hkv, dh, dtype):
+    """q as a strided view (heads sliced out of a wider tensor), as the
+    model hands it over; k and v contiguous."""
+    q = torch.randn((b, s, hq + 1, dh), generator=gen, device=dev)[:, :, 1:]
+    k = torch.randn((b, t, hkv, dh), generator=gen, device=dev)
+    v = torch.randn((b, t, hkv, dh), generator=gen, device=dev)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def phase_flash(torch, dev, seed):
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    cases = []
+    for b, s, t, hq, hkv, dh, win, cap in FLASH_CASES:
+        for dname in ("float32", "bfloat16"):
+            q, k, v = _flash_inputs(torch, gen, dev, b, s, t, hq, hkv, dh,
+                                    getattr(torch, dname))
+            kw = dict(scale=dh ** -0.5, softcap=cap, window=win)
+            got = FA.flash_attention_cuda(q, k, v, **kw)
+            torch.cuda.synchronize()
+            # the plain version's f32 result on the same (bf16) inputs,
+            # before any rounding to the output dtype
+            want = FA.flash_attention_plain(q.float(), k.float(), v.float(),
+                                            **kw)
+            diff = (got.float() - want).abs()
+            err = float(diff.max())
+            scale = float(want.abs().max())
+            share = float((diff / flash_allowed(torch, want, q.dtype)).max())
+            rec = {"b": b, "s": s, "t": t, "hq": hq, "hkv": hkv, "dh": dh,
+                   "window": win, "softcap": cap, "dtype": dname,
+                   "max_abs_err": err, "out_scale": scale,
+                   "worst_share_of_tol": share}
+            cases.append(rec)
+            tol = (f"{FLASH_TOL:g} x scale" if dname == "float32" else
+                   f"2^-8 x |want| + {FLASH_TOL:g} x scale, per element")
+            log(f"[flash] b={b} s={s} t={t} heads {hq}/{hkv} dh={dh} "
+                f"window={win} softcap={cap} {dname}: max_abs_err={err:.3e} "
+                f"(scale {scale:.3e}; tol {tol}; worst element at "
+                f"{share:.3f} of its tol)")
+            if not (got.dtype == q.dtype and bool(torch.isfinite(got).all())
+                    and share <= 1.0):
+                raise AssertionError(f"flash kernel disagrees: {rec}")
+            del q, k, v, got, want, diff
+    torch.cuda.empty_cache()
+    return {"cases": cases,
+            "max_abs_err": max(c["max_abs_err"] for c in cases)}
+
+
+# --------------------------------------------------------------------------
+# phase 4: sealed serving at full width
 # --------------------------------------------------------------------------
 
 def _prompts(seed, count, vocab):
@@ -458,7 +574,131 @@ def _leaves(tree):
 
 
 # --------------------------------------------------------------------------
-# phase 4: timings
+# phase 5: sealed group-drain serving at full width
+# --------------------------------------------------------------------------
+
+def _group_tokens(torch, prompts, dev):
+    from repro_torch.serve.engine import right_align
+    return torch.from_numpy(right_align(prompts)).to(dev)
+
+
+def group_logits(torch, cfg, params, toks, forced, max_len):
+    """One-shot prefill of a group, then one decode step teacher-forced on
+    ``forced`` (or on the prefill argmax when None), through the functions
+    the group engine runs. Returns (prefill logits, step logits, forced)."""
+    from repro_torch.models import transformer as T
+    pre, cache = T.prefill(cfg, params, toks, max_len)
+    if forced is None:
+        forced = pre.argmax(dim=-1)
+    dec, _, _ = T.decode_step(cfg, params, cache, forced[:, None],
+                              toks.shape[1])
+    return pre, dec, forced
+
+
+def phase_group(torch, dev, args, serve):
+    import numpy as np
+    from repro_torch.config import SealConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import drive
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import GroupServeEngine
+
+    cfg, params = serve["engine"].cfg, serve["params"]
+    rng = np.random.RandomState(args.seed + 11)
+    prompts = [rng.randint(0, cfg.vocab_size,
+                           rng.randint(GROUP_PROMPT[0], GROUP_PROMPT[1] + 1)
+                           ).astype(np.int32) for _ in range(REQUESTS)]
+    out = {"prompt_lens": [len(p) for p in prompts]}
+    eng = GroupServeEngine(cfg, params, batch_slots=SLOTS,
+                           max_len=GROUP_MAX_LEN, seal=SealConfig(),
+                           device=dev)
+    arrivals = np.zeros((REQUESTS,))
+    kw = dict(max_tokens=NEW_TOKENS)
+    ops.reset_launch_counts()            # the group path starts here
+    torch.cuda.synchronize()
+    t0 = time.time()
+    handles = drive(eng, prompts, arrivals, kw)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()       # ... and ends here
+    out["serve_s"] = time.time() - t0
+    out["launches"] = launches
+    out["stats"] = dict(eng.stats)
+    st = eng.stats
+    dispatches = st["prefills"] + st["decode_steps"]
+    per_dispatch = cfg.n_superblocks() * (st["fused_matmul_leaves"] - 1) + 1
+    log(f"[group] sealed run: {out['serve_s']:.2f} s, prompts "
+        f"{min(out['prompt_lens'])}-{max(out['prompt_lens'])} tokens, "
+        f"{st['prefills']} prefills + {st['decode_steps']} decode steps, "
+        f"launches {launches}")
+    if not all(h.done and len(h.out) == NEW_TOKENS for h in handles):
+        raise AssertionError("not every group request completed")
+    if launches["sealed_matmul"] != dispatches * per_dispatch:
+        raise AssertionError(
+            f"sealed_matmul launched {launches['sealed_matmul']} times, "
+            f"expected {per_dispatch} per dispatch x {dispatches}")
+    if launches["flash_attention"] != st["prefills"] * cfg.num_layers:
+        raise AssertionError(
+            f"flash_attention launched {launches['flash_attention']} times, "
+            f"expected {cfg.num_layers} per prefill x {st['prefills']}")
+    if launches["chacha20"] <= 0:
+        raise AssertionError("the ChaCha kernel never ran on the group path")
+
+    plain = GroupServeEngine(cfg, params, batch_slots=SLOTS,
+                             max_len=GROUP_MAX_LEN, seal=None, device=dev)
+    ph = drive(plain, prompts, arrivals, kw)
+    same = sum(a == b for h, g in zip(handles, ph)
+               for a, b in zip(h.out, g.out))
+    total = sum(len(h.out) for h in handles)
+    out["greedy_agreement"] = same / total
+    log(f"[group] greedy tokens equal to the plaintext group engine's: "
+        f"{same}/{total} = {same / total:.3f}")
+
+    # teacher-forced prefill and first step, sealed vs plaintext, on the
+    # first group, both fed the plaintext prefill's argmax
+    toks = _group_tokens(torch, prompts[:SLOTS], dev)
+    cfg32 = cfg.with_(dtype="float32")
+    errs = {}
+    for label, c in (("bf16", cfg), ("f32", cfg32)):
+        pre_p, dec_p, forced = group_logits(torch, c, params, toks, None,
+                                            GROUP_MAX_LEN)
+        pre_s, dec_s, _ = group_logits(torch, c, eng.params(), toks, forced,
+                                       GROUP_MAX_LEN)
+        errs[label] = (_rel_err(torch, pre_s, pre_p),
+                       _rel_err(torch, dec_s, dec_p))
+    out["teacher_forced_rel_err"] = errs
+    log(f"[group] teacher-forced logits, sealed vs plaintext: bf16 prefill "
+        f"{errs['bf16'][0]:.3e}, first step {errs['bf16'][1]:.3e} (tol 2e-2);"
+        f" f32 {errs['f32'][0]:.3e}, {errs['f32'][1]:.3e} (tol 1e-4)")
+    if not max(errs["bf16"]) <= 2e-2:
+        raise AssertionError("sealed group logits disagree with plaintext")
+    if not max(errs["f32"]) <= 1e-4:
+        raise AssertionError("sealed f32 group logits disagree with "
+                             "plaintext")
+
+    # one unpadded prompt of the longest length, f32: the one-shot prefill
+    # (flash) against the chunked path of phase 4 (_sdpa over the paged
+    # view)
+    long_prompt = rng.randint(0, cfg.vocab_size, GROUP_PROMPT[1])
+    one_shot, _ = T.prefill(cfg32, params,
+                            torch.as_tensor(long_prompt[None]).to(dev),
+                            GROUP_MAX_LEN)
+    chunked, _, _ = first_tick_logits(torch, cfg32, params, None,
+                                      [long_prompt], None, dev)
+    err = _rel_err(torch, one_shot, chunked)
+    out["one_shot_vs_chunked_rel_err"] = err
+    log(f"[group] one-shot prefill vs chunked prefill, {len(long_prompt)} "
+        f"tokens, f32: "
+        f"max rel err {err:.3e} (tol 1e-4)")
+    if not err <= 1e-4:
+        raise AssertionError("one-shot prefill disagrees with the chunked "
+                             "path")
+    out["engine"], out["plain_engine"] = eng, plain
+    out["prompts"] = prompts
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 6: timings
 # --------------------------------------------------------------------------
 
 def _time_ms(torch, fn, iters, flush=None):
@@ -589,22 +829,94 @@ def phase_timing(torch, dev, args, report):
     log(f"[time] the tick's sealed matmuls at their bound: {b_ms:.3f} ms "
         f"({b_by}; {tb_bytes / 1e9:.2f} GB, {tb_ops / 1e9:.1f} G int ops)")
     out["decode_tick"] = ticks
-    out["tick_profile"] = _profile_ticks(torch, serve["engine"])
+    out["tick_profile"] = _profile(torch, serve["engine"]._decode_tick, 3,
+                                   "sealed decode ticks")
     for key_ in ("engine", "plain_engine", "params", "prompts"):
         serve.pop(key_)
+    out.update(_time_group(torch, dev, gen, flush, report["group"]))
     return out
 
 
-def _profile_ticks(torch, eng, ticks=3, top=12):
-    """Device time by kernel over a few sealed decode ticks, and the share
+def _time_group(torch, dev, gen, flush, group):
+    """The flash kernel at the group prefill's shape and at 8192 tokens,
+    beside its plain version, its bound and SDPA; one sealed and one
+    plaintext group prefill and decode step; a profile of a sealed
+    prefill."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as T
+    eng, plain = group["engine"], group["plain_engine"]
+    cfg = eng.cfg
+    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    toks = _group_tokens(torch, group["prompts"][:eng.slots], dev)
+    b, plen = toks.shape
+    out = {"flash_shapes": []}
+    for bb, ss in ((b, plen), (1, FLASH_LONG)):
+        q, k, v = _flash_inputs(torch, gen, dev, bb, ss, ss, hq, hkv, dh,
+                                torch.bfloat16)
+        q = q.contiguous()
+        scale = dh ** -0.5
+        run = lambda: FA.flash_attention_cuda(q, k, v, scale=scale)
+        ms = _time_ms(torch, run, 10, flush)
+        plain_ms = _time_ms(torch, lambda: FA.flash_attention_plain(
+            q, k, v, scale=scale), 2)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True, scale=scale)
+        lib_ms = _time_ms(torch, lib, 10, flush)
+        lib_err = float((lib().transpose(1, 2).float() - run().float())
+                        .abs().max())
+        nbytes = 2 * (2 * bb * ss * hq * dh + 2 * bb * ss * hkv * dh)
+        flops = 4.0 * bb * hq * dh * ss * (ss + 1) / 2
+        b_ms, b_by = bound_ms(nbytes, bf16_flops=flops)
+        rec = {"b": bb, "s": ss, "hq": hq, "hkv": hkv, "dh": dh,
+               "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "library_max_abs_diff": lib_err}
+        out["flash_shapes"].append(rec)
+        log(f"[time] flash_attention b={bb} s={ss} heads {hq}/{hkv} dh={dh}"
+            f" bf16: {ms:.4f} ms, plain {plain_ms:.3f} ms, SDPA {lib_ms:.4f}"
+            f" ms (max diff {lib_err:.2e}), bound {b_ms:.4f} ms ({b_by})")
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    f0 = out["flash_shapes"][0]
+    out["flash_attention"] = {
+        key: f0[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                 "bound_by")}
+    out["flash_attention"]["shape"] = (f"group prefill b={b} s={plen} "
+                                       f"{hq}/{hkv} heads dh={dh} bf16")
+
+    steps = {}
+    for label, e in (("sealed", eng), ("plaintext", plain)):
+        pre = lambda: T.prefill(cfg, e.params(), toks, e.max_len)
+        pre_ms = _time_ms(torch, pre, 3)
+        _, cache = pre()
+        nxt = toks[:, -1:]
+        step = lambda: T.decode_step(cfg, e.params(), cache, nxt, plen)
+        step_ms = _time_ms(torch, step, 5)
+        steps[label] = {"prefill_ms": pre_ms, "decode_step_ms": step_ms}
+        log(f"[time] group of {b} x {plen} tokens, {label}: prefill "
+            f"{pre_ms:.1f} ms, decode step {step_ms:.2f} ms (device events)")
+        del cache
+    out["group_steps"] = steps
+    out["prefill_profile"] = _profile(
+        torch, lambda: T.prefill(cfg, eng.params(), toks, eng.max_len), 1,
+        "sealed group prefill")
+    for key_ in ("engine", "plain_engine", "prompts"):
+        group.pop(key_)
+    return out
+
+
+def _profile(torch, fn, reps, label, top=12):
+    """Device time by kernel over ``reps`` calls of ``fn``, and the share
     of the window in which the device ran nothing (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        for _ in range(ticks):
-            eng._decode_tick()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.time() - t0)
     rows = []
@@ -619,11 +931,11 @@ def _profile_ticks(torch, eng, ticks=3, top=12):
             rows.append((dev_us, ev.key, ev.count))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    out = {"ticks": ticks, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    out = {"reps": reps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "idle_share": max(0.0, 1 - busy_ms / wall_ms),
            "top": [{"kernel": k[:90], "calls": c, "device_ms": us / 1e3}
                    for us, k, c in rows[:top]]}
-    log(f"[profile] {ticks} sealed decode ticks: wall {wall_ms:.2f} ms, "
+    log(f"[profile] {reps} {label}: wall {wall_ms:.2f} ms, "
         f"device busy {busy_ms:.2f} ms, idle share {out['idle_share']:.3f}")
     for r in out["top"]:
         log(f"[profile]   {r['device_ms']:9.3f} ms  x{r['calls']:<6d} "

@@ -20,7 +20,7 @@ from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("chacha20", "sealed_matmul")
+SOURCES = ("chacha20", "sealed_matmul", "flash_attention")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -1,5 +1,6 @@
 """Public wrappers over the port's kernels. Port of ``repro/kernels/ops.py``
-(``keystream``, ``sealed_matmul``).
+(``keystream``, ``sealed_matmul``), plus ``flash_attention``, which the
+reference calls straight from ``repro/kernels/flash_attention.py``.
 
 A CPU tensor takes a kernel's plain version; a CUDA tensor launches the
 kernel or raises — there is no fallback. ``launch_counts`` reads the plain
@@ -13,10 +14,12 @@ import torch
 
 from repro_torch import u32
 from repro_torch.kernels import chacha20 as _cc
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import sealed_matmul as _sm
 
 _COUNTED = {"chacha20": _cc.chacha20_blocks,
-            "sealed_matmul": _sm.sealed_matmul}
+            "sealed_matmul": _sm.sealed_matmul,
+            "flash_attention": _fa.flash_attention_cuda}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -60,3 +63,18 @@ def sealed_matmul(x, w_ct, row_mask, key_words, nonce_words,
                             write_counter, bk=bk, bn=bn,
                             compute_dtype=compute_dtype)
     return out[:m]
+
+
+def flash_attention(q, k, v, *, scale: float, softcap: float = 0.0,
+                    window: int = 0) -> torch.Tensor:
+    """Causal self-attention of q (b, s, hq, dh) over k, v (b, t, hkv, dh),
+    positions ``arange(s)`` and ``arange(t)``: optional tanh softcap and
+    sliding window, GQA by ``h // (hq // hkv)``; output in q's dtype. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel or
+    raises."""
+    if q.is_cuda:
+        return _fa.flash_attention_cuda(q, k, v, scale=scale, softcap=softcap,
+                                        window=window)
+    _fa.check(q, k, v, window)
+    return _fa.flash_attention_plain(q, k, v, scale=scale, softcap=softcap,
+                                     window=window)

@@ -1,31 +1,47 @@
-"""Residual attention blocks over the paged cache view. Port of
-``attn_block_sub_apply`` (modes ``decode`` and ``chunk``) and
-``block_apply`` from ``repro/models/blocks.py``. MoE, RG-LRU and SSD blocks
-and the train/prefill modes come with later slices.
+"""Residual attention blocks. Port of ``attn_block_sub_apply`` and
+``block_apply`` from ``repro/models/blocks.py``, in three modes:
+
+* ``prefill``: one-shot self-attention over the prompt (the flash kernel),
+  which returns the contiguous layer cache it fills;
+* ``decode``: attention into [cache ++ new kv], over the contiguous cache
+  (1-D positions, one for the whole batch) or the paged view (per-slot
+  (B, 1) positions);
+* ``chunk``: chunked prefill over the paged view.
+
+MoE, RG-LRU and SSD blocks and the train mode come with later slices.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.models import cache as MC
 from repro_torch.models import layers as L
 
 
 def attn_block_sub_apply(cfg: ModelConfig, kind: str, p, h, positions, mode,
                          cache):
-    """decode: attend into [cache view ++ new kv]; chunk: scatter the
-    chunk's new K/V into the dense view at their absolute positions (view
-    index == position), then attend. Returns (out, {"k_new", "v_new"})."""
+    """prefill: self-attention of the prompt at positions ``arange(s)``;
+    returns (out, new layer cache). decode: attend into [cache view ++ new
+    kv]; chunk: scatter the chunk's new K/V into the dense view at their
+    absolute positions (view index == position), then attend. Both return
+    (out, {"k_new", "v_new"})."""
     window = cfg.window if kind == "local_attn" else 0
+    if mode == "prefill":
+        return _prefill_sub_apply(cfg, p, h, positions, window, cache)
     k_new, v_new = L.project_kv(cfg, p, h, positions)
     dt = cache["k"].dtype
     k_new, v_new = k_new.to(dt), v_new.to(dt)
     if mode == "decode":
         k_att = torch.cat([cache["k"], k_new], dim=1)
         v_att = torch.cat([cache["v"], v_new], dim=1)
-        if positions.ndim != 2:
-            raise ValueError("paged decode takes per-slot (B, 1) positions")
-        pos_att = torch.cat([cache["pos"], positions], dim=1)
+        if positions.ndim == 2:
+            # paged: per-slot positions (B, 1), per-slot key positions
+            pos_att = torch.cat([cache["pos"], positions], dim=1)
+        else:
+            # contiguous: one position for the batch, key positions (L,)
+            pos_att = torch.cat([cache["pos"], positions[:1].to(
+                cache["pos"].dtype)])
     elif mode == "chunk":
         # rows are ragged: row i holds cache["cl"][i] real tokens; padded
         # tokens go to one extra column that is cut off again (the
@@ -50,6 +66,31 @@ def attn_block_sub_apply(cfg: ModelConfig, kind: str, p, h, positions, mode,
     out, _ = L.attention_apply(cfg, p, h, positions, window=window,
                                kv_override=(k_att, v_att, pos_att))
     return out, {"k_new": k_new, "v_new": v_new}
+
+
+def _prefill_sub_apply(cfg: ModelConfig, p, h, positions, window: int,
+                       cache):
+    """Self-attention of the prompt, then its K/V written into the layer's
+    contiguous cache of ``cache_len`` slots: padded with ``INVALID_POS``
+    slots when the prompt is shorter, else its last ``cache_len`` entries
+    rolled so that slot == position % cache_len (the ring the decode write
+    keeps)."""
+    out, (k, v) = L.attention_apply(cfg, p, h, positions, window=window)
+    cache_len = cache["k"].shape[1]
+    s = k.shape[1]
+    if s >= cache_len:
+        shift = (s - cache_len) % cache_len
+        ks = torch.roll(k[:, -cache_len:], shift, dims=1)
+        vs = torch.roll(v[:, -cache_len:], shift, dims=1)
+        ps = torch.roll(positions[-cache_len:], shift, dims=0)
+    else:
+        pad = cache_len - s
+        ks = torch.cat([k, k.new_zeros((k.shape[0], pad) + k.shape[2:])], 1)
+        vs = torch.cat([v, v.new_zeros((v.shape[0], pad) + v.shape[2:])], 1)
+        ps = torch.cat([positions, positions.new_full((pad,),
+                                                      MC.INVALID_POS)])
+    return out, {"k": ks.to(cache["k"].dtype), "v": vs.to(cache["v"].dtype),
+                 "pos": ps.to(torch.int32)}
 
 
 def block_apply(cfg: ModelConfig, kind: str, p, x, positions, mode, cache):

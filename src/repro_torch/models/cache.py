@@ -1,6 +1,13 @@
-"""Paged KV block pools and the host-side block allocator. Port of the
-paged half of ``repro/models/cache.py`` (``kv_words_per_token``,
+"""KV caches: the contiguous per-request caches of the one-shot prefill
+and its decode (``attn_cache_spec``/``attn_cache_init``,
+``block_cache_init``, ``model_cache_init``), the paged block pools and the
+host-side block allocator (``kv_words_per_token``,
 ``kv_to_words``/``words_to_kv``, ``paged_pool_init``, ``BlockAllocator``).
+Port of ``repro/models/cache.py``.
+
+A contiguous cache is one (batch, cache_len, kv_heads, head_dim) buffer per
+attention layer, with ``pos`` (cache_len,) the position each slot holds
+(``INVALID_POS`` while empty, which the causal mask hides).
 
 Pools hold raw u32 words (int32 bit patterns), so the sealed and plaintext
 paths share every byte of layout. Block 0 is the scratch block: inactive
@@ -17,6 +24,54 @@ from repro_torch.config import ModelConfig
 INVALID_POS = 2**30
 
 SCRATCH_BLOCK = 0
+
+# recurrent caches come with the slice that ports their blocks
+_RECURRENT_SLICE = ("{} caches come with the RG-LRU / SSD slice of the port "
+                    "(MoE, RG-LRU and SSD blocks)")
+
+
+def attn_cache_spec(cfg: ModelConfig, batch: int, cache_len: int, kind: str):
+    """{"k", "v", "pos": (shape, dtype)} of one attention layer's cache; a
+    sliding-window layer keeps ``min(cache_len, window)`` slots."""
+    if kind == "local_attn" and cfg.window:
+        cache_len = min(cache_len, cfg.window)
+    kv = ((batch, cache_len, cfg.num_kv_heads, cfg.head_dim),
+          getattr(torch, cfg.dtype))
+    return {"k": kv, "v": kv, "pos": ((cache_len,), torch.int32)}
+
+
+def attn_cache_init(cfg: ModelConfig, batch: int, cache_len: int, kind: str,
+                    device=None):
+    spec = attn_cache_spec(cfg, batch, cache_len, kind)
+    kv_shape, dt = spec["k"]
+    pos_shape, pos_dt = spec["pos"]
+    return {"k": torch.zeros(kv_shape, dtype=dt, device=device),
+            "v": torch.zeros(kv_shape, dtype=dt, device=device),
+            "pos": torch.full(pos_shape, INVALID_POS, dtype=pos_dt,
+                              device=device)}
+
+
+def block_cache_init(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
+                     device=None):
+    if kind in ("attn", "local_attn"):
+        return attn_cache_init(cfg, batch, cache_len, kind, device)
+    if kind in ("rglru", "ssd"):
+        raise NotImplementedError(_RECURRENT_SLICE.format(kind))
+    raise ValueError(kind)
+
+
+def model_cache_init(cfg: ModelConfig, batch: int, cache_len: int,
+                     device=None):
+    """Tuple over pattern positions of the layer cache stacked over
+    super-blocks: k, v (n_super, batch, cache_len, kv_heads, head_dim), pos
+    (n_super, cache_len)."""
+    n = cfg.n_superblocks()
+    out = []
+    for kind in cfg.pattern:
+        one = block_cache_init(cfg, kind, batch, cache_len, device)
+        out.append({k: t[None].repeat((n,) + (1,) * t.ndim)
+                    for k, t in one.items()})
+    return tuple(out)
 
 
 def kv_words_per_token(cfg: ModelConfig) -> int:

@@ -1,5 +1,6 @@
-"""Layer math: dense contractions (plain or sealed), norms, RoPE, attention,
-dense MLP. Port of the serving half of ``repro/models/layers.py``.
+"""Layer math: dense contractions (plain or sealed), norms, RoPE, attention
+(self-attention through the flash kernel, cache attention through
+``_sdpa``), dense MLP. Port of the serving half of ``repro/models/layers.py``.
 
 Conventions as in the reference: params are f32, compute is ``cfg.dtype``
 with f32 softmax and norm accumulation; activations (batch, seq, d_model)
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.sealed_tensor import SealedTensor
+from repro_torch.kernels import ops
 
 
 def cdtype(cfg: ModelConfig) -> torch.dtype:
@@ -160,21 +162,33 @@ def _sdpa(q, k, v, mask, attn_softcap: float, scale: float):
 
 
 def attention_apply(cfg: ModelConfig, p, x, positions, *, window: int,
-                    kv_override):
-    """Attention of x's queries into ``kv_override = (k, v, k_positions)``
-    (the paged view, with the new keys already in it). Returns (out, (k, v)).
-    The self-attention branch (training / one-shot prefill) comes with a
-    later slice."""
-    if kv_override is None:
-        raise NotImplementedError(
-            "self-attention without a cache view is not ported yet")
+                    kv_override=None):
+    """Attention of x's queries; returns (out, (k, v)).
+
+    Without ``kv_override`` (the one-shot prefill): self-attention over x's
+    own k and v at 1-D ``positions`` that must be ``arange(s)``, through the
+    flash kernel (``kernels/ops.py::flash_attention``: the Pallas kernel's
+    function). The reference's ``impl="naive"`` (``_sdpa``) and
+    ``impl="blockwise"`` (above 8192 tokens) compute that same function and
+    both route here. With ``kv_override = (k, v, k_positions)`` (the paged
+    view with the new keys already in it, or the contiguous cache at decode):
+    masked attention into that view through ``_sdpa``, since its query
+    positions are per row, not the kernel's ``arange``."""
     dt = cdtype(cfg)
     xb = x.to(dt)
     q = dense(xb, p["wq"], "bsd,dhk->bshk", dt)
-    k, v, k_positions = kv_override
     q = apply_rope(q, positions, cfg.rope_theta)
-    mask = _attn_mask(positions, k_positions, window)
-    out = _sdpa(q, k, v, mask, cfg.attn_softcap, cfg.head_dim ** -0.5)
+    scale = cfg.head_dim ** -0.5
+    if kv_override is None:
+        if positions.ndim != 1:
+            raise ValueError("self-attention takes 1-D positions arange(s)")
+        k, v = project_kv(cfg, p, x, positions)
+        out = ops.flash_attention(q, k, v, scale=scale,
+                                  softcap=cfg.attn_softcap, window=window)
+    else:
+        k, v, k_positions = kv_override
+        mask = _attn_mask(positions, k_positions, window)
+        out = _sdpa(q, k, v, mask, cfg.attn_softcap, scale)
     y = dense(out, p["wo"], "bshk,hkd->bsd", dt)
     return y, (k, v)
 

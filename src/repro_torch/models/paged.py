@@ -22,13 +22,11 @@ import torch
 from repro_torch import u32
 from repro_torch.config import ModelConfig
 from repro_torch.core.sealed_store import CacheSeal
-from repro_torch.core.sealed_tensor import slice_layer
 from repro_torch.kernels import ref as KR
 from repro_torch.models import blocks as B
 from repro_torch.models import cache as MC
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.tree import map_leaves
 
 
 def _dense_view(cfg: ModelConfig, seal: Optional[CacheSeal], pool_j,
@@ -67,7 +65,7 @@ def _dense_view(cfg: ModelConfig, seal: Optional[CacheSeal], pool_j,
 
 
 def _layer_slices(params, pools, j: int, i: int):
-    p = map_leaves(lambda t: slice_layer(t, i), params["blocks"][j])
+    p = T.layer_params(params, j, i)
     pool = {"k": pools[j]["k"][i], "v": pools[j]["v"][i],
             "lid": pools[j]["lid"][i]}
     return p, pool

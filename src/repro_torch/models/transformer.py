@@ -1,19 +1,27 @@
-"""Top-level LM pieces the serving path uses. Port of ``_embed``,
-``_unembed`` and ``init_params`` from ``repro/models/transformer.py``.
+"""Top-level LM: init, the one-shot prefill and the contiguous-cache decode
+step. Port of ``init_params``, ``_embed``, ``_unembed``, ``_run_layers``
+(modes ``prefill`` and ``decode``), ``prefill_hidden``, ``prefill``,
+``apply_cache_updates`` and ``decode_step`` from
+``repro/models/transformer.py``.
 
 ``init_params`` builds the reference's tree (same paths, shapes and scales)
 from a ``torch.Generator``; its numbers differ from ``jax.random``'s, so the
 tests feed both packages converted JAX weights instead
-(``repro_torch.convert``). The layer loop over super-blocks lives in
-``models/paged.py`` as a Python loop (the reference scans).
+(``repro_torch.convert``). The reference's ``lax.scan`` over super-blocks is
+a Python loop over layers (here and in ``models/paged.py``), and the
+reference's ``batch`` dict is the token tensor itself.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.core.sealed_tensor import slice_layer
 from repro_torch.device import resolve_device
+from repro_torch.models import blocks as B
+from repro_torch.models import cache as MC
 from repro_torch.models import layers as L
+from repro_torch.tree import map_leaves
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None):
@@ -75,3 +83,70 @@ def _unembed(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
         # the head may arrive still sealed (tile layout) on the serving path
         logits = L.dense(x.to(dt), params["head"]["w"], "bsd,dv->bsv", dt)
     return L.softcap(logits.float(), cfg.logit_softcap)
+
+
+def layer_params(params, j: int, i: int):
+    """Pattern position j's params of super-block i (a sealed leaf stays
+    sealed: ``slice_layer`` takes its slice)."""
+    return map_leaves(lambda t: slice_layer(t, i), params["blocks"][j])
+
+
+def _run_layers(cfg: ModelConfig, params, x, positions, mode, cache):
+    """The super-block stack. prefill: ``cache`` is the empty contiguous
+    cache that gives each layer its slot count; returns (x, filled cache).
+    decode: returns (x, per pattern position {"k_new", "v_new"} stacked
+    (n_super, B, 1, kv_heads, head_dim)) for ``apply_cache_updates``."""
+    outs = [[] for _ in cfg.pattern]
+    for i in range(cfg.n_superblocks()):
+        for j, kind in enumerate(cfg.pattern):
+            c = {key: t[i] for key, t in cache[j].items()}
+            x, out, _ = B.block_apply(cfg, kind, layer_params(params, j, i),
+                                      x, positions, mode, c)
+            outs[j].append(out)
+    return x, tuple({key: torch.stack([o[key] for o in oj]) for key in oj[0]}
+                    for oj in outs)
+
+
+def prefill_hidden(cfg: ModelConfig, params, tokens: torch.Tensor,
+                   cache_len: int):
+    """Prompt pass up to the final norm over tokens (B, S) at positions
+    ``arange(S)``: (normed hidden (B, S, D), contiguous cache)."""
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    cache0 = MC.model_cache_init(cfg, x.shape[0], cache_len, x.device)
+    x, cache = _run_layers(cfg, params, x, positions, "prefill", cache0)
+    return L.apply_norm(cfg, params["final_norm"], x), cache
+
+
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache_len: int):
+    """Run the prompt; returns (logits at the last position (B, V) f32,
+    cache)."""
+    x, cache = prefill_hidden(cfg, params, tokens, cache_len)
+    return _unembed(cfg, params, x[:, -1:])[:, 0], cache
+
+
+def apply_cache_updates(cfg: ModelConfig, cache, updates, pos: int):
+    """Write each attention layer's new K/V at slot ``pos % cache_len`` (the
+    ring of a sliding window) and mark the slot with ``pos``. Updates
+    ``cache`` IN PLACE, where the reference builds a new one, so a decode
+    step copies one token's K/V per layer and not the cache; returns it."""
+    for cj, uj in zip(cache, updates):
+        slot = pos % cj["k"].shape[2]
+        cj["k"][:, :, slot] = uj["k_new"][:, :, 0]
+        cj["v"][:, :, slot] = uj["v_new"][:, :, 0]
+        cj["pos"][:, slot] = pos
+    return cache
+
+
+def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
+                pos: int):
+    """One serve step: tokens (B, 1) at position ``pos`` (a host int)
+    against the contiguous cache, which is updated in place. Returns
+    (logits (B, V) f32, cache, next_token (B,) greedy)."""
+    x = _embed(cfg, params, tokens)
+    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    x, updates = _run_layers(cfg, params, x, positions, "decode", cache)
+    cache = apply_cache_updates(cfg, cache, updates, pos)
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    logits = _unembed(cfg, params, x)[:, 0]
+    return logits, cache, torch.argmax(logits, dim=-1)

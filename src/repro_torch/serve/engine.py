@@ -1,5 +1,7 @@
-"""Continuous-batching serving over the paged, sealed KV cache. Port of
-``repro/serve/engine.py::ServeEngine``.
+"""Serving engines over the sealed weights. Port of
+``repro/serve/engine.py`` (``ServeEngine``, ``GroupServeEngine``).
+
+``ServeEngine`` is the continuous batcher over the paged, sealed KV cache.
 
 A fixed set of decode slots with admission and eviction at every step. The
 per-slot scheduler state (block tables, lengths, write counters, last
@@ -15,9 +17,15 @@ ciphertext up to the fused decrypt-in-matmul kernel; with ``seal_cache``
 ``seal`` the engine keeps the matmul weights and the embedding table once in
 the compute dtype (``_plain_weights``): the roundings every use makes anyway.
 
+``GroupServeEngine`` is the group-drain baseline: prefill a group of
+prompts in one shot (self-attention through the flash kernel), then decode
+over a contiguous, plaintext KV cache until every member finishes. The
+reference keeps it for benchmark comparison and for recurrent/SSD
+architectures.
+
 Not ported yet, and refused: ``prefix_share`` (copy-on-write prefix
 sharing), ``verify`` (MACs) and ``fault_hooks`` (tamper injection), and
-sampling other than greedy. ``GroupServeEngine`` comes later as well.
+sampling other than greedy.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from repro_torch.config import ModelConfig, SealConfig
 from repro_torch.core import sealed_store as SS
 from repro_torch.device import resolve_device
 from repro_torch.models import cache as MC
+from repro_torch.models import transformer as T
 from repro_torch.serve import sampling as SM
 from repro_torch.serve import step as ST
 from repro_torch.tree import flatten_with_path, leaves, map_leaves, unflatten
@@ -88,7 +97,8 @@ class ServeEngine:
                  admit_batch: Optional[int] = None,
                  prefix_share: bool = False,
                  chunk_tokens: Optional[int] = None,
-                 verify: bool = False, fault_hooks=(), device=None):
+                 verify: bool = False, fault_hooks=(),
+                 max_run_steps: Optional[int] = None, device=None):
         if prefix_share:
             raise NotImplementedError(
                 "prefix sharing (copy-on-write blocks, PrefixRegistry) comes "
@@ -115,6 +125,7 @@ class ServeEngine:
         self.seal_cache = seal_cache
         self.seal = seal
         self.key_bytes = key_bytes
+        self.max_run_steps = max_run_steps
         self.sealed = (SS.seal_params(params, seal, key_bytes)
                        if weights_sealed else None)
         self._plain_params = (None if weights_sealed
@@ -212,7 +223,9 @@ class ServeEngine:
 
     def run(self, max_steps: Optional[int] = None) -> List[Request]:
         """Drain queue and in-flight work; returns the requests completed
-        by this call. ``max_steps`` bounds the scheduler steps."""
+        by this call. ``max_steps`` (default: the engine's
+        ``max_run_steps``) bounds the scheduler steps."""
+        limit = max_steps if max_steps is not None else self.max_run_steps
         n0 = len(self._done)
         steps = 0
         while self.busy:
@@ -224,9 +237,9 @@ class ServeEngine:
             if after == before:
                 raise RuntimeError("scheduler made no progress")
             steps += 1
-            if max_steps is not None and steps >= max_steps and self.busy:
+            if limit is not None and steps >= limit and self.busy:
                 raise StragglerTimeout(
-                    f"serve drain exceeded {max_steps} steps with work still "
+                    f"serve drain exceeded {limit} steps with work still "
                     f"in flight ({len(self.queue)} queued)")
         return self._done[n0:]
 
@@ -367,3 +380,126 @@ class ServeEngine:
             self._last_tok[slot] = 0
             self._active[slot] = None
             self._pending[slot] = None
+
+
+def right_align(prompts) -> np.ndarray:
+    """A group's prompts as one (B, max length) int64 array, each
+    right-aligned after token-0 left padding (the group engine's layout)."""
+    plen = max(len(p) for p in prompts)
+    toks = np.zeros((len(prompts), plen), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, plen - len(p):] = p
+    return toks
+
+
+class GroupServeEngine:
+    """Group-drain baseline: prefill a fixed group, decode greedily until
+    every member finishes; finished slots idle until the group drains.
+
+    Prompts of a group are right-aligned with token-0 left padding at
+    positions ``arange(plen)`` and no padding mask, as in the reference.
+    Sealed: the weights are sealed once and every dispatch reads them
+    through ``fused_params`` (line leaves decrypted, tile leaves decrypted
+    inside the fused matmul). The contiguous KV cache is never sealed.
+    """
+
+    def __init__(self, cfg: ModelConfig, params, *, batch_slots: int = 4,
+                 max_len: int = 256, seal: Optional[SealConfig] = None,
+                 key_bytes: bytes = bytes(range(32)), device=None):
+        if cfg.frontend is not None:
+            raise ValueError("serving targets token architectures")
+        self.device = resolve_device(device)
+        params = map_leaves(lambda t: t.to(self.device), params)
+        self.cfg = cfg
+        self.slots = batch_slots
+        self.max_len = max_len
+        self.seal = seal
+        self.key_bytes = key_bytes
+        weights_sealed = seal is not None and seal.mode != "none"
+        self.sealed = (SS.seal_params(params, seal, key_bytes)
+                       if weights_sealed else None)
+        self._plain_params = (None if weights_sealed
+                              else _plain_weights(cfg, params))
+        self._next_rid = 0
+        self.queue: List[Request] = []
+        # the contiguous cache is never sealed: its KV image is plaintext
+        itemsize = torch.empty((), dtype=getattr(torch, cfg.dtype)
+                               ).element_size()
+        kv_pt = (2 * cfg.n_superblocks() * len(cfg.pattern) * batch_slots
+                 * max_len * cfg.num_kv_heads * cfg.head_dim * itemsize)
+        w_pt = (self.sealed.plaintext_bytes_materialized() if self.sealed
+                else sum(t.numel() * t.element_size()
+                         for t in leaves(self._plain_params)))
+        self.stats = {"prefills": 0, "decode_steps": 0, "tokens": 0,
+                      "fused_matmul_leaves": (len(self.sealed.fused_paths())
+                                              if self.sealed else 0),
+                      "weights_plaintext_bytes_per_step": w_pt,
+                      "kv_plaintext_bytes_per_step": kv_pt,
+                      "plaintext_bytes_per_step": w_pt + kv_pt}
+
+    def params(self):
+        """The serving view for one dispatch (see ``ServeEngine.params``)."""
+        if self.sealed is None:
+            return self._plain_params
+        return SS.fused_params(self.sealed, self.key_bytes)
+
+    def submit(self, prompt, max_tokens: int = 32, eos: int = -1,
+               temperature: float = 0.0, top_k: int = 0,
+               top_p: float = 1.0) -> Request:
+        SM.check_greedy(temperature, top_k, top_p)
+        r = Request(self._next_rid, np.asarray(prompt, np.int32), max_tokens,
+                    eos, t_submit=time.time())
+        self._next_rid += 1
+        self.queue.append(r)
+        return r
+
+    @property
+    def busy(self) -> bool:
+        return bool(self.queue)
+
+    def run(self) -> List[Request]:
+        """Drain the queue; returns completed requests."""
+        done: List[Request] = []
+        while self.queue:
+            group = self.queue[:self.slots]
+            self.queue = self.queue[self.slots:]
+            done.extend(self._run_group(group))
+        return done
+
+    def _run_group(self, group: List[Request]) -> List[Request]:
+        toks = right_align([r.prompt for r in group])
+        plen = toks.shape[1]
+        logits, cache = T.prefill(self.cfg, self.params(),
+                                  torch.from_numpy(toks).to(self.device),
+                                  self.max_len)
+        self.stats["prefills"] += 1
+        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        for i, r in enumerate(group):
+            r.out.append(int(nxt[i]))
+        pos = plen
+        max_new = max(r.max_tokens for r in group)
+        for _ in range(1, max_new):
+            if pos >= self.max_len:
+                break
+            tokens = torch.from_numpy(nxt[:, None]).to(self.device)
+            _, cache, tok = T.decode_step(self.cfg, self.params(), cache,
+                                          tokens, pos)
+            self.stats["decode_steps"] += 1
+            nxt = tok.cpu().numpy()            # the one d2h copy per step
+            pos += 1
+            for i, r in enumerate(group):
+                if r.done:
+                    continue
+                nt = int(nxt[i])
+                r.out.append(nt)
+                self.stats["tokens"] += 1
+                if len(r.out) >= r.max_tokens or nt == r.eos:
+                    r.done = True
+                    r.t_done = time.time()
+            if all(r.done for r in group):
+                break
+        for r in group:
+            if not r.done:
+                r.done = True
+                r.t_done = time.time()
+        return group

@@ -6,8 +6,11 @@ for the card and skips without one. On a machine with a card:
 
 Tolerances: keystreams bitwise; the fused matmul against the plain version
 at 1e-4 of the output scale in f32 and in bf16 (both round the same operands
-and sum in f32; only the order of the sums differs); the card's sealed
-logits against the CPU's plain f32 logits at 1e-4 relative.
+and sum in f32; only the order of the sums differs); flash attention against
+its plain version at 2e-5 of the output scale in f32 and 1e-2 in bf16 (both
+sum in f32; bf16 outputs may differ by the final rounding, one bf16 ulp);
+the card's sealed logits and the group engine's tokens against the CPU's
+plain f32 path at 1e-4 relative and exactly.
 """
 import numpy as np
 import pytest
@@ -17,10 +20,11 @@ from repro_torch import u32
 from repro_torch.config import SealConfig
 from repro_torch.configs import get_reduced
 from repro_torch.kernels import chacha20 as CC
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sealed_matmul as SMK
 from repro_torch.models import transformer as T
-from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.engine import GroupServeEngine, ServeEngine
 from repro_torch.tree import map_leaves
 
 pytestmark = pytest.mark.gpu
@@ -82,6 +86,63 @@ def test_sealed_serving_on_the_card_matches_cpu(cuda):
         eng = ServeEngine(cfg, map_leaves(lambda t: t.to(dev), params),
                           batch_slots=2, max_len=64, chunk_tokens=8,
                           seal=seal, device=dev)
+        hs = [eng.submit(p, max_tokens=6) for p in prompts]
+        eng.run()
+        outs.append([h.out for h in hs])
+    assert outs[0] == outs[1]
+
+
+FLASH_CASES = [  # b, s, t, hq, hkv, dh, window, softcap
+    (2, 256, 256, 4, 2, 32, 0, 0.0),        # the reference test's grid
+    (1, 512, 512, 8, 1, 32, 128, 50.0),
+    (2, 256, 256, 6, 6, 16, 0, 0.0),
+    (1, 128, 128, 2, 2, 64, 32, 0.0),
+    (2, 200, 200, 4, 2, 128, 0, 0.0),       # ragged tail, internlm2 heads
+    (1, 300, 300, 4, 2, 256, 100, 30.0),    # gemma2-like head dim
+    (1, 96, 160, 2, 1, 64, 0, 0.0),         # s < t: top-left causal
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_kernel_matches_plain(cuda, case, dtype):
+    b, s, t, hq, hkv, dh, win, cap = case
+    gen = torch.Generator(device=cuda).manual_seed(s * dh + win)
+    # q is a strided view (heads sliced out of a wider tensor), as the
+    # model hands it over
+    q = torch.randn((b, s, hq + 1, dh), generator=gen, device=cuda)[:, :, 1:]
+    k = torch.randn((b, t, hkv, dh), generator=gen, device=cuda)
+    v = torch.randn((b, t, hkv, dh), generator=gen, device=cuda)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    kw = dict(scale=dh ** -0.5, softcap=cap, window=win)
+    before = FA.flash_attention_cuda.launches
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FA.flash_attention_cuda.launches == before + 1
+    # the plain version's f32 result on the same inputs, before rounding to
+    # the output dtype: f32 agrees to 2e-5 of the scale, and bf16 adds one
+    # rounding of each element (2^-8 of its size)
+    want = FA.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    assert got.dtype == dtype and got.shape == (b, s, hq, dh)
+    allowed = 2e-5 * want.abs().max()
+    if dtype == torch.bfloat16:
+        allowed = allowed + 2.0 ** -8 * want.abs()
+    diff = (got.float() - want).abs()
+    assert bool((diff <= allowed).all()), float((diff / allowed).max())
+
+
+def test_group_engine_on_the_card_matches_cpu(cuda):
+    """The sealed group engine (one-shot prefill through the flash kernel)
+    on the card emits the CPU plaintext engine's greedy tokens, in f32."""
+    cfg = get_reduced("internlm2_1_8b").with_(dtype="float32")
+    params = T.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (7, 19, 40, 33)]
+    outs = []
+    for dev, seal in (("cpu", None), (cuda, SealConfig())):
+        eng = GroupServeEngine(cfg, map_leaves(lambda t: t.to(dev), params),
+                               batch_slots=2, max_len=64, seal=seal,
+                               device=dev)
         hs = [eng.submit(p, max_tokens=6) for p in prompts]
         eng.run()
         outs.append([h.out for h in hs])

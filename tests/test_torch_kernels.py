@@ -132,4 +132,7 @@ def test_launch_counts_untouched_on_cpu():
     """CPU tensors take the plain versions: no kernel launch is counted."""
     TO.reset_launch_counts()
     TO.keystream(u32.words(KEY), u32.words([1, 2, 3]), 4)
-    assert TO.launch_counts() == {"chacha20": 0, "sealed_matmul": 0}
+    q = torch.zeros((1, 5, 2, 8))
+    TO.flash_attention(q, q, q, scale=1.0)
+    assert TO.launch_counts() == {"chacha20": 0, "sealed_matmul": 0,
+                                  "flash_attention": 0}
