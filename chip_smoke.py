@@ -4,16 +4,21 @@
     python3 chip_smoke.py [--seed 0] [--report out.json]
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (printing
-``-Xptxas -v``), prints the card's name and power limit, and then runs:
+``-Xptxas -v`` and, from ``cuobjdump -sass``, each library's count of
+tensor-core instructions), prints the card's name and power limit, and then
+runs:
 
 1. the ChaCha20 kernel against its plain PyTorch version, bitwise;
-2. the fused decrypt-in-matmul kernel against its plain version at the
-   full-width internlm2-1.8B shapes (wq, MLP wi/wo, LM head), at decode M
-   and at a ragged prefill M of 1000 rows;
-3. the flash-attention kernel against its plain version: the reference
+2. both fused decrypt-in-matmul kernels against their plain version at the
+   full-width internlm2-1.8B shapes (wq, MLP wi/wo, LM head): the CUDA-core
+   kernel at decode M and at a ragged M of 1000 rows, the tensor-core kernel
+   at M of 128, 1000 and 3560 (the group prefill's), SE 0/0.5/1, write
+   counters 0 and 5;
+3. both flash-attention kernels against their plain version: the reference
    test's grid, the group prefill's full-width shape, a gemma2-like head
    dim of 256 with window and softcap, and a short-query case, in f32 and
-   bf16;
+   bf16 through the CUDA-core kernel, and the bf16 cases of head dim 64 and
+   128 through the tensor-core kernel under ``flash_attention.bf16_gate``;
 4. sealed continuous-batching serving of internlm2-1.8B at full width (ColoE,
    SE ratio 0.5, fused decrypt, sealed KV cache): 8 greedy requests through
    ``ServeEngine``, launch counts read around that run, the first decode
@@ -27,11 +32,13 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (printing
    prefill and first-step logits sealed vs plaintext (bf16 and f32), and
    one 1024-token prompt's one-shot prefill held against the chunked path
    of phase 4;
-6. CUDA-event timings of the three kernels (flash beside
-   ``scaled_dot_product_attention`` as the library yardstick), of one decode
-   tick and of one group prefill and decode step, each kernel beside the
-   least time the card could take for the same work, and profiler splits of
-   sealed decode ticks and of a sealed group prefill.
+6. CUDA-event timings of every kernel variant, old beside new (flash beside
+   ``scaled_dot_product_attention`` under each backend that runs, the
+   fastest as the library yardstick), of one decode tick and of one group
+   prefill and decode step, each kernel beside the least time the card
+   could take for the same work, and profiler splits of sealed decode ticks
+   and of a sealed and a plaintext group prefill. A device-side sleep before each timed
+   launch keeps the host's dispatch out of the timed window.
 
 Every phase raises on failure, so the script exits non-zero. The line before
 the last is a JSON ``{"kernels": [...]}`` record; the last line is
@@ -77,12 +84,17 @@ FLASH_LONG = 8192
 # Kernel vs plain version, either compute dtype: both round the same operands
 # and sum in f32, so only the order of the sums separates them.
 KERNEL_TOL = 1e-4
-# Flash kernel vs plain version: both sum in f32, so in f32 they agree to
-# 2e-5 of the output scale. A bf16 output is held element by element against
-# the plain version's f32 result on the same bf16 inputs: one bf16 rounding
-# of each element (2^-8 of its size) plus the same 2e-5 of the scale.
+# CUDA-core flash kernel vs plain version: both sum in f32, so in f32 they
+# agree to 2e-5 of the output scale. A bf16 output is held element by element
+# against the plain version's f32 result on the same bf16 inputs: one bf16
+# rounding of each element (2^-8 of its size) plus the same 2e-5 of the
+# scale. The tensor-core kernel rounds the probabilities to bf16 before
+# p @ v, and is held to flash_attention.bf16_gate instead.
 FLASH_TOL = 2e-5
 BF16_ROUNDING = 2.0 ** -8
+# device-side sleep before each timed launch (about 1 ms), so that the host
+# has enqueued the start event and the launch before the device reaches them
+SLEEP_CYCLES = 2_000_000
 
 
 def flash_allowed(torch, want32, dtype):
@@ -134,13 +146,21 @@ def main(argv=None) -> int:
         for line in text.splitlines():
             if "ptxas" in line or "spill" in line or "up to date" in line:
                 log(f"[build:{name}] {line.strip()}")
+    sass = _build.sass_counts()
+    for name, counts in sass.items():
+        log(f"[build:{name}] SASS tensor-core instructions: "
+            + ", ".join(f"{op} {n}" for op, n in counts.items()))
+    for name in ("sealed_matmul_tc", "flash_attention_tc"):
+        if not sass[name]["HGMMA"]:
+            raise AssertionError(f"{name} has no wgmma (HGMMA) instruction")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     log(card)
 
-    report = {"card": card, "device": torch.cuda.get_device_name(0)}
+    report = {"card": card, "device": torch.cuda.get_device_name(0),
+              "sass": sass}
     dev = torch.device("cuda")
     from repro_torch.device import resolve_device
     resolve_device(dev)
@@ -151,42 +171,7 @@ def main(argv=None) -> int:
     report["group"] = phase_group(torch, dev, args, report["serve"])
     report["timing"] = phase_timing(torch, dev, args, report)
 
-    t = report["timing"]
-    kernels = [
-        {"name": "sealed_matmul", "route": "cuda",
-         "source": "src/repro_torch/csrc/sealed_matmul.cu",
-         "replaces": SM_REPLACES,
-         "launches": report["serve"]["launches"]["sealed_matmul"],
-         "max_abs_err": report["sealed_matmul"]["max_abs_err"],
-         "ms": t["sealed_matmul"]["ms"],
-         "plain_ms": t["sealed_matmul"]["plain_ms"],
-         "bound_ms": t["sealed_matmul"]["bound_ms"],
-         "bound_by": t["sealed_matmul"]["bound_by"],
-         "library_ms": None,
-         "shape": t["sealed_matmul"]["shape"]},
-        {"name": "chacha20", "route": "cuda",
-         "source": "src/repro_torch/csrc/chacha20.cu",
-         "replaces": CC_REPLACES,
-         "launches": report["serve"]["launches"]["chacha20"],
-         "max_abs_err": report["chacha"]["max_abs_err"],
-         "ms": t["chacha20"]["ms"],
-         "plain_ms": t["chacha20"]["plain_ms"],
-         "bound_ms": t["chacha20"]["bound_ms"],
-         "bound_by": t["chacha20"]["bound_by"],
-         "library_ms": None,
-         "shape": t["chacha20"]["shape"]},
-        {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/csrc/flash_attention.cu",
-         "replaces": FA_REPLACES,
-         "launches": report["group"]["launches"]["flash_attention"],
-         "max_abs_err": report["flash"]["max_abs_err"],
-         "ms": t["flash_attention"]["ms"],
-         "plain_ms": t["flash_attention"]["plain_ms"],
-         "bound_ms": t["flash_attention"]["bound_ms"],
-         "bound_by": t["flash_attention"]["bound_by"],
-         "library_ms": t["flash_attention"]["library_ms"],
-         "shape": t["flash_attention"]["shape"]},
-    ]
+    kernels = kernel_records(report)
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
                     exist_ok=True)
@@ -197,6 +182,43 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def kernel_records(report):
+    """The ``{"kernels": [...]}`` entries: every kernel variant with its
+    launches on the main path, its worst error against its plain version,
+    and its timings beside its bound and library call."""
+    t = report["timing"]
+    serve = report["serve"]["launches"]        # the continuous run
+    group = report["group"]["launches"]        # the group run
+    rows = [  # name, replaces, launches, max_abs_err
+        ("sealed_matmul", SM_REPLACES, serve["sealed_matmul"],
+         report["sealed_matmul"]["max_abs_err"]),
+        ("sealed_matmul_tc", SM_REPLACES, group["sealed_matmul_tc"],
+         report["sealed_matmul"]["max_abs_err_tc"]),
+        ("chacha20", CC_REPLACES, serve["chacha20"],
+         report["chacha"]["max_abs_err"]),
+        # the bf16 main path runs only the tensor-core flash kernel; the
+        # CUDA-core one is the f32 path's, counted over the f32
+        # teacher-forced group prefill and step of phase 5
+        ("flash_attention", FA_REPLACES,
+         report["group"]["f32_launches"]["flash_attention"],
+         report["flash"]["max_abs_err"]),
+        ("flash_attention_tc", FA_REPLACES, group["flash_attention_tc"],
+         report["flash"]["max_abs_err_tc"]),
+    ]
+    kernels = []
+    for name, replaces, launches, err in rows:
+        tk = t[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": tk["ms"], "plain_ms": tk["plain_ms"],
+            "bound_ms": tk["bound_ms"], "bound_by": tk["bound_by"],
+            "library_ms": tk.get("library_ms"),
+            "library": tk.get("library"), "shape": tk["shape"]})
+    return kernels
 
 
 # --------------------------------------------------------------------------
@@ -275,6 +297,8 @@ def phase_sealed_matmul(torch, dev, seed):
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     combos = [(m, r, wc, cdt) for m in (4, 32) for r in (0.0, 0.5, 1.0)
               for wc in (0, 5) for cdt in ("float32", "bfloat16")]
+    seals = [(r, wc) for r in (0.0, 0.5, 1.0) for wc in (0, 5)]
+    tc_rows = (128, 1000, 3560)            # 3560: the group prefill's M
     cases = []
     shapes = dict(_shapes())
     shapes["bn8"] = (2048, 2056)           # N = 8 * 257: seal tile bn = 8
@@ -284,12 +308,19 @@ def phase_sealed_matmul(torch, dev, seed):
             mine = combos                  # the whole grid
         else:                              # each value of each axis
             mine = [c for i, c in enumerate(combos) if i % 4 == i // 4 % 4]
-        if name in ("wq", "mlp_wi"):       # the group prefill's ragged M
-            mine = mine + [(1000, 0.5, 5, cdt)
-                           for cdt in ("float32", "bfloat16")]
+        mine = [c + ("sealed_matmul",) for c in mine]
+        if name in ("wq", "mlp_wi"):       # a ragged M on the CUDA cores
+            mine += [(1000, 0.5, 5, cdt, "sealed_matmul")
+                     for cdt in ("float32", "bfloat16")]
+        if name != "bn8":   # the tensor cores: each seal at one of the
+            # three M (SE 0.5, wc 5 at 128) and SE 0.5, wc 5 at all three
+            mine += [(tc_rows[i % 3], r, wc, "bfloat16", "sealed_matmul_tc")
+                     for i, (r, wc) in enumerate(seals)]
+            mine += [(m, 0.5, 5, "bfloat16", "sealed_matmul_tc")
+                     for m in tc_rows[1:]]
         by_seal = {}
-        for m, ratio, wc, cdt in mine:
-            by_seal.setdefault((ratio, wc), []).append((m, cdt))
+        for m, ratio, wc, cdt, kern in mine:
+            by_seal.setdefault((ratio, wc), []).append((m, cdt, kern))
         for (ratio, wc), runs in by_seal.items():
             w, mask, key, nonce, ct, wcw = _sealed_operands(
                 torch, dev, gen, k, n, ratio, wc, bk, bn)
@@ -298,30 +329,43 @@ def phase_sealed_matmul(torch, dev, seed):
                                              wcw, block_fn=chacha20_blocks_plain)
             if not torch.equal(w_plain.view(torch.int32), w.view(torch.int32)):
                 raise AssertionError(f"{name}: seal/unseal roundtrip differs")
-            for m, cdt in runs:
+            for m, cdt, kern in runs:
                 x = torch.randn((m, k), generator=gen, device=dev)
                 c = getattr(torch, cdt)
                 want = x.to(c).float() @ w_plain.to(c).float()
-                got = SMK.sealed_matmul_cuda(x, ct, mask, key, nonce, wcw,
-                                             bk=bk, bn=bn, compute_dtype=cdt)
+                launch = (SMK.sealed_matmul_tc_cuda
+                          if kern == "sealed_matmul_tc"
+                          else SMK.sealed_matmul_cuda)
+                # the tensor-core kernel takes x as the model hands it: bf16
+                xin = x.to(c) if kern == "sealed_matmul_tc" else x
+                got = launch(xin, ct, mask, key, nonce, wcw, bk=bk, bn=bn,
+                             compute_dtype=cdt)
                 torch.cuda.synchronize()
                 err = float((got - want).abs().max())
                 scale = float(want.abs().max())
                 ok = (bool(torch.isfinite(got).all())
                       and err <= KERNEL_TOL * scale)
-                cases.append({"leaf": name, "K": k, "N": n, "bk": bk,
-                              "bn": bn, "M": m, "ratio": ratio, "wc": wc,
-                              "compute_dtype": cdt, "max_abs_err": err,
-                              "out_scale": scale})
-                log(f"[sealed_matmul] {name} K={k} N={n} bk={bk} bn={bn} "
-                    f"M={m} ratio={ratio} wc={wc} {cdt}: max_abs_err={err:.3e}"
-                    f" (scale {scale:.3e}, tol {KERNEL_TOL:g} x scale)")
+                cases.append({"kernel": kern, "leaf": name, "K": k, "N": n,
+                              "bk": bk, "bn": bn, "M": m, "ratio": ratio,
+                              "wc": wc, "compute_dtype": cdt,
+                              "max_abs_err": err, "out_scale": scale})
+                log(f"[sealed_matmul] {kern} {name} K={k} N={n} bk={bk} "
+                    f"bn={bn} M={m} ratio={ratio} wc={wc} {cdt}: "
+                    f"max_abs_err={err:.3e} (scale {scale:.3e}, tol "
+                    f"{KERNEL_TOL:g} x scale)")
                 if not ok:
                     raise AssertionError(f"sealed_matmul disagrees: {cases[-1]}")
+                del x, want, got
         del w, ct, w_plain
         torch.cuda.empty_cache()
+    n_tc = sum(c["kernel"] == "sealed_matmul_tc" for c in cases)
+    log(f"[sealed_matmul] {len(cases) - n_tc} CUDA-core and {n_tc} "
+        f"tensor-core cases within {KERNEL_TOL:g} of the output scale")
     return {"cases": cases,
-            "max_abs_err": max(c["max_abs_err"] for c in cases)}
+            "max_abs_err": max(c["max_abs_err"] for c in cases
+                               if c["kernel"] == "sealed_matmul"),
+            "max_abs_err_tc": max(c["max_abs_err"] for c in cases
+                                  if c["kernel"] == "sealed_matmul_tc")}
 
 
 # --------------------------------------------------------------------------
@@ -358,34 +402,59 @@ def phase_flash(torch, dev, seed):
             q, k, v = _flash_inputs(torch, gen, dev, b, s, t, hq, hkv, dh,
                                     getattr(torch, dname))
             kw = dict(scale=dh ** -0.5, softcap=cap, window=win)
-            got = FA.flash_attention_cuda(q, k, v, **kw)
-            torch.cuda.synchronize()
             # the plain version's f32 result on the same (bf16) inputs,
             # before any rounding to the output dtype
             want = FA.flash_attention_plain(q.float(), k.float(), v.float(),
                                             **kw)
-            diff = (got.float() - want).abs()
-            err = float(diff.max())
             scale = float(want.abs().max())
-            share = float((diff / flash_allowed(torch, want, q.dtype)).max())
-            rec = {"b": b, "s": s, "t": t, "hq": hq, "hkv": hkv, "dh": dh,
-                   "window": win, "softcap": cap, "dtype": dname,
-                   "max_abs_err": err, "out_scale": scale,
-                   "worst_share_of_tol": share}
-            cases.append(rec)
-            tol = (f"{FLASH_TOL:g} x scale" if dname == "float32" else
-                   f"2^-8 x |want| + {FLASH_TOL:g} x scale, per element")
-            log(f"[flash] b={b} s={s} t={t} heads {hq}/{hkv} dh={dh} "
-                f"window={win} softcap={cap} {dname}: max_abs_err={err:.3e} "
-                f"(scale {scale:.3e}; tol {tol}; worst element at "
-                f"{share:.3f} of its tol)")
-            if not (got.dtype == q.dtype and bool(torch.isfinite(got).all())
-                    and share <= 1.0):
-                raise AssertionError(f"flash kernel disagrees: {rec}")
-            del q, k, v, got, want, diff
+            shape = (f"b={b} s={s} t={t} heads {hq}/{hkv} dh={dh} "
+                     f"window={win} softcap={cap} {dname}")
+            kerns = ["flash_attention"]
+            if FA._variant(q.dtype, dh) == "flash_attention_tc":
+                kerns.append("flash_attention_tc")
+            for kern in kerns:
+                rec = {"kernel": kern, "b": b, "s": s, "t": t, "hq": hq,
+                       "hkv": hkv, "dh": dh, "window": win, "softcap": cap,
+                       "dtype": dname, "out_scale": scale}
+                if kern == "flash_attention_tc":
+                    got = FA.flash_attention_tc_cuda(q, k, v, **kw)
+                    torch.cuda.synchronize()
+                    ok, share, rms = FA.bf16_gate(q, k, v, got, **kw)
+                    rec.update(max_abs_err=float((got.float() - want).abs()
+                                                 .max()),
+                               worst_share_of_tol=share, rms_ratio=rms)
+                    log(f"[flash] {kern} {shape}: max_abs_err="
+                        f"{rec['max_abs_err']:.3e} (scale {scale:.3e}); "
+                        f"bf16 gate: worst element at {share:.3f} of 2^-8 "
+                        f"(|want| + P|v|) + {FLASH_TOL:g} x scale, rms "
+                        f"error {rms:.3e} of rms(want) (tol 2^-8 = "
+                        f"{BF16_ROUNDING:.3e})")
+                else:
+                    got = FA.flash_attention_cuda(q, k, v, **kw)
+                    torch.cuda.synchronize()
+                    diff = (got.float() - want).abs()
+                    share = float((diff / flash_allowed(torch, want, q.dtype))
+                                  .max())
+                    ok = bool(torch.isfinite(got).all()) and share <= 1.0
+                    rec.update(max_abs_err=float(diff.max()),
+                               worst_share_of_tol=share)
+                    tol = (f"{FLASH_TOL:g} x scale" if dname == "float32" else
+                           f"2^-8 x |want| + {FLASH_TOL:g} x scale, per "
+                           f"element")
+                    log(f"[flash] {kern} {shape}: max_abs_err="
+                        f"{rec['max_abs_err']:.3e} (scale {scale:.3e}; tol "
+                        f"{tol}; worst element at {share:.3f} of its tol)")
+                cases.append(rec)
+                if not (ok and got.dtype == q.dtype):
+                    raise AssertionError(f"flash kernel disagrees: {rec}")
+                del got
+            del q, k, v, want
     torch.cuda.empty_cache()
     return {"cases": cases,
-            "max_abs_err": max(c["max_abs_err"] for c in cases)}
+            "max_abs_err": max(c["max_abs_err"] for c in cases
+                               if c["kernel"] == "flash_attention"),
+            "max_abs_err_tc": max(c["max_abs_err"] for c in cases
+                                  if c["kernel"] == "flash_attention_tc")}
 
 
 # --------------------------------------------------------------------------
@@ -513,10 +582,16 @@ def phase_serve(torch, dev, args):
         f"dispatches, launches {launches}")
     if not all(h.done and len(h.out) == NEW_TOKENS for h in handles):
         raise AssertionError("not every request completed")
-    if launches["sealed_matmul"] != dispatches * per_dispatch:
+    fused_launches = launches["sealed_matmul"] + launches["sealed_matmul_tc"]
+    if fused_launches != dispatches * per_dispatch:
         raise AssertionError(
-            f"sealed_matmul launched {launches['sealed_matmul']} times, "
+            f"the fused matmul kernels launched {fused_launches} times, "
             f"expected {per_dispatch} per dispatch x {dispatches}")
+    # a decode tick has M = slots <= 64 rows: the CUDA-core kernel; chunks
+    # of more than 64 rows take the tensor cores
+    if launches["sealed_matmul"] < eng.stats["decode_steps"] * per_dispatch:
+        raise AssertionError("decode ticks did not all run the CUDA-core "
+                             "fused matmul")
     if launches["chacha20"] <= 0:
         raise AssertionError("the ChaCha kernel never ran on the main path")
     eng.check_device_mirror()
@@ -595,6 +670,22 @@ def group_logits(torch, cfg, params, toks, forced, max_len):
     return pre, dec, forced
 
 
+def _fused_launches(eng, rows, head_rows):
+    """Launches of each fused-matmul kernel in one dispatch of a sealed
+    engine whose layer contractions have ``rows`` rows and whose LM head
+    has ``head_rows``, by ``sealed_matmul._variant``."""
+    from repro_torch.kernels import sealed_matmul as SMK
+    counts = {"sealed_matmul": 0, "sealed_matmul_tc": 0}
+    for path, st in eng.sealed.tensors.items():
+        if st.meta.layout != "tiles":
+            continue
+        layers = st.meta.shape[0] if st.meta.n_batch else 1
+        m = head_rows if path.startswith("head") else rows
+        counts[SMK._variant(m, st.n_size, st.meta.bk, st.meta.bn,
+                            eng.cfg.dtype)] += layers
+    return counts
+
+
 def phase_group(torch, dev, args, serve):
     import numpy as np
     from repro_torch.config import SealConfig
@@ -632,14 +723,29 @@ def phase_group(torch, dev, args, serve):
         f"launches {launches}")
     if not all(h.done and len(h.out) == NEW_TOKENS for h in handles):
         raise AssertionError("not every group request completed")
-    if launches["sealed_matmul"] != dispatches * per_dispatch:
-        raise AssertionError(
-            f"sealed_matmul launched {launches['sealed_matmul']} times, "
-            f"expected {per_dispatch} per dispatch x {dispatches}")
-    if launches["flash_attention"] != st["prefills"] * cfg.num_layers:
-        raise AssertionError(
-            f"flash_attention launched {launches['flash_attention']} times, "
-            f"expected {cfg.num_layers} per prefill x {st['prefills']}")
+    # a prefill's layer contractions have (group size x prompt length) rows,
+    # its LM head (last position) and every decode step one row per member:
+    # each takes the kernel _variant names for it (at full width: every
+    # layer contraction of a prefill on the tensor cores, the rest on the
+    # CUDA cores); attention runs the tensor-core flash kernel
+    want = {"sealed_matmul": 0, "sealed_matmul_tc": 0,
+            "flash_attention_tc": st["prefills"] * cfg.num_layers,
+            "flash_attention": 0}
+    groups = [prompts[i:i + SLOTS] for i in range(0, len(prompts), SLOTS)]
+    for g in groups:
+        for rows, head_rows in ((len(g) * max(len(p) for p in g), len(g)),):
+            for name, n in _fused_launches(eng, rows, head_rows).items():
+                want[name] += n
+    steps = st["decode_steps"]
+    for name, n in _fused_launches(eng, SLOTS, SLOTS).items():
+        want[name] += steps * n
+    if len(groups) != st["prefills"]:
+        raise AssertionError(f"{st['prefills']} prefills for {len(groups)} "
+                             f"groups")
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 f"in the group run, expected {n}")
     if launches["chacha20"] <= 0:
         raise AssertionError("the ChaCha kernel never ran on the group path")
 
@@ -656,13 +762,18 @@ def phase_group(torch, dev, args, serve):
     # teacher-forced prefill and first step, sealed vs plaintext, on the
     # first group, both fed the plaintext prefill's argmax
     toks = _group_tokens(torch, prompts[:SLOTS], dev)
+    out["prefill_rows"] = int(toks.numel())
     cfg32 = cfg.with_(dtype="float32")
     errs = {}
     for label, c in (("bf16", cfg), ("f32", cfg32)):
         pre_p, dec_p, forced = group_logits(torch, c, params, toks, None,
                                             GROUP_MAX_LEN)
+        ops.reset_launch_counts()        # the f32 path: CUDA-core kernels
         pre_s, dec_s, _ = group_logits(torch, c, eng.params(), toks, forced,
                                        GROUP_MAX_LEN)
+        torch.cuda.synchronize()
+        if label == "f32":
+            out["f32_launches"] = ops.launch_counts()
         errs[label] = (_rel_err(torch, pre_s, pre_p),
                        _rel_err(torch, dec_s, dec_p))
     out["teacher_forced_rel_err"] = errs
@@ -674,6 +785,13 @@ def phase_group(torch, dev, args, serve):
     if not max(errs["f32"]) <= 1e-4:
         raise AssertionError("sealed f32 group logits disagree with "
                              "plaintext")
+    f32 = out["f32_launches"]
+    log(f"[group] launches of the f32 sealed prefill and step: {f32}")
+    if (f32["flash_attention"] != cfg.num_layers or f32["sealed_matmul"]
+            != 2 * per_dispatch or f32["sealed_matmul_tc"]
+            or f32["flash_attention_tc"]):
+        raise AssertionError("the f32 path did not run the CUDA-core "
+                             "kernels")
 
     # one unpadded prompt of the longest length, f32: the one-shot prefill
     # (flash) against the chunked path of phase 4 (_sdpa over the paged
@@ -704,7 +822,10 @@ def phase_group(torch, dev, args, serve):
 def _time_ms(torch, fn, iters, flush=None):
     """Mean CUDA-event time of ``fn`` over ``iters`` launches after one
     warm-up; ``flush`` (if given) runs between launches, outside the timed
-    window, so every launch finds a cold L2."""
+    window, so every launch finds a cold L2. Before each start event the
+    stream gets a device-side sleep of about 1 ms, so the host has enqueued
+    the start event and ``fn``'s launches before the device reaches them:
+    a short call is timed by the device, not by the host's dispatch."""
     fn()
     torch.cuda.synchronize()
     total = 0.0
@@ -713,12 +834,22 @@ def _time_ms(torch, fn, iters, flush=None):
             flush()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         a.record()
         fn()
         b.record()
         b.synchronize()
         total += a.elapsed_time(b)
     return total / iters
+
+
+def _sealed_bound(m, k, n, enc_rows, x_bytes):
+    """Least time of one fused matmul: x, the ciphertext and the mask read
+    once, the f32 output written once; the ChaCha pads of the encrypted
+    rows made once; the products on the bf16 tensor cores."""
+    nbytes = x_bytes * m * k + 4 * k * n + k + 4 * m * n + 48
+    ops_int = enc_rows * (n // 16) * (CHACHA_OPS + CHACHA_XOR_OPS)
+    return bound_ms(nbytes, ops_int, 2.0 * m * k * n)
 
 
 def phase_timing(torch, dev, args, report):
@@ -730,40 +861,79 @@ def phase_timing(torch, dev, args, report):
     flush = lambda: scratch.zero_()           # 256 MB > the 50 MB L2
     out = {"sealed_matmul_shapes": []}
 
-    # sealed_matmul at each main-path leaf shape, SE 0.5, bf16
+    # both fused matmul kernels at each main-path leaf shape, SE 0.5, bf16:
+    # the CUDA-core kernel at decode M (its path) and at the group prefill's
+    # M = 3560 (its old path), the tensor-core kernel at M = 3560
+    prefill_m = report["group"]["prefill_rows"]
     for name, (k, n) in _shapes().items():
         bk, bn = _pick_block(k), _pick_block(n)
         w, mask, key, nonce, ct, wcw = _sealed_operands(
             torch, dev, gen, k, n, 0.5, 5, bk, bn)
-        for m in (4, 32):
+        enc_rows = int(mask.sum())
+        runs = [("sealed_matmul", 4), ("sealed_matmul", 32),
+                ("sealed_matmul", prefill_m), ("sealed_matmul_tc", prefill_m)]
+        if name == "head":      # a prefill runs the head on its last row only
+            runs.remove(("sealed_matmul", prefill_m))
+        for kern, m in runs:
+            tc = kern == "sealed_matmul_tc"
             x = torch.randn((m, k), generator=gen, device=dev)
-            run = lambda: SMK.sealed_matmul_cuda(
-                x, ct, mask, key, nonce, wcw, bk=bk, bn=bn,
-                compute_dtype="bfloat16")
+            if tc:
+                x = x.to(torch.bfloat16)
+            launch = SMK.sealed_matmul_tc_cuda if tc else SMK.sealed_matmul_cuda
+            run = lambda: launch(x, ct, mask, key, nonce, wcw, bk=bk, bn=bn,
+                                 compute_dtype="bfloat16")
             plain = lambda: SMK.sealed_matmul_plain(
                 x, ct, mask, key, nonce, wcw, bk=bk, bn=bn,
                 compute_dtype="bfloat16")
-            ms = _time_ms(torch, run, 20, flush)
-            plain_ms = _time_ms(torch, plain, 2) if m == 4 else None
-            enc_rows = int(mask.sum())
-            nbytes = 4 * m * k + 4 * k * n + k + 4 * m * n + 48
-            ops_int = enc_rows * (n // 16) * (CHACHA_OPS + CHACHA_XOR_OPS)
-            b_ms, b_by = bound_ms(nbytes, ops_int, 2.0 * m * k * n)
-            rec = {"leaf": name, "M": m, "K": k, "N": n, "bk": bk, "bn": bn,
-                   "enc_rows": enc_rows, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": b_ms, "bound_by": b_by}
+            ms = _time_ms(torch, run, 3 if m > 64 and not tc else 10, flush)
+            plain_ms = (_time_ms(torch, plain, 2)
+                        if m == 4 or (tc and name == "mlp_wi") else None)
+            b_ms, b_by = _sealed_bound(m, k, n, enc_rows, 2 if tc else 4)
+            rec = {"kernel": kern, "leaf": name, "M": m, "K": k, "N": n,
+                   "bk": bk, "bn": bn, "enc_rows": enc_rows, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
             out["sealed_matmul_shapes"].append(rec)
             pm = f"{plain_ms:.3f}" if plain_ms is not None else "-"
-            log(f"[time] sealed_matmul {name} M={m} K={k} N={n}: {ms:.4f} ms,"
-                f" plain {pm} ms, bound {b_ms:.4f} ms ({b_by})")
+            log(f"[time] {kern} {name} M={m} K={k} N={n}: {ms:.4f} ms, "
+                f"plain {pm} ms, bound {b_ms:.4f} ms ({b_by})")
+            del x
         del w, ct
         torch.cuda.empty_cache()
-    main = next(r for r in out["sealed_matmul_shapes"]
-                if r["leaf"] == "mlp_wi" and r["M"] == 4)
-    out["sealed_matmul"] = {"ms": main["ms"], "plain_ms": main["plain_ms"],
-                            "bound_ms": main["bound_ms"],
-                            "bound_by": main["bound_by"],
-                            "shape": "mlp_wi M=4 K=2048 N=8192 SE0.5 bf16"}
+    # the tensor-core kernel's time against the share of encrypted rows:
+    # at SE 0 no pad is made, so the difference is the pads' cost
+    k, n = _shapes()["mlp_wi"]
+    x = torch.randn((prefill_m, k), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    out["sealed_matmul_tc_by_ratio"] = {}
+    for ratio in (0.0, 0.5, 1.0):
+        w, mask, key, nonce, ct, wcw = _sealed_operands(
+            torch, dev, gen, k, n, ratio, 5, 128, 128)
+        ms = _time_ms(torch, lambda: SMK.sealed_matmul_tc_cuda(
+            x, ct, mask, key, nonce, wcw, bk=128, bn=128,
+            compute_dtype="bfloat16"), 10, flush)
+        out["sealed_matmul_tc_by_ratio"][ratio] = ms
+        log(f"[time] sealed_matmul_tc mlp_wi M={prefill_m} SE {ratio}: "
+            f"{ms:.4f} ms")
+        del w, ct
+    del x
+    recs = out["sealed_matmul_shapes"]
+    for kern, m in (("sealed_matmul", 4), ("sealed_matmul_tc", prefill_m)):
+        main = next(r for r in recs if r["kernel"] == kern
+                    and r["leaf"] == "mlp_wi" and r["M"] == m)
+        out[kern] = {"ms": main["ms"], "plain_ms": main["plain_ms"],
+                     "bound_ms": main["bound_ms"],
+                     "bound_by": main["bound_by"],
+                     "shape": f"mlp_wi M={m} K={main['K']} N={main['N']} "
+                              f"SE0.5 bf16"}
+    old = next(r for r in recs if r["kernel"] == "sealed_matmul"
+               and r["leaf"] == "mlp_wi" and r["M"] == prefill_m)
+    speedup = old["ms"] / out["sealed_matmul_tc"]["ms"]
+    out["sealed_matmul_tc"]["speedup_over_cuda_cores"] = speedup
+    log(f"[time] fused matmul, mlp_wi M={prefill_m} SE 0.5 bf16: tensor "
+        f"cores {out['sealed_matmul_tc']['ms']:.3f} ms, CUDA cores "
+        f"{old['ms']:.3f} ms ({speedup:.1f}x), plain "
+        f"{out['sealed_matmul_tc']['plain_ms']:.3f} ms, bound "
+        f"{out['sealed_matmul_tc']['bound_ms']:.4f} ms")
 
     # ChaCha at the main path's largest call: the embedding's line OTP
     # (two blocks per 128 B line, per-block nonces), and one cache-block OTP
@@ -838,10 +1008,10 @@ def phase_timing(torch, dev, args, report):
 
 
 def _time_group(torch, dev, gen, flush, group):
-    """The flash kernel at the group prefill's shape and at 8192 tokens,
-    beside its plain version, its bound and SDPA; one sealed and one
-    plaintext group prefill and decode step; a profile of a sealed
-    prefill."""
+    """Both flash kernels at the group prefill's shape and at 8192 tokens,
+    beside their plain version, their bound and SDPA; one sealed and one
+    plaintext group prefill and decode step; profiles of a sealed and a
+    plaintext prefill."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.models import transformer as T
@@ -856,35 +1026,43 @@ def _time_group(torch, dev, gen, flush, group):
                                 torch.bfloat16)
         q = q.contiguous()
         scale = dh ** -0.5
-        run = lambda: FA.flash_attention_cuda(q, k, v, scale=scale)
-        ms = _time_ms(torch, run, 10, flush)
-        plain_ms = _time_ms(torch, lambda: FA.flash_attention_plain(
-            q, k, v, scale=scale), 2)
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        lib = lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True, scale=scale)
-        lib_ms = _time_ms(torch, lib, 10, flush)
-        lib_err = float((lib().transpose(1, 2).float() - run().float())
-                        .abs().max())
         nbytes = 2 * (2 * bb * ss * hq * dh + 2 * bb * ss * hkv * dh)
         flops = 4.0 * bb * hq * dh * ss * (ss + 1) / 2
         b_ms, b_by = bound_ms(nbytes, bf16_flops=flops)
-        rec = {"b": bb, "s": ss, "hq": hq, "hkv": hkv, "dh": dh,
-               "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
-               "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-               "library_max_abs_diff": lib_err}
-        out["flash_shapes"].append(rec)
-        log(f"[time] flash_attention b={bb} s={ss} heads {hq}/{hkv} dh={dh}"
-            f" bf16: {ms:.4f} ms, plain {plain_ms:.3f} ms, SDPA {lib_ms:.4f}"
-            f" ms (max diff {lib_err:.2e}), bound {b_ms:.4f} ms ({b_by})")
-        del q, k, v, qt, kt, vt
+        plain_ms = _time_ms(torch, lambda: FA.flash_attention_plain(
+            q, k, v, scale=scale), 2)
+        lib_ms, lib_name, lib_all, lib_err = _time_sdpa(
+            torch, F, q, k, v, scale, flush,
+            FA.flash_attention_tc_cuda(q, k, v, scale=scale))
+        for kern, launch in (("flash_attention", FA.flash_attention_cuda),
+                             ("flash_attention_tc",
+                              FA.flash_attention_tc_cuda)):
+            ms = _time_ms(torch, lambda: launch(q, k, v, scale=scale), 10,
+                          flush)
+            rec = {"kernel": kern, "b": bb, "s": ss, "hq": hq, "hkv": hkv,
+                   "dh": dh, "dtype": "bfloat16", "ms": ms,
+                   "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "library": lib_name, "library_backends_ms": lib_all,
+                   "library_max_abs_diff_tc": lib_err, "bound_ms": b_ms,
+                   "bound_by": b_by}
+            out["flash_shapes"].append(rec)
+            log(f"[time] {kern} b={bb} s={ss} heads {hq}/{hkv} dh={dh} bf16:"
+                f" {ms:.4f} ms, plain {plain_ms:.3f} ms, SDPA {lib_ms:.4f} ms"
+                f" ({lib_name}; {lib_all}), bound {b_ms:.4f} ms ({b_by})")
+        old_ms, new_ms = (r["ms"] for r in out["flash_shapes"][-2:])
+        log(f"[time] flash at b={bb} s={ss}: tensor cores {new_ms:.4f} ms, "
+            f"CUDA cores {old_ms:.4f} ms ({old_ms / new_ms:.1f}x), SDPA "
+            f"{lib_ms:.4f} ms ({new_ms / lib_ms:.2f}x of it), bound "
+            f"{b_ms:.4f} ms ({b_ms / new_ms:.3f} of the kernel's time)")
+        del q, k, v
         torch.cuda.empty_cache()
-    f0 = out["flash_shapes"][0]
-    out["flash_attention"] = {
-        key: f0[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                 "bound_by")}
-    out["flash_attention"]["shape"] = (f"group prefill b={b} s={plen} "
-                                       f"{hq}/{hkv} heads dh={dh} bf16")
+    for kern in ("flash_attention", "flash_attention_tc"):
+        f0 = next(r for r in out["flash_shapes"] if r["kernel"] == kern)
+        out[kern] = {key: f0[key] for key in (
+            "ms", "plain_ms", "library_ms", "library", "bound_ms",
+            "bound_by")}
+        out[kern]["shape"] = (f"group prefill b={b} s={plen} {hq}/{hkv} "
+                              f"heads dh={dh} bf16")
 
     steps = {}
     for label, e in (("sealed", eng), ("plaintext", plain)):
@@ -902,9 +1080,46 @@ def _time_group(torch, dev, gen, flush, group):
     out["prefill_profile"] = _profile(
         torch, lambda: T.prefill(cfg, eng.params(), toks, eng.max_len), 1,
         "sealed group prefill")
+    out["plain_prefill_profile"] = _profile(
+        torch, lambda: T.prefill(cfg, plain.params(), toks, plain.max_len), 1,
+        "plaintext group prefill")
     for key_ in ("engine", "plain_engine", "prompts"):
         group.pop(key_)
     return out
+
+
+def _time_sdpa(torch, F, q, k, v, scale, flush, ref):
+    """``scaled_dot_product_attention`` on the same inputs (heads first, as
+    it takes them) under each backend that runs at this shape: flash,
+    memory-efficient, cuDNN. Returns (fastest ms, its backend, every
+    backend's ms or the reason it did not run, the fastest one's largest
+    difference from ``ref``)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    times, errs = {}, {}
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION):
+        name = backend.name.lower()
+
+        def lib():
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True, scale=scale)
+        try:         # the yardstick only: a backend may refuse this shape
+            got = lib()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            times[name] = f"did not run: {str(e).splitlines()[0][:80]}"
+            continue
+        errs[name] = float((got.transpose(1, 2).float() - ref.float())
+                           .abs().max())
+        times[name] = _time_ms(torch, lib, 10, flush)
+    ran = {n: t for n, t in times.items() if not isinstance(t, str)}
+    if not ran:
+        raise AssertionError(f"no SDPA backend ran: {times}")
+    best = min(ran, key=ran.get)
+    return ran[best], best, times, errs[best]
 
 
 def _profile(torch, fn, reps, label, top=12):

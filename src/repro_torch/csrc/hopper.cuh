@@ -1,0 +1,268 @@
+// Hopper (sm_90a) building blocks shared by the tensor-core kernels
+// (flash_attention_tc.cu, sealed_matmul_tc.cu): mbarriers, TMA tile loads,
+// wgmma shared-memory descriptors and the few wgmma shapes those kernels
+// issue, and the host-side encoding of TMA tensor maps.
+//
+// Shared-memory operands use the 128-byte swizzle throughout: a tile is cut
+// into 1024-byte atoms of 8 rows x 128 bytes, and the 16-byte chunk c of row
+// r is stored at chunk c ^ (r % 8). TMA writes that layout when its tensor
+// map says CU_TENSOR_MAP_SWIZZLE_128B; threads that write a tile themselves
+// apply the XOR by hand. Atoms must start on 1024-byte boundaries.
+//   * K-major operand (the contraction index is contiguous, 64 bf16 per
+//     128-byte row): rows 128 B apart, 8-row groups SBO = 1024 B apart; the
+//     k16 slice kk starts kk * 32 B into the atom row.
+//   * MN-major operand (the output index is contiguous): 64 output columns
+//     per 128-byte row, one row per contraction index, 8-row groups
+//     SBO = 1024 B apart, the next 64 output columns LBO bytes on; the k16
+//     slice kk starts kk * 16 rows = kk * 2048 B on.
+#pragma once
+#include <cuda.h>  // CUtensorMap and its enums (types only)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
+
+#include <cstdint>
+
+namespace hop {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------- mbarrier
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// arrive once and expect `bytes` more of asynchronous (TMA) writes
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A fresh barrier is
+// in phase 0, so waiting on parity 1 returns at once (the "previous" phase).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// --------------------------------------------------------------- TMA loads
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// generic-proxy writes to shared memory (threads) made visible to the async
+// proxy (wgmma, TMA) that reads them next
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// named barrier over the first `threads` threads of the block (id 1..15)
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// ------------------------------------------------------------------- wgmma
+
+// shared-memory matrix descriptor, 128-byte swizzle
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr, uint32_t lbo,
+                                               uint32_t sbo) {
+  uint64_t d = static_cast<uint64_t>((saddr & 0x3FFFFu) >> 4);
+  d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16;
+  d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32;
+  d |= static_cast<uint64_t>(1) << 62;
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// keep the compiler from moving accumulator reads/writes across the
+// asynchronous wgmma
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+#define HOP_F8(d, i)                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define HOP_F32(d) HOP_F8(d, 0), HOP_F8(d, 8), HOP_F8(d, 16), HOP_F8(d, 24)
+#define HOP_F64(d) \
+  HOP_F32(d), HOP_F8(d, 32), HOP_F8(d, 40), HOP_F8(d, 48), HOP_F8(d, 56)
+#define HOP_R32                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define HOP_R64                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+
+// scale_d = 0 overwrites D with the product, 1 adds the product to D.
+
+// D (64 x 64, f32) += A (64 x 16, smem, K-major) . B (16 x 64, smem,
+// K-major: stored as 64 rows of 16 contraction values)
+__device__ __forceinline__ void wgmma_n64_ss_kk(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOP_R32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : HOP_F32(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 128, f32) += A (64 x 16, smem, K-major) . B (16 x 128, smem,
+// K-major: stored as 128 rows of 16 contraction values)
+__device__ __forceinline__ void wgmma_n128_ss_kk(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOP_R64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : HOP_F64(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64) += A (64 x 16, registers) . B (16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_n64_rs_mn(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOP_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : HOP_F32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 128) += A (64 x 16, registers) . B (16 x 128, smem, MN-major)
+__device__ __forceinline__ void wgmma_n128_rs_mn(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOP_R64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : HOP_F64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 128) += A (64 x 16, smem, K-major) . B (16 x 128, smem, MN-major)
+__device__ __forceinline__ void wgmma_n128_ss_mn(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOP_R64
+      ", %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : HOP_F64(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+#undef HOP_F8
+#undef HOP_F32
+#undef HOP_F64
+#undef HOP_R32
+#undef HOP_R64
+
+// ------------------------------------------------------- host: tensor maps
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// Error codes the launch functions return beside cudaError_t values.
+constexpr int kNoDriverEntry = 10001;  // cuTensorMapEncodeTiled not found
+constexpr int kEncodeFailed = 20000;   // + the CUresult of the encoding
+
+// The driver's cuTensorMapEncodeTiled, from the libcuda.so.1 that the CUDA
+// runtime has already loaded into the process (no link against libcuda).
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
+    if (h != nullptr)
+      fn = reinterpret_cast<EncodeTiledFn>(dlsym(h, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// A tiled tensor map of `rank` dims (innermost first), strides in bytes of
+// dims 1.. (dim 0 is contiguous); out-of-bounds elements read as zero.
+// Returns 0 or one of the error codes above.
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType dtype, int rank,
+                      const void* base, const cuuint64_t* dims,
+                      const cuuint64_t* strides, const cuuint32_t* box,
+                      CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return kNoDriverEntry;
+  cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  CUresult r = fn(map, dtype, static_cast<cuuint32_t>(rank),
+                  const_cast<void*>(base), dims, strides, box, elem,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeFailed + static_cast<int>(r);
+}
+
+}  // namespace hop

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -20,20 +21,10 @@ from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("chacha20", "sealed_matmul", "flash_attention")
+SOURCES = ("chacha20", "sealed_matmul", "flash_attention",
+           "sealed_matmul_tc", "flash_attention_tc")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path("/usr/local/cuda/bin/nvcc")
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels build only where the "
-                       "CUDA toolkit is installed")
 
 
 def _lib_path(name: str) -> Path:
@@ -44,9 +35,21 @@ def _lib_path(name: str) -> Path:
     return BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
+def _tool(name: str) -> str:
+    found = shutil.which(name)
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin") / name
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(f"{name} not found: the CUDA kernels build only where "
+                       f"the CUDA toolkit is installed")
+
+
 def _command(name: str, out: Path) -> List[str]:
-    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    return [_tool("nvcc"), "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas",
+            "-v",
             "-I", str(CSRC), "-o", str(out), str(CSRC / f"{name}.cu")]
 
 
@@ -92,7 +95,25 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def sass_counts(names=SOURCES, opcodes=("HGMMA", "HMMA")) -> Dict[str, Dict]:
+    """For each built library, how many SASS instructions of each opcode
+    ``cuobjdump -sass`` lists: HGMMA is ``wgmma``, HMMA ``mma.sync``, so a
+    non-zero count shows the tensor cores are used."""
+    tool = _tool("cuobjdump")
+    counts = {}
+    for name in names:
+        sass = subprocess.run([tool, "-sass", str(_lib_path(name))],
+                              capture_output=True, text=True, check=True
+                              ).stdout
+        counts[name] = {op: len(re.findall(rf"\b{op}\b", sass))
+                        for op in opcodes}
+    return counts
+
+
 def check(rc: int, what: str) -> None:
-    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    """Raise on a non-zero code returned by a launch: a ``cudaError_t``, or
+    from the tensor-core kernels 10001 (the driver's
+    ``cuTensorMapEncodeTiled`` not found) or 20000 + the ``CUresult`` of a
+    tensor map that did not encode."""
     if rc != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {rc}")
+        raise RuntimeError(f"{what}: CUDA launch failed with code {rc}")

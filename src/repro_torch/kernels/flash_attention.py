@@ -1,9 +1,22 @@
-"""Causal flash attention (forward): the Hopper kernel and its plain PyTorch
-version.
+"""Causal flash attention (forward): the Hopper kernels and their plain
+PyTorch version.
 
 Port of ``repro/kernels/flash_attention.py::flash_attention`` (kernel body
-``_kernel``). The CUDA source is ``csrc/flash_attention.cu``; its header
-comment gives the contract and the design.
+``_kernel``), as two kernels:
+
+* ``csrc/flash_attention.cu`` (``flash_attention_cuda``): f32 FMAs on the
+  CUDA cores; f32 inputs (exact to the f32 contract) and every head dim up
+  to 256;
+* ``csrc/flash_attention_tc.cu`` (``flash_attention_tc_cuda``): bf16
+  ``wgmma`` on the tensor cores with a TMA ring of K/V tiles, for bf16
+  inputs with head dim 64 or 128. Its one change of contract: probabilities
+  are rounded to bf16 before ``p @ v``, as the reference's serving
+  attention and every tensor-core flash kernel do; ``bf16_gate`` is the
+  tolerance that follows from it.
+
+``kernels/ops.py::flash_attention`` picks one by ``_variant`` from dtype
+and head dim alone; each counts its own launches. The CUDA sources' header
+comments give the contract and the designs.
 
 Unlike the Pallas kernel, ``s`` and ``t`` need not be tile multiples (a
 prefill is as long as its prompt), and the kernel takes the model's
@@ -12,9 +25,11 @@ head dimension is contiguous.
 
 What bounds it on this card: at the group prefill's shape the causal
 arithmetic (4 * b * hq * dh * s(s+1)/2 FLOPs) on the bf16 tensor cores, well
-ahead of the q + k + v + out bytes. This first kernel does that arithmetic as
-f32 FMAs on the CUDA cores, with the online-softmax state in registers for
-the whole kv loop and only the live kv tiles visited.
+ahead of the q + k + v + out bytes. The CUDA-core kernel does that
+arithmetic as f32 FMAs, the tensor-core kernel as bf16 products with f32
+sums; both keep
+the online-softmax state in registers for the whole kv loop and visit only
+the live kv tiles.
 """
 from __future__ import annotations
 
@@ -25,6 +40,18 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
+TC_HEAD_DIMS = (64, 128)
+BF16_ROUNDING = 2.0 ** -8   # twice the largest relative bf16 rounding
+F32_TERM = 2e-5             # the f32 contract's share of the output scale
+
+
+def _variant(dtype: torch.dtype, dh: int) -> str:
+    """The kernel a CUDA call runs: ``"flash_attention_tc"`` (tensor cores)
+    for bf16 with head dim 64 or 128, else ``"flash_attention"`` (CUDA
+    cores). Depends on dtype and head dim only."""
+    if dtype == torch.bfloat16 and dh in TC_HEAD_DIMS:
+        return "flash_attention_tc"
+    return "flash_attention"
 
 
 def flash_attention_plain(q, k, v, *, scale: float, softcap: float = 0.0,
@@ -77,6 +104,81 @@ def check(q, k, v, window: int):
                          f"rows would have no live key")
 
 
+def bf16_gate(q, k, v, got, **kw):
+    """Hold a bf16 output of the tensor-core kernel to the plain version's
+    f32 result ``want`` on the same inputs. Returns (ok, worst share of the
+    per-element tolerance, rms(got - want) / rms(want)).
+
+    Per element: ``|got - want| <= 2^-8 |want| + 2^-8 (P|V|) + 2e-5 scale``,
+    where ``P|V|`` is the plain version run with ``|v|`` for ``v`` and scale
+    is ``max |want|``. Rounding each probability to bf16 moves it by at most
+    2^-9 of itself, so an output element by at most 2^-9 sum p|v| / l and
+    the denominator by as much: 2^-8 P|V| is the worst case; 2^-8 |want|
+    covers the output's own rounding. On the RMS: ``rms(got - want) <=
+    2^-8 rms(want)`` (the random roundings of P and of the output leave
+    about 2^-9), so a dropped or doubled kv tile, which moves late rows by
+    percents, fails."""
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    want = flash_attention_plain(q32, k32, v32, **kw)
+    pv = flash_attention_plain(q32, k32, v32.abs(), **kw)
+    err = got.float() - want
+    allowed = (BF16_ROUNDING * (want.abs() + pv)
+               + F32_TERM * want.abs().max())
+    share = float((err.abs() / allowed).max())
+    rms = float(err.square().mean().sqrt() / want.square().mean().sqrt())
+    ok = (bool(torch.isfinite(got).all()) and share <= 1.0
+          and rms <= BF16_ROUNDING)
+    return ok, share, rms
+
+
+def check_tc(q, k, v, window: int):
+    """Raise unless q, k, v fit the tensor-core kernel: ``check``'s
+    contract, bf16, head dim 64 or 128, a contiguous head dim, and 16-byte
+    aligned bases and strides (what a TMA tensor map can describe)."""
+    check(q, k, v, window)
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in TC_HEAD_DIMS:
+        raise ValueError(f"the tensor-core kernel takes bf16 with head dim "
+                         f"{TC_HEAD_DIMS}, got {q.dtype}, {q.shape[-1]}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride(-1) != 1:
+            raise ValueError(f"{name}'s head dim is not contiguous")
+        if x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:3]):
+            raise ValueError(f"{name} is not 16-byte aligned in base and "
+                             f"strides {tuple(x.stride())}, which TMA needs")
+
+
+def flash_attention_tc_cuda(q, k, v, *, scale: float, softcap: float = 0.0,
+                            window: int = 0) -> torch.Tensor:
+    """Launch ``csrc/flash_attention_tc.cu`` on PyTorch's current stream.
+    q (b, s, hq, dh), k and v (b, t, hkv, dh), bf16 on one card, dh 64 or
+    128, views taken as they are (``check_tc``)."""
+    check_tc(q, k, v, window)
+    dev = q.device
+    if k.device != dev or v.device != dev:
+        raise ValueError("flash_attention operands must share one device")
+    b, s, hq, dh = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    out = torch.empty((b, s, hq, dh), dtype=q.dtype, device=dev)
+    if out.numel() == 0 or t == 0:
+        return out.zero_()
+    lib = _build.load("flash_attention_tc")
+    fn = lib.flash_attention_tc
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 12
+                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    strides = [st for x in (q, k, v, out) for st in x.stride()[:3]]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                b, s, t, hq, hkv, dh, *strides, float(scale), float(softcap),
+                int(window), stream)
+    _build.check(rc, "flash_attention_tc")
+    flash_attention_tc_cuda.launches += 1
+    return out
+
+
 def flash_attention_cuda(q, k, v, *, scale: float, softcap: float = 0.0,
                          window: int = 0) -> torch.Tensor:
     """Launch ``csrc/flash_attention.cu`` on PyTorch's current stream.
@@ -111,3 +213,4 @@ def flash_attention_cuda(q, k, v, *, scale: float, softcap: float = 0.0,
 
 
 flash_attention_cuda.launches = 0
+flash_attention_tc_cuda.launches = 0

@@ -18,8 +18,10 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import sealed_matmul as _sm
 
 _COUNTED = {"chacha20": _cc.chacha20_blocks,
-            "sealed_matmul": _sm.sealed_matmul,
-            "flash_attention": _fa.flash_attention_cuda}
+            "sealed_matmul": _sm.sealed_matmul_cuda,
+            "sealed_matmul_tc": _sm.sealed_matmul_tc_cuda,
+            "flash_attention": _fa.flash_attention_cuda,
+            "flash_attention_tc": _fa.flash_attention_tc_cuda}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -47,16 +49,17 @@ def sealed_matmul(x, w_ct, row_mask, key_words, nonce_words,
                   ) -> torch.Tensor:
     """Fused decrypt + matmul: ``x @ f32(w_ct ^ pad)``, (M, N) f32.
 
-    K and N must be multiples of the seal's (bk, bn). M is padded as the
-    reference pads it: not at all when M < bm, else up to a multiple of bm.
-    The CUDA kernel masks a ragged M itself and works on M rows at most 64 at
-    a time, so the padding only keeps the reference's shapes."""
+    K and N must be multiples of the seal's (bk, bn). On the CPU, M is
+    padded as the reference pads it: not at all when M < bm, else up to a
+    multiple of bm. The CUDA kernels mask a ragged M themselves, so a CUDA
+    tensor goes in unpadded (no copy of the activations, no rows of thrown
+    away products)."""
     if not torch.is_tensor(write_counter):
         write_counter = torch.tensor(u32.const(int(write_counter)),
                                      dtype=torch.int32, device=x.device)
     m = x.shape[0]
     bm = min(bm, m) if m % bm else bm
-    pad = (-m) % bm
+    pad = 0 if x.is_cuda else (-m) % bm
     if pad:
         x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
     out = _sm.sealed_matmul(x, w_ct, row_mask, key_words, nonce_words,
@@ -70,11 +73,14 @@ def flash_attention(q, k, v, *, scale: float, softcap: float = 0.0,
     """Causal self-attention of q (b, s, hq, dh) over k, v (b, t, hkv, dh),
     positions ``arange(s)`` and ``arange(t)``: optional tanh softcap and
     sliding window, GQA by ``h // (hq // hkv)``; output in q's dtype. A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel or
+    tensor takes the plain version; a CUDA tensor launches the kernel
+    ``_variant`` names (tensor cores for bf16 with head dim 64 or 128), or
     raises."""
     if q.is_cuda:
-        return _fa.flash_attention_cuda(q, k, v, scale=scale, softcap=softcap,
-                                        window=window)
+        fn = (_fa.flash_attention_tc_cuda
+              if _fa._variant(q.dtype, q.shape[-1]) == "flash_attention_tc"
+              else _fa.flash_attention_cuda)
+        return fn(q, k, v, scale=scale, softcap=softcap, window=window)
     _fa.check(q, k, v, window)
     return _fa.flash_attention_plain(q, k, v, scale=scale, softcap=softcap,
                                      window=window)

@@ -1,9 +1,19 @@
-"""Fused decrypt-in-matmul over tile-sealed weights: the Hopper kernel and
-its plain PyTorch version.
+"""Fused decrypt-in-matmul over tile-sealed weights: the Hopper kernels and
+their plain PyTorch version.
 
 Port of ``repro/kernels/sealed_matmul.py::sealed_matmul`` (kernel body
-``_make_kernel``). The CUDA source is ``csrc/sealed_matmul.cu``; its header
-comment gives the keystream contract and the design.
+``_make_kernel``), as two kernels that compute the same function:
+
+* ``csrc/sealed_matmul.cu`` (``sealed_matmul_cuda``): f32 FMAs on the CUDA
+  cores, any M; the decode path (M <= 64), f32 compute and seal tiles with
+  ``bn == 8``;
+* ``csrc/sealed_matmul_tc.cu`` (``sealed_matmul_tc_cuda``): bf16 ``wgmma``
+  on the tensor cores with a TMA ring, for bf16 compute at prefill sizes
+  (M > 64, N % 128 == 0, ``bn >= 16``).
+
+``sealed_matmul`` picks one by ``_variant`` from dtype and shape alone; each
+counts its own launches. The headers of the CUDA sources give the keystream
+contract and the designs.
 
 What bounds it on this card: at decode it reads 4 bytes of ciphertext per
 weight word and makes one ChaCha block (976 integer operations) per 16
@@ -25,8 +35,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.chacha20 import chacha20_blocks_plain
 
-BK, BN = 32, 64          # the CUDA kernel's K step and column strip
+BK, BN = 32, 64          # the CUDA-core kernel's K step and column strip
 _TARGET_BLOCKS = 1600    # ~2 waves of resident blocks on 132 SMs
+TC_MIN_M = 65            # the tensor-core kernel takes M above decode sizes
+TC_BN = 128              # ... and N in whole 128-column tiles
 
 
 def sealed_matmul_plain(x, w_ct, row_mask, key_words, nonce_words,
@@ -39,6 +51,22 @@ def sealed_matmul_plain(x, w_ct, row_mask, key_words, nonce_words,
                                 row_mask, write_counter,
                                 block_fn=chacha20_blocks_plain)
     return x.to(cdt).float() @ w.to(cdt).float()
+
+
+def _pow2(v: int) -> bool:
+    return v > 0 and v & (v - 1) == 0
+
+
+def _variant(m: int, n: int, bk: int, bn: int, compute_dtype: str) -> str:
+    """The kernel a CUDA call runs: ``"sealed_matmul_tc"`` (tensor cores) for
+    bf16 compute with M > 64, N a multiple of 128 and seal tiles that are
+    powers of two of at least 16 columns (every tile
+    ``sealed_store._pick_block`` picks, but bn = 8), else ``"sealed_matmul"``
+    (CUDA cores). Depends on dtype and shape only."""
+    if (compute_dtype == "bfloat16" and m >= TC_MIN_M and n % TC_BN == 0
+            and bn >= 16 and _pow2(bn) and _pow2(bk)):
+        return "sealed_matmul_tc"
+    return "sealed_matmul"
 
 
 def _launch_shape(m: int, k: int, n: int):
@@ -58,38 +86,17 @@ def sealed_matmul_cuda(x, w_ct, row_mask, key_words, nonce_words,
                        compute_dtype: str = "float32") -> torch.Tensor:
     """Launch ``csrc/sealed_matmul.cu`` on PyTorch's current stream.
 
-    x (M, K) f32; w_ct (K, N) int32 words; row_mask (K,) bool/uint8; key
-    (8,) and nonce (3,) int32 words; write_counter a (1,) or () int32 word
-    on the card (read by the kernel, so no host sync)."""
+    x (M, K) f32 or bf16 (widened to f32: exact); w_ct (K, N) int32 words;
+    row_mask (K,) bool/uint8; key (8,) and nonce (3,) int32 words;
+    write_counter a (1,) or () int32 word on the card (read by the kernel,
+    so no host sync)."""
+    x, w_ct, mask, key_words, nonce_words, wc = _checked(
+        x, w_ct, row_mask, key_words, nonce_words, write_counter, bk=bk,
+        bn=bn, compute_dtype=compute_dtype)
+    x = x.float().contiguous()
     m, k = x.shape
-    k2, n = w_ct.shape
+    n = w_ct.shape[1]
     dev = x.device
-    if k != k2:
-        raise ValueError(f"contraction mismatch {tuple(x.shape)} @ "
-                         f"{tuple(w_ct.shape)}")
-    if k % bk or n % bn or bk % 8 or bn % 8:
-        raise ValueError(f"({k}, {n}) not tiled by seal tiles ({bk}, {bn})")
-    if x.dtype != torch.float32:
-        raise TypeError(f"x must be float32, got {x.dtype}")
-    if w_ct.dtype != torch.int32 or key_words.dtype != torch.int32 or \
-            nonce_words.dtype != torch.int32:
-        raise TypeError("w_ct / key / nonce must be int32 u32 words")
-    if compute_dtype not in ("float32", "bfloat16"):
-        raise ValueError(f"compute_dtype {compute_dtype!r}")
-    wc = torch.as_tensor(write_counter, device=dev)
-    if wc.dtype != torch.int32 or wc.numel() != 1:
-        raise TypeError("write_counter must be one int32 word")
-    mask = row_mask.reshape(k)
-    if mask.dtype not in (torch.bool, torch.uint8):
-        raise TypeError(f"row_mask must be bool or uint8, got {mask.dtype}")
-    ops = (x, w_ct, mask, key_words, nonce_words, wc)
-    if any(t.device != dev for t in ops):
-        raise ValueError("sealed_matmul operands must share one device")
-    if key_words.numel() != 8 or nonce_words.numel() != 3:
-        raise ValueError("key must be 8 words and nonce 3 words")
-    if m * n >= 2**31 or k * n >= 2**32:
-        raise ValueError(f"shape ({m}, {k}, {n}) exceeds the kernel's indices")
-    x, w_ct, mask, key_words, nonce_words, wc = (t.contiguous() for t in ops)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     if m == 0:
         return out
@@ -108,18 +115,104 @@ def sealed_matmul_cuda(x, w_ct, row_mask, key_words, nonce_words,
                 part.data_ptr(), out.data_ptr(), m, k, n, bk, bn, bm, splits,
                 kps, int(compute_dtype == "bfloat16"), stream)
     _build.check(rc, "sealed_matmul")
-    sealed_matmul.launches += 1
+    sealed_matmul_cuda.launches += 1
     return out
+
+
+def sealed_matmul_tc_cuda(x, w_ct, row_mask, key_words, nonce_words,
+                          write_counter, *, bk: int, bn: int,
+                          compute_dtype: str = "bfloat16") -> torch.Tensor:
+    """Launch ``csrc/sealed_matmul_tc.cu`` on PyTorch's current stream.
+
+    Operands as ``sealed_matmul_cuda``; x is rounded to bf16 (round to
+    nearest even, the rounding the CUDA-core kernel applies) unless it is
+    bf16 already. Takes ``compute_dtype="bfloat16"``, N % 128 == 0 and seal
+    tiles that are powers of two with ``bn >= 16`` only; raises on anything
+    else."""
+    if compute_dtype != "bfloat16":
+        raise ValueError("the tensor-core kernel computes in bfloat16 only")
+    x, w_ct, mask, key_words, nonce_words, wc = _checked(
+        x, w_ct, row_mask, key_words, nonce_words, write_counter, bk=bk,
+        bn=bn, compute_dtype=compute_dtype)
+    m, k = x.shape
+    n = w_ct.shape[1]
+    if n % TC_BN or bn < 16 or not (_pow2(bk) and _pow2(bn)):
+        raise ValueError(f"N={n}, bk={bk}, bn={bn}: the tensor-core kernel "
+                         f"takes N % {TC_BN} == 0 and seal tiles that are "
+                         f"powers of two with bn >= 16")
+    x = x.to(torch.bfloat16).contiguous()
+    for name, t in (("x", x), ("w_ct", w_ct)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned, which TMA "
+                             f"needs")
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m == 0:
+        return out
+    lib = _build.load("sealed_matmul_tc")
+    fn = lib.sealed_matmul_tc
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), w_ct.data_ptr(), mask.data_ptr(),
+                key_words.data_ptr(), nonce_words.data_ptr(), wc.data_ptr(),
+                out.data_ptr(), m, k, n, bk, bn, stream)
+    _build.check(rc, "sealed_matmul_tc")
+    sealed_matmul_tc_cuda.launches += 1
+    return out
+
+
+def _checked(x, w_ct, row_mask, key_words, nonce_words, write_counter, *,
+             bk: int, bn: int, compute_dtype: str):
+    """Validate the operands of either kernel; return them contiguous, the
+    mask as (K,) and the write counter as a tensor on x's device."""
+    m, k = x.shape
+    k2, n = w_ct.shape
+    dev = x.device
+    if k != k2:
+        raise ValueError(f"contraction mismatch {tuple(x.shape)} @ "
+                         f"{tuple(w_ct.shape)}")
+    if k % bk or n % bn or bk % 8 or bn % 8:
+        raise ValueError(f"({k}, {n}) not tiled by seal tiles ({bk}, {bn})")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if w_ct.dtype != torch.int32 or key_words.dtype != torch.int32 or \
+            nonce_words.dtype != torch.int32:
+        raise TypeError("w_ct / key / nonce must be int32 u32 words")
+    if compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype {compute_dtype!r}")
+    wc = torch.as_tensor(write_counter, device=dev)
+    if wc.dtype != torch.int32 or wc.numel() != 1:
+        raise TypeError("write_counter must be one int32 word")
+    mask = row_mask.reshape(k)
+    if mask.dtype not in (torch.bool, torch.uint8):
+        raise TypeError(f"row_mask must be bool or uint8, got {mask.dtype}")
+    ops = (x, w_ct, mask, key_words, nonce_words, wc)
+    if any(t.device != dev for t in ops):
+        raise ValueError("sealed_matmul operands must share one device")
+    if key_words.numel() != 8 or nonce_words.numel() != 3:
+        raise ValueError("key must be 8 words and nonce 3 words")
+    if m * n >= 2**31 or k * n >= 2**32:
+        raise ValueError(f"shape ({m}, {k}, {n}) exceeds the kernel's indices")
+    return tuple(t.contiguous() for t in ops)
 
 
 def sealed_matmul(x, w_ct, row_mask, key_words, nonce_words, write_counter,
                   *, bk: int, bn: int,
                   compute_dtype: str = "float32") -> torch.Tensor:
     """(M, N) f32. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel or raises."""
-    fn = sealed_matmul_cuda if x.is_cuda else sealed_matmul_plain
+    launches the kernel ``_variant`` names, or raises."""
+    if not x.is_cuda:
+        fn = sealed_matmul_plain
+    elif _variant(x.shape[0], w_ct.shape[1], bk, bn,
+                  compute_dtype) == "sealed_matmul_tc":
+        fn = sealed_matmul_tc_cuda
+    else:
+        fn = sealed_matmul_cuda
     return fn(x, w_ct, row_mask, key_words, nonce_words, write_counter,
               bk=bk, bn=bn, compute_dtype=compute_dtype)
 
 
-sealed_matmul.launches = 0
+sealed_matmul_cuda.launches = 0
+sealed_matmul_tc_cuda.launches = 0

@@ -59,7 +59,9 @@ def dense(x: torch.Tensor, w, eq: str, dt: torch.dtype) -> torch.Tensor:
         k *= d
     x2d = x.reshape(-1, k)
     if isinstance(w, SealedTensor):
-        y = w.matmul(x2d.float(), compute_dtype=str(dt).replace("torch.", ""))
+        # x goes in the compute dtype: the kernel rounds to it anyway, and a
+        # bf16 activation is not widened to f32 on the way
+        y = w.matmul(x2d.to(dt), compute_dtype=str(dt).replace("torch.", ""))
         out_shape = w.out_shape
     else:
         y = plain_matmul(x2d, w.reshape(k, -1), dt)

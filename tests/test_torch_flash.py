@@ -100,6 +100,7 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
         raise AssertionError("the kernel was launched for CPU tensors")
 
     monkeypatch.setattr(FA, "flash_attention_cuda", no_kernel)
+    monkeypatch.setattr(FA, "flash_attention_tc_cuda", no_kernel)
     arrays = _qkv(5, 1, 70, 70, 4, 2, 16)
     q, k, v = (torch.from_numpy(a) for a in arrays)
     before = ops.launch_counts()["flash_attention"]
@@ -119,3 +120,86 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(shapes, dtype, err):
     k = torch.zeros(shapes[1], dtype=dtype)
     with pytest.raises(err):
         ops.flash_attention(q, k, k, scale=1.0)
+
+
+@pytest.mark.parametrize("dtype,dh,want", [
+    (torch.bfloat16, 128, "flash_attention_tc"),   # internlm2's heads
+    (torch.bfloat16, 64, "flash_attention_tc"),
+    (torch.bfloat16, 256, "flash_attention"),      # gemma2-like heads
+    (torch.bfloat16, 32, "flash_attention"),
+    (torch.float32, 128, "flash_attention"),       # the exact f32 path
+    (torch.float32, 64, "flash_attention"),
+])
+def test_variant_picks_by_dtype_and_head_dim(dtype, dh, want):
+    assert FA._variant(dtype, dh) == want
+
+
+def _tc_emulation(q, k, v, scale, tiles=None, tile=64):
+    """The tensor-core kernel's arithmetic in plain PyTorch: f32 scores of
+    bf16 inputs, scaled in f32, causal mask with dead scores -1e30, online
+    softmax over 64-key tiles with f32 row sums, probabilities rounded to
+    bf16 per tile before ``p @ v``, output rounded to bf16. ``tiles`` lists
+    the kv tiles visited (the kernel's: each once, in order)."""
+    s, hq, t, hkv = q.shape[1], q.shape[2], k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(hq // hkv, dim=2)
+    vf = v.float().repeat_interleave(hq // hkv, dim=2)
+    shape = (q.shape[0], hq, s)
+    m = torch.full(shape, -np.inf)
+    den = torch.zeros(shape)
+    acc = torch.zeros(shape + (q.shape[3],))
+    q_pos = torch.arange(s)[:, None]
+    if tiles is None:
+        tiles = range(-(-t // tile))
+    for j in tiles:
+        lo, hi = j * tile, min(t, (j + 1) * tile)
+        sc = torch.einsum("bshd,bthd->bhst", q.float(), kf[:, lo:hi]) * scale
+        sc = torch.where(torch.arange(lo, hi)[None] <= q_pos, sc,
+                         torch.full((), -1e30))
+        m_new = torch.maximum(m, sc.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new[..., None])
+        den = den * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhst,bthd->bhsd", p.to(torch.bfloat16).float(), vf[:, lo:hi])
+        m = m_new
+    out = acc / den.clamp_min(1e-30)[..., None]
+    return out.transpose(1, 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("tiles,ok", [
+    (None, True),                    # every tile once: the kernel
+    ([0, 2, 3], False),              # one 64-key tile dropped
+    ([0, 1, 1, 2, 3], False),        # one tile counted twice
+    ([1, 2, 3], False),              # the first tile dropped
+])
+def test_bf16_gate_sees_tile_faults(tiles, ok):
+    """``bf16_gate`` accepts a plain emulation of the tensor-core kernel's
+    bf16 rounding of P, and rejects it with a tile dropped or doubled."""
+    arrays = _qkv(11, 1, 256, 256, 4, 2, 32)
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in arrays)
+    got = _tc_emulation(q, k, v, 32 ** -0.5, tiles)
+    passed, share, rms = FA.bf16_gate(q, k, v, got, scale=32 ** -0.5)
+    assert passed == ok, (share, rms)
+    if ok:   # inside the gate with room: P's and the output's roundings
+        assert share < 0.75 and rms < 0.75 * 2.0 ** -8
+
+
+@pytest.mark.parametrize("case", ["f32", "dh32", "head_stride", "base"])
+def test_tc_check_refuses_what_tma_cannot_describe(case):
+    """The tensor-core kernel takes bf16, head dim 64 or 128, and views
+    whose bases and strides are 16-byte aligned; its wrapper refuses the
+    rest before any launch."""
+    q = torch.zeros((1, 8, 4, 64), dtype=torch.bfloat16)
+    k = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
+    FA.check_tc(q, k, k, 0)                      # the shape it takes
+    if case == "f32":
+        q, k = q.float(), k.float()
+    elif case == "dh32":
+        q, k = q[..., :32].contiguous(), k[..., :32].contiguous()
+    elif case == "head_stride":                  # heads 68 elements apart
+        q = torch.zeros((1, 8, 4, 68), dtype=torch.bfloat16)[..., :64]
+    else:                                        # base 2 bytes off
+        q = torch.zeros((1 * 8 * 4 * 64 + 1,), dtype=torch.bfloat16)[1:]
+        q = q.view(1, 8, 4, 64)
+    with pytest.raises(ValueError):
+        FA.check_tc(q, k, k, 0)

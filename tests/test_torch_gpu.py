@@ -4,13 +4,16 @@ for the card and skips without one. On a machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerances: keystreams bitwise; the fused matmul against the plain version
-at 1e-4 of the output scale in f32 and in bf16 (both round the same operands
-and sum in f32; only the order of the sums differs); flash attention against
-its plain version at 2e-5 of the output scale in f32 and 1e-2 in bf16 (both
-sum in f32; bf16 outputs may differ by the final rounding, one bf16 ulp);
-the card's sealed logits and the group engine's tokens against the CPU's
-plain f32 path at 1e-4 relative and exactly.
+Tolerances: keystreams bitwise; each fused-matmul kernel (CUDA cores, and
+tensor cores at bf16 prefill sizes) against the plain version at 1e-4 of
+the output scale in f32 and in bf16 (both round the same operands and sum in
+f32; only the order of the sums differs); the CUDA-core flash kernel against
+its plain version's f32 result at 2e-5 of the output scale in f32, plus one
+bf16 rounding of each element in bf16; the tensor-core flash kernel (bf16,
+head dim 64 or 128, probabilities rounded to bf16 before ``p @ v``) under
+``flash_attention.bf16_gate``; the card's sealed logits and the group
+engine's tokens against the CPU's plain f32 path at 1e-4 relative and
+exactly.
 """
 import numpy as np
 import pytest
@@ -56,7 +59,12 @@ def test_chacha_kernel_bitwise(cuda, n, per_block):
 
 @pytest.mark.parametrize("m,k,n,bk,bn", [(4, 256, 192, 128, 64),
                                          (33, 128, 136, 64, 8),
-                                         (70, 96, 32, 32, 32)])
+                                         (70, 96, 32, 32, 32),
+                                         # bf16: the tensor-core kernel
+                                         (65, 512, 128, 128, 128),
+                                         (200, 192, 384, 64, 16),
+                                         (1000, 96, 256, 32, 32),
+                                         (300, 1024, 640, 128, 128)])
 @pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
 def test_sealed_matmul_kernel_matches_plain(cuda, m, k, n, bk, bn, cdt):
     gen = torch.Generator(device=cuda).manual_seed(m * k)
@@ -66,11 +74,12 @@ def test_sealed_matmul_kernel_matches_plain(cuda, m, k, n, bk, bn, cdt):
     key, nonce = _words(gen, (8,), cuda), _words(gen, (3,), cuda)
     wc = torch.tensor(u32.const(3), dtype=torch.int32, device=cuda)
     ct = ref.seal_weights_ref(w, key, nonce, bk, bn, mask, wc)
-    before = SMK.sealed_matmul.launches
+    variant = SMK._variant(m, n, bk, bn, cdt)
+    before = ops.launch_counts()[variant]
     got = ops.sealed_matmul(x, ct, mask, key, nonce, wc, bk=bk, bn=bn,
                             compute_dtype=cdt)
     torch.cuda.synchronize()
-    assert SMK.sealed_matmul.launches == before + 1
+    assert ops.launch_counts()[variant] == before + 1
     want = SMK.sealed_matmul_plain(x, ct, mask, key, nonce, wc, bk=bk, bn=bn,
                                    compute_dtype=cdt)
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
@@ -100,6 +109,8 @@ FLASH_CASES = [  # b, s, t, hq, hkv, dh, window, softcap
     (2, 200, 200, 4, 2, 128, 0, 0.0),       # ragged tail, internlm2 heads
     (1, 300, 300, 4, 2, 256, 100, 30.0),    # gemma2-like head dim
     (1, 96, 160, 2, 1, 64, 0, 0.0),         # s < t: top-left causal
+    (2, 333, 333, 8, 2, 128, 0, 0.0),       # ragged 128-row q tiles
+    (1, 700, 700, 4, 4, 64, 200, 30.0),     # window edges inside tiles
 ]
 
 
@@ -115,15 +126,20 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     v = torch.randn((b, t, hkv, dh), generator=gen, device=cuda)
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
     kw = dict(scale=dh ** -0.5, softcap=cap, window=win)
-    before = FA.flash_attention_cuda.launches
+    variant = FA._variant(dtype, dh)
+    before = ops.launch_counts()[variant]
     got = ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert FA.flash_attention_cuda.launches == before + 1
+    assert ops.launch_counts()[variant] == before + 1
+    assert got.dtype == dtype and got.shape == (b, s, hq, dh)
+    if variant == "flash_attention_tc":
+        ok, share, rms = FA.bf16_gate(q, k, v, got, **kw)
+        assert ok, (share, rms)
+        return
     # the plain version's f32 result on the same inputs, before rounding to
     # the output dtype: f32 agrees to 2e-5 of the scale, and bf16 adds one
     # rounding of each element (2^-8 of its size)
     want = FA.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
-    assert got.dtype == dtype and got.shape == (b, s, hq, dh)
     allowed = 2e-5 * want.abs().max()
     if dtype == torch.bfloat16:
         allowed = allowed + 2.0 ** -8 * want.abs()

@@ -135,4 +135,6 @@ def test_launch_counts_untouched_on_cpu():
     q = torch.zeros((1, 5, 2, 8))
     TO.flash_attention(q, q, q, scale=1.0)
     assert TO.launch_counts() == {"chacha20": 0, "sealed_matmul": 0,
-                                  "flash_attention": 0}
+                                  "sealed_matmul_tc": 0,
+                                  "flash_attention": 0,
+                                  "flash_attention_tc": 0}

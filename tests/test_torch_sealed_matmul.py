@@ -97,3 +97,64 @@ def test_ops_pads_m_like_the_reference():
                            u32.words(nonce), 1, bm=4, bk=bk, bn=bn)
     assert got.shape == (m, n)
     np.testing.assert_allclose(got.numpy(), x @ w, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("m,n,bk,bn,cdt,want", [
+    (3560, 8192, 128, 128, "bfloat16", "sealed_matmul_tc"),  # group prefill
+    (65, 128, 8, 16, "bfloat16", "sealed_matmul_tc"),        # the smallest
+    (64, 8192, 128, 128, "bfloat16", "sealed_matmul"),       # decode sizes
+    (4, 92544, 128, 128, "bfloat16", "sealed_matmul"),
+    (3560, 8192, 128, 128, "float32", "sealed_matmul"),      # exact f32 path
+    (3560, 2056, 128, 8, "bfloat16", "sealed_matmul"),       # bn == 8
+    (3560, 192, 64, 64, "bfloat16", "sealed_matmul"),        # N % 128 != 0
+    (1000, 384, 128, 8, "bfloat16", "sealed_matmul"),        # bn < 16
+    (1000, 384, 24, 128, "bfloat16", "sealed_matmul"),       # bk not 2^k
+    (1000, 384, 128, 48, "bfloat16", "sealed_matmul"),       # bn not 2^k
+])
+def test_variant_picks_by_dtype_and_shape(m, n, bk, bn, cdt, want):
+    assert TSM._variant(m, n, bk, bn, cdt) == want
+
+
+def test_dense_takes_bf16_x_bitwise():
+    """A sealed leaf gives the same bits on the CPU whether x arrives as
+    bf16 or as f32 holding the same bf16 values (the kernels round x to the
+    compute dtype with the same round-to-nearest)."""
+    from repro_torch.config import SealConfig
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import sealed_store as TSS
+    from repro_torch.models import layers as TL
+    from repro_torch.models import transformer as TT
+    cfg = get_reduced("internlm2_1_8b")
+    sp = TSS.seal_params(TT.init_params(cfg, seed=0, device="cpu"),
+                         SealConfig(), bytes(range(32)))
+    leaf = sp.tensors["blocks/0/mlp/wi"].slice(0)
+    rng = np.random.RandomState(4)
+    xb = torch.from_numpy(rng.randn(2, 75, leaf.k_size).astype(np.float32)
+                          ).to(torch.bfloat16)  # M = 150 rows, padded to 256
+    got = TL.dense(xb, leaf, "bsd,df->bsf", torch.bfloat16)
+    again = TL.dense(xb.float(), leaf, "bsd,df->bsf", torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 75) + leaf.out_shape
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("m,bm,rows", [(9, 4, 12), (3, 8, 3), (16, 8, 16),
+                                       (70, 128, 70), (130, 128, 256)])
+def test_ops_pad_rule_on_cpu_is_the_reference(monkeypatch, m, bm, rows):
+    """On the CPU, ops.sealed_matmul hands the kernel's plain version M
+    padded as the reference pads it (none when M < bm, else up to a
+    multiple of bm), and cuts the result back to M rows."""
+    seen = []
+    real = TSM.sealed_matmul
+
+    def spy(x, *a, **kw):
+        seen.append(x.shape[0])
+        return real(x, *a, **kw)
+
+    monkeypatch.setattr(TSM, "sealed_matmul", spy)
+    k, n, bk, bn = 32, 32, 32, 32
+    w, x, mask, nonce, ct = _sealed_case(m, k, n, bk, bn, 0.5, 2, seed=m)
+    got = TO.sealed_matmul(torch.from_numpy(x), u32.words(ct),
+                           torch.from_numpy(mask), u32.words(KEY),
+                           u32.words(nonce), 2, bm=bm, bk=bk, bn=bn)
+    assert seen == [rows] and got.shape == (m, n)
+    np.testing.assert_allclose(got.numpy(), x @ w, rtol=1e-4, atol=1e-3)
