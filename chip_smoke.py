@@ -9,11 +9,13 @@ tensor-core instructions), prints the card's name and power limit, and then
 runs:
 
 1. the ChaCha20 kernel against its plain PyTorch version, bitwise;
-2. both fused decrypt-in-matmul kernels against their plain version at the
-   full-width internlm2-1.8B shapes (wq, MLP wi/wo, LM head): the CUDA-core
-   kernel at decode M and at a ragged M of 1000 rows, the tensor-core kernel
-   at M of 128, 1000 and 3560 (the group prefill's), SE 0/0.5/1, write
-   counters 0 and 5;
+2. the three fused decrypt-in-matmul kernels against their plain version
+   at the full-width internlm2-1.8B shapes (wq/wo, wk/wv, MLP wi/wo, LM
+   head): the CUDA-core kernel at decode M and at a ragged M of 1000 rows,
+   the decode tensor-core kernel at M of 1, 4, 16, 32, 33 and 64 (each
+   case launched twice, bitwise equal), the prefill tensor-core kernel at M
+   of 128, 1000 and 3560 (the group prefill's), SE 0/0.5/1, write counters
+   0 and 5;
 3. both flash-attention kernels against their plain version: the reference
    test's grid, the group prefill's full-width shape, a gemma2-like head
    dim of 256 with window and softcap, and a short-query case, in f32 and
@@ -32,13 +34,16 @@ runs:
    prefill and first-step logits sealed vs plaintext (bf16 and f32), and
    one 1024-token prompt's one-shot prefill held against the chunked path
    of phase 4;
-6. CUDA-event timings of every kernel variant, old beside new (flash beside
+6. CUDA-event timings of every kernel variant, old beside new (the fused
+   matmul's decode kernels on every leaf at M = 4 and 32, and their sum
+   over a decode tick's 169 launches; flash beside
    ``scaled_dot_product_attention`` under each backend that runs, the
-   fastest as the library yardstick), of one decode tick and of one group
-   prefill and decode step, each kernel beside the least time the card
-   could take for the same work, and profiler splits of sealed decode ticks
-   and of a sealed and a plaintext group prefill. A device-side sleep before each timed
-   launch keeps the host's dispatch out of the timed window.
+   fastest as the library yardstick), of ChaCha at its two kinds of call,
+   of one decode tick and of one group prefill and decode step, each
+   kernel beside the least time the card could take for the same work,
+   and profiler splits of sealed decode ticks and of a sealed and a
+   plaintext group prefill. A device-side sleep before each timed launch
+   keeps the host's dispatch out of the timed window.
 
 Every phase raises on failure, so the script exits non-zero. The line before
 the last is a JSON ``{"kernels": [...]}`` record; the last line is
@@ -54,6 +59,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -61,14 +67,24 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # power limit. The data sheet gives no integer rate. Its 67 TFLOP/s of f32
 # outside the tensor cores is 132 SMs x 128 lanes x 2 FLOP
 # (an FMA) x 1.98 GHz: one 32-lane warp instruction per clock in each of an
-# SM's four schedulers. No 32-bit operation issues faster than that, so
-# 132 x 128 x 1.98e9 = 33.5e12 32-bit integer operations per second is the
-# ceiling the ChaCha rounds are held to.
+# SM's four schedulers. No 32-bit operation issues faster than that:
+# 132 x 128 x 1.98e9 = 33.5e12 32-bit integer operations per second. The
+# ChaCha rounds' XORs (LOP3) and rotations (SHF) have no form on the FMA
+# pipe and issue on the integer ALU pipe, 16 lanes a clock in each
+# scheduler: 132 x 64 x 1.98e9 = 16.7e12 a second (the SASS mix printed at
+# build time shows the adds as IMAD.IADD, on the FMA pipe). A pad is held to
+# both ceilings: all its operations at the issue rate, its XORs and
+# rotations at the ALU rate.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 128 * 1.98e9
+ALU_OPS_PER_S = 132 * 64 * 1.98e9
 BF16_FLOPS = 989e12
 CHACHA_OPS = 976          # 20 rounds x 4 quarter-rounds x 12 ops + 16 adds
+CHACHA_ALU_OPS = 640      # ... of which 320 XORs and 320 rotations
 CHACHA_XOR_OPS = 16       # XOR of one block into 16 ciphertext words
+
+# SASS opcodes of 32-bit integer work that the ChaCha rounds may compile to
+INT_OPCODES = ("IADD3", "IMAD", "LOP3", "SHF", "PRMT", "IADD", "LEA")
 
 SM_REPLACES = "src/repro/kernels/sealed_matmul.py:94"
 CC_REPLACES = "src/repro/kernels/chacha20.py:91"
@@ -110,11 +126,13 @@ def log(*a):
     print(*a, flush=True)
 
 
-def bound_ms(nbytes, int_ops=0.0, bf16_flops=0.0):
+def bound_ms(nbytes, int_ops=0.0, bf16_flops=0.0, alu_ops=0.0):
     """Least time for the work: the larger of bytes over the memory rate and
-    each kind of operation over its peak rate. Returns (ms, bound_by)."""
+    each kind of operation over its peak rate (``alu_ops``: the integer
+    operations that only the ALU pipe issues). Returns (ms, bound_by)."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(int_ops / INT32_OPS_PER_S, bf16_flops / BF16_FLOPS)
+    t_ops = max(int_ops / INT32_OPS_PER_S, alu_ops / ALU_OPS_PER_S,
+                bf16_flops / BF16_FLOPS)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -150,9 +168,19 @@ def main(argv=None) -> int:
     for name, counts in sass.items():
         log(f"[build:{name}] SASS tensor-core instructions: "
             + ", ".join(f"{op} {n}" for op, n in counts.items()))
-    for name in ("sealed_matmul_tc", "flash_attention_tc"):
+    for name in ("sealed_matmul_tc", "flash_attention_tc",
+                 "sealed_matmul_dec"):
         if not sass[name]["HGMMA"]:
             raise AssertionError(f"{name} has no wgmma (HGMMA) instruction")
+    # which pipes the ChaCha rounds issue on: the integer mix of each
+    # library that makes pads (static counts; the rounds are unrolled)
+    int_ops = {}
+    for name in ("chacha20", "sealed_matmul_dec"):
+        mix = _build.sass_opcodes(name)
+        int_ops[name] = {op: n for op, n in sorted(mix.items())
+                         if op.split(".")[0] in INT_OPCODES}
+        log(f"[build:{name}] SASS integer mix: " + ", ".join(
+            f"{op} {n}" for op, n in int_ops[name].items()))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -160,7 +188,7 @@ def main(argv=None) -> int:
     log(card)
 
     report = {"card": card, "device": torch.cuda.get_device_name(0),
-              "sass": sass}
+              "sass": sass, "sass_int_ops": int_ops}
     dev = torch.device("cuda")
     from repro_torch.device import resolve_device
     resolve_device(dev)
@@ -191,9 +219,15 @@ def kernel_records(report):
     t = report["timing"]
     serve = report["serve"]["launches"]        # the continuous run
     group = report["group"]["launches"]        # the group run
+    f32 = report["group"]["f32_launches"]     # the f32 path of phase 5
     rows = [  # name, replaces, launches, max_abs_err
-        ("sealed_matmul", SM_REPLACES, serve["sealed_matmul"],
+        # the bf16 main path runs the CUDA-core fused matmul no more; it is
+        # the f32 path's, counted over the f32 teacher-forced group prefill
+        # and step of phase 5
+        ("sealed_matmul", SM_REPLACES, f32["sealed_matmul"],
          report["sealed_matmul"]["max_abs_err"]),
+        ("sealed_matmul_dec", SM_REPLACES, serve["sealed_matmul_dec"],
+         report["sealed_matmul"]["max_abs_err_dec"]),
         ("sealed_matmul_tc", SM_REPLACES, group["sealed_matmul_tc"],
          report["sealed_matmul"]["max_abs_err_tc"]),
         ("chacha20", CC_REPLACES, serve["chacha20"],
@@ -201,8 +235,7 @@ def kernel_records(report):
         # the bf16 main path runs only the tensor-core flash kernel; the
         # CUDA-core one is the f32 path's, counted over the f32
         # teacher-forced group prefill and step of phase 5
-        ("flash_attention", FA_REPLACES,
-         report["group"]["f32_launches"]["flash_attention"],
+        ("flash_attention", FA_REPLACES, f32["flash_attention"],
          report["flash"]["max_abs_err"]),
         ("flash_attention_tc", FA_REPLACES, group["flash_attention_tc"],
          report["flash"]["max_abs_err_tc"]),
@@ -273,8 +306,8 @@ def _shapes():
     from repro_torch.configs import get_config
     cfg = get_config("internlm2_1_8b")
     d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
-    return {"wq": (d, cfg.q_dim), "mlp_wi": (d, f), "mlp_wo": (f, d),
-            "head": (d, v)}
+    return {"wq": (d, cfg.q_dim), "wk": (d, cfg.kv_dim), "mlp_wi": (d, f),
+            "mlp_wo": (f, d), "head": (d, v)}
 
 
 def _sealed_operands(torch, dev, gen, k, n, ratio, wc, bk, bn):
@@ -299,6 +332,7 @@ def phase_sealed_matmul(torch, dev, seed):
               for wc in (0, 5) for cdt in ("float32", "bfloat16")]
     seals = [(r, wc) for r in (0.0, 0.5, 1.0) for wc in (0, 5)]
     tc_rows = (128, 1000, 3560)            # 3560: the group prefill's M
+    dec_rows = (1, 4, 16, 32, 33, 64)      # decode ticks and chunks
     cases = []
     shapes = dict(_shapes())
     shapes["bn8"] = (2048, 2056)           # N = 8 * 257: seal tile bn = 8
@@ -318,6 +352,9 @@ def phase_sealed_matmul(torch, dev, seed):
                      for i, (r, wc) in enumerate(seals)]
             mine += [(m, 0.5, 5, "bfloat16", "sealed_matmul_tc")
                      for m in tc_rows[1:]]
+            # the decode kernel: every M at every seal
+            mine += [(m, r, wc, "bfloat16", "sealed_matmul_dec")
+                     for m in dec_rows for r, wc in seals]
         by_seal = {}
         for m, ratio, wc, cdt, kern in mine:
             by_seal.setdefault((ratio, wc), []).append((m, cdt, kern))
@@ -329,43 +366,67 @@ def phase_sealed_matmul(torch, dev, seed):
                                              wcw, block_fn=chacha20_blocks_plain)
             if not torch.equal(w_plain.view(torch.int32), w.view(torch.int32)):
                 raise AssertionError(f"{name}: seal/unseal roundtrip differs")
+            dec_share = 0.0
             for m, cdt, kern in runs:
                 x = torch.randn((m, k), generator=gen, device=dev)
                 c = getattr(torch, cdt)
                 want = x.to(c).float() @ w_plain.to(c).float()
-                launch = (SMK.sealed_matmul_tc_cuda
-                          if kern == "sealed_matmul_tc"
-                          else SMK.sealed_matmul_cuda)
-                # the tensor-core kernel takes x as the model hands it: bf16
-                xin = x.to(c) if kern == "sealed_matmul_tc" else x
+                launch = {"sealed_matmul_tc": SMK.sealed_matmul_tc_cuda,
+                          "sealed_matmul_dec": SMK.sealed_matmul_dec_cuda,
+                          "sealed_matmul": SMK.sealed_matmul_cuda}[kern]
+                # the tensor-core kernels take x as the model hands it: bf16
+                xin = x if kern == "sealed_matmul" else x.to(c)
                 got = launch(xin, ct, mask, key, nonce, wcw, bk=bk, bn=bn,
                              compute_dtype=cdt)
+                same = True
+                if kern == "sealed_matmul_dec":   # deterministic split-K
+                    same = torch.equal(got, launch(
+                        xin, ct, mask, key, nonce, wcw, bk=bk, bn=bn,
+                        compute_dtype=cdt))
                 torch.cuda.synchronize()
                 err = float((got - want).abs().max())
                 scale = float(want.abs().max())
-                ok = (bool(torch.isfinite(got).all())
-                      and err <= KERNEL_TOL * scale)
+                share = err / (KERNEL_TOL * scale)
+                ok = (bool(torch.isfinite(got).all()) and share <= 1.0
+                      and same)
                 cases.append({"kernel": kern, "leaf": name, "K": k, "N": n,
                               "bk": bk, "bn": bn, "M": m, "ratio": ratio,
                               "wc": wc, "compute_dtype": cdt,
-                              "max_abs_err": err, "out_scale": scale})
-                log(f"[sealed_matmul] {kern} {name} K={k} N={n} bk={bk} "
-                    f"bn={bn} M={m} ratio={ratio} wc={wc} {cdt}: "
-                    f"max_abs_err={err:.3e} (scale {scale:.3e}, tol "
-                    f"{KERNEL_TOL:g} x scale)")
+                              "max_abs_err": err, "out_scale": scale,
+                              "share_of_tol": share, "repeatable": same})
+                if kern == "sealed_matmul_dec":
+                    dec_share = max(dec_share, share)
+                else:
+                    log(f"[sealed_matmul] {kern} {name} K={k} N={n} bk={bk} "
+                        f"bn={bn} M={m} ratio={ratio} wc={wc} {cdt}: "
+                        f"max_abs_err={err:.3e} (scale {scale:.3e}, tol "
+                        f"{KERNEL_TOL:g} x scale)")
                 if not ok:
                     raise AssertionError(f"sealed_matmul disagrees: {cases[-1]}")
                 del x, want, got
+            if any(kern == "sealed_matmul_dec" for _, _, kern in runs):
+                log(f"[sealed_matmul] sealed_matmul_dec {name} K={k} N={n} "
+                    f"bk={bk} bn={bn} ratio={ratio} wc={wc} bf16, M "
+                    f"{'/'.join(str(m) for m in dec_rows)}: worst error at "
+                    f"{dec_share:.3f} of the tolerance ({KERNEL_TOL:g} x "
+                    f"scale), two launches bitwise equal")
         del w, ct, w_plain
         torch.cuda.empty_cache()
-    n_tc = sum(c["kernel"] == "sealed_matmul_tc" for c in cases)
-    log(f"[sealed_matmul] {len(cases) - n_tc} CUDA-core and {n_tc} "
-        f"tensor-core cases within {KERNEL_TOL:g} of the output scale")
-    return {"cases": cases,
+    count = {kern: sum(c["kernel"] == kern for c in cases)
+             for kern in ("sealed_matmul", "sealed_matmul_dec",
+                          "sealed_matmul_tc")}
+    worst = {kern: max(c["share_of_tol"] for c in cases
+                       if c["kernel"] == kern) for kern in count}
+    log(f"[sealed_matmul] within {KERNEL_TOL:g} of the output scale: "
+        + ", ".join(f"{kern} {count[kern]} cases (worst at "
+                    f"{worst[kern]:.3f} of the tolerance)" for kern in count))
+    return {"cases": cases, "worst_share_of_tol": worst,
             "max_abs_err": max(c["max_abs_err"] for c in cases
                                if c["kernel"] == "sealed_matmul"),
             "max_abs_err_tc": max(c["max_abs_err"] for c in cases
-                                  if c["kernel"] == "sealed_matmul_tc")}
+                                  if c["kernel"] == "sealed_matmul_tc"),
+            "max_abs_err_dec": max(c["max_abs_err"] for c in cases
+                                   if c["kernel"] == "sealed_matmul_dec")}
 
 
 # --------------------------------------------------------------------------
@@ -565,13 +626,30 @@ def phase_serve(torch, dev, args):
         f"{eng.stats['weights_plaintext_bytes_per_step'] / 1e9:.3f} GB")
     handles = [eng.submit(p, max_tokens=NEW_TOKENS) for p in prompts]
 
+    # the size of every ChaCha call of the run, read where the cipher calls
+    # the kernel's wrapper (the wrapper counts the launches as it always does)
+    from repro_torch.core import cipher
+    from repro_torch.kernels import chacha20 as CC
+    sizes = {}
+
+    def record(key_words, counters, nonce_words):
+        n = int(counters.shape[0])
+        sizes[n] = sizes.get(n, 0) + 1
+        return CC.chacha20_blocks(key_words, counters, nonce_words)
+
+    real_cc = cipher._cc
+    cipher._cc = types.SimpleNamespace(chacha20_blocks=record)
     ops.reset_launch_counts()            # the main path starts here
     torch.cuda.synchronize()
     t0 = time.time()
-    eng.run()
-    torch.cuda.synchronize()
+    try:
+        eng.run()
+        torch.cuda.synchronize()
+    finally:
+        cipher._cc = real_cc
     launches = ops.launch_counts()       # ... and ends here
     serve_s = time.time() - t0
+    out["chacha_calls"] = sizes
     out["launches"] = launches
     out["serve_s"] = serve_s
     out["stats"] = {k: v for k, v in eng.stats.items()}
@@ -582,18 +660,24 @@ def phase_serve(torch, dev, args):
         f"dispatches, launches {launches}")
     if not all(h.done and len(h.out) == NEW_TOKENS for h in handles):
         raise AssertionError("not every request completed")
-    fused_launches = launches["sealed_matmul"] + launches["sealed_matmul_tc"]
+    fused_launches = (launches["sealed_matmul"] + launches["sealed_matmul_tc"]
+                      + launches["sealed_matmul_dec"])
     if fused_launches != dispatches * per_dispatch:
         raise AssertionError(
             f"the fused matmul kernels launched {fused_launches} times, "
             f"expected {per_dispatch} per dispatch x {dispatches}")
-    # a decode tick has M = slots <= 64 rows: the CUDA-core kernel; chunks
-    # of more than 64 rows take the tensor cores
-    if launches["sealed_matmul"] < eng.stats["decode_steps"] * per_dispatch:
-        raise AssertionError("decode ticks did not all run the CUDA-core "
-                             "fused matmul")
+    # a decode tick has M = slots rows and a chunk at most 32 per slot's
+    # chunk, all <= 64: every fused contraction of the bf16 run takes the
+    # decode tensor-core kernel, none the CUDA-core one
+    if (launches["sealed_matmul_dec"] != dispatches * per_dispatch
+            or launches["sealed_matmul"]):
+        raise AssertionError(
+            f"sealed_matmul_dec launched {launches['sealed_matmul_dec']} "
+            f"times and sealed_matmul {launches['sealed_matmul']}, expected "
+            f"{dispatches * per_dispatch} and 0")
     if launches["chacha20"] <= 0:
         raise AssertionError("the ChaCha kernel never ran on the main path")
+    log(f"[serve] ChaCha calls by blocks per call: {sizes}")
     eng.check_device_mirror()
 
     plain = ServeEngine(cfg, params, batch_slots=SLOTS, max_len=256,
@@ -675,7 +759,8 @@ def _fused_launches(eng, rows, head_rows):
     engine whose layer contractions have ``rows`` rows and whose LM head
     has ``head_rows``, by ``sealed_matmul._variant``."""
     from repro_torch.kernels import sealed_matmul as SMK
-    counts = {"sealed_matmul": 0, "sealed_matmul_tc": 0}
+    counts = {"sealed_matmul": 0, "sealed_matmul_tc": 0,
+              "sealed_matmul_dec": 0}
     for path, st in eng.sealed.tensors.items():
         if st.meta.layout != "tiles":
             continue
@@ -726,9 +811,10 @@ def phase_group(torch, dev, args, serve):
     # a prefill's layer contractions have (group size x prompt length) rows,
     # its LM head (last position) and every decode step one row per member:
     # each takes the kernel _variant names for it (at full width: every
-    # layer contraction of a prefill on the tensor cores, the rest on the
-    # CUDA cores); attention runs the tensor-core flash kernel
-    want = {"sealed_matmul": 0, "sealed_matmul_tc": 0,
+    # layer contraction of a prefill on the prefill tensor-core kernel, the
+    # heads and decode steps on the decode one); attention runs the
+    # tensor-core flash kernel
+    want = {"sealed_matmul": 0, "sealed_matmul_tc": 0, "sealed_matmul_dec": 0,
             "flash_attention_tc": st["prefills"] * cfg.num_layers,
             "flash_attention": 0}
     groups = [prompts[i:i + SLOTS] for i in range(0, len(prompts), SLOTS)]
@@ -789,7 +875,7 @@ def phase_group(torch, dev, args, serve):
     log(f"[group] launches of the f32 sealed prefill and step: {f32}")
     if (f32["flash_attention"] != cfg.num_layers or f32["sealed_matmul"]
             != 2 * per_dispatch or f32["sealed_matmul_tc"]
-            or f32["flash_attention_tc"]):
+            or f32["sealed_matmul_dec"] or f32["flash_attention_tc"]):
         raise AssertionError("the f32 path did not run the CUDA-core "
                              "kernels")
 
@@ -848,8 +934,9 @@ def _sealed_bound(m, k, n, enc_rows, x_bytes):
     once, the f32 output written once; the ChaCha pads of the encrypted
     rows made once; the products on the bf16 tensor cores."""
     nbytes = x_bytes * m * k + 4 * k * n + k + 4 * m * n + 48
-    ops_int = enc_rows * (n // 16) * (CHACHA_OPS + CHACHA_XOR_OPS)
-    return bound_ms(nbytes, ops_int, 2.0 * m * k * n)
+    pads = enc_rows * (n // 16)
+    return bound_ms(nbytes, pads * (CHACHA_OPS + CHACHA_XOR_OPS),
+                    2.0 * m * k * n, pads * (CHACHA_ALU_OPS + CHACHA_XOR_OPS))
 
 
 def phase_timing(torch, dev, args, report):
@@ -861,34 +948,46 @@ def phase_timing(torch, dev, args, report):
     flush = lambda: scratch.zero_()           # 256 MB > the 50 MB L2
     out = {"sealed_matmul_shapes": []}
 
-    # both fused matmul kernels at each main-path leaf shape, SE 0.5, bf16:
-    # the CUDA-core kernel at decode M (its path) and at the group prefill's
-    # M = 3560 (its old path), the tensor-core kernel at M = 3560
+    # the fused matmul kernels at each main-path leaf shape, SE 0.5, bf16:
+    # at decode M (a tick's 4 rows, a chunk's 32) the decode tensor-core
+    # kernel beside the CUDA-core one, in turns (old, new, new, old); at the
+    # group prefill's M = 3560 the CUDA-core kernel (its old path) beside the
+    # prefill tensor-core kernel
     prefill_m = report["group"]["prefill_rows"]
+    launchers = {"sealed_matmul": SMK.sealed_matmul_cuda,
+                 "sealed_matmul_dec": SMK.sealed_matmul_dec_cuda,
+                 "sealed_matmul_tc": SMK.sealed_matmul_tc_cuda}
     for name, (k, n) in _shapes().items():
         bk, bn = _pick_block(k), _pick_block(n)
         w, mask, key, nonce, ct, wcw = _sealed_operands(
             torch, dev, gen, k, n, 0.5, 5, bk, bn)
         enc_rows = int(mask.sum())
-        runs = [("sealed_matmul", 4), ("sealed_matmul", 32),
+        runs = [("sealed_matmul", 4), ("sealed_matmul_dec", 4),
+                ("sealed_matmul_dec", 32), ("sealed_matmul", 32),
                 ("sealed_matmul", prefill_m), ("sealed_matmul_tc", prefill_m)]
-        if name == "head":      # a prefill runs the head on its last row only
+        if name in ("head", "wk"):  # a prefill runs the head on its last
+            # row only; wk/wv are timed at decode sizes
             runs.remove(("sealed_matmul", prefill_m))
+        plain_at = {}
         for kern, m in runs:
-            tc = kern == "sealed_matmul_tc"
+            # the tensor-core kernels take x as the model hands it: bf16
+            bf16_x = kern != "sealed_matmul"
             x = torch.randn((m, k), generator=gen, device=dev)
-            if tc:
+            if bf16_x:
                 x = x.to(torch.bfloat16)
-            launch = SMK.sealed_matmul_tc_cuda if tc else SMK.sealed_matmul_cuda
+            launch = launchers[kern]
             run = lambda: launch(x, ct, mask, key, nonce, wcw, bk=bk, bn=bn,
                                  compute_dtype="bfloat16")
             plain = lambda: SMK.sealed_matmul_plain(
                 x, ct, mask, key, nonce, wcw, bk=bk, bn=bn,
                 compute_dtype="bfloat16")
-            ms = _time_ms(torch, run, 3 if m > 64 and not tc else 10, flush)
-            plain_ms = (_time_ms(torch, plain, 2)
-                        if m == 4 or (tc and name == "mlp_wi") else None)
-            b_ms, b_by = _sealed_bound(m, k, n, enc_rows, 2 if tc else 4)
+            ms = _time_ms(torch, run, 3 if m > 64 and not bf16_x else 10,
+                          flush)
+            if m not in plain_at and (m == 4 or (
+                    kern == "sealed_matmul_tc" and name == "mlp_wi")):
+                plain_at[m] = _time_ms(torch, plain, 2)
+            plain_ms = plain_at.get(m)
+            b_ms, b_by = _sealed_bound(m, k, n, enc_rows, 2 if bf16_x else 4)
             rec = {"kernel": kern, "leaf": name, "M": m, "K": k, "N": n,
                    "bk": bk, "bn": bn, "enc_rows": enc_rows, "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
@@ -917,7 +1016,18 @@ def phase_timing(torch, dev, args, report):
         del w, ct
     del x
     recs = out["sealed_matmul_shapes"]
-    for kern, m in (("sealed_matmul", 4), ("sealed_matmul_tc", prefill_m)):
+    by = {(r["kernel"], r["leaf"], r["M"]): r for r in recs}
+    for name in _shapes():
+        for m in (4, 32):
+            old, new = (by[("sealed_matmul", name, m)],
+                        by[("sealed_matmul_dec", name, m)])
+            log(f"[time] decode fused matmul {name} M={m}: sealed_matmul_dec "
+                f"{new['ms']:.4f} ms, sealed_matmul {old['ms']:.4f} ms "
+                f"({old['ms'] / new['ms']:.2f}x), bound {new['bound_ms']:.4f}"
+                f" ms ({new['bound_by']}; {new['bound_ms'] / new['ms']:.2f} "
+                f"of the new kernel's time)")
+    for kern, m in (("sealed_matmul", 4), ("sealed_matmul_dec", 4),
+                    ("sealed_matmul_tc", prefill_m)):
         main = next(r for r in recs if r["kernel"] == kern
                     and r["leaf"] == "mlp_wi" and r["M"] == m)
         out[kern] = {"ms": main["ms"], "plain_ms": main["plain_ms"],
@@ -950,12 +1060,25 @@ def phase_timing(torch, dev, args, report):
                       20, flush)
         plain_ms = _time_ms(torch,
                             lambda: CC.chacha20_blocks_plain(key, ctr, nz), 2)
-        b_ms, b_by = bound_ms(nblk * (64 + 4 + 12) + 32, nblk * CHACHA_OPS)
+        b_ms, b_by = bound_ms(nblk * (64 + 4 + 12) + 32, nblk * CHACHA_OPS,
+                              alu_ops=nblk * CHACHA_ALU_OPS)
         out["chacha_shapes"].append({"call": label, "blocks": nblk, "ms": ms,
                                      "plain_ms": plain_ms, "bound_ms": b_ms,
                                      "bound_by": b_by})
         log(f"[time] chacha20 {label}: {nblk} blocks, {ms:.4f} ms, plain "
             f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    # the continuous run's ChaCha launches by kind: the embedding's line
+    # OTP is the one call of n_embed blocks, every other call a cache OTP
+    calls = report["serve"]["chacha_calls"]
+    line_calls = calls.get(n_embed, 0)
+    out["chacha_shapes"][0]["launches"] = line_calls
+    out["chacha_shapes"][1]["launches"] = sum(calls.values()) - line_calls
+    out["chacha_shapes"][1]["blocks_per_call"] = {
+        n: c for n, c in sorted(calls.items()) if n != n_embed}
+    for rec in out["chacha_shapes"]:
+        log(f"[time] chacha20 {rec['call']}: {rec['launches']} launches in "
+            f"the continuous run, {rec['ms']:.4f} ms against a "
+            f"{rec['bound_ms']:.4f} ms bound ({rec['bound_ms'] / rec['ms']:.2f})")
     c0 = out["chacha_shapes"][0]
     out["chacha20"] = {"ms": c0["ms"], "plain_ms": c0["plain_ms"],
                        "bound_ms": c0["bound_ms"], "bound_by": c0["bound_by"],
@@ -984,7 +1107,7 @@ def phase_timing(torch, dev, args, report):
     # the tick's sealed matmuls alone, at their bound: every fused leaf at
     # M = slots, with the image's own masks
     eng = serve["engine"]
-    tb_bytes, tb_ops = 0.0, 0.0
+    tb_bytes, tb_ops, tb_alu = 0.0, 0.0, 0.0
     for path, st in eng.sealed.tensors.items():
         if st.meta.layout != "tiles":
             continue
@@ -993,14 +1116,42 @@ def phase_timing(torch, dev, args, report):
         enc = int(st.row_mask.sum())
         tb_bytes += layers * (4 * k * n + k) + layers * 4 * eng.slots * (k + n)
         tb_ops += enc * (n // 16) * (CHACHA_OPS + CHACHA_XOR_OPS)
-    b_ms, b_by = bound_ms(tb_bytes, tb_ops)
+        tb_alu += enc * (n // 16) * (CHACHA_ALU_OPS + CHACHA_XOR_OPS)
+    b_ms, b_by = bound_ms(tb_bytes, tb_ops, alu_ops=tb_alu)
     ticks["sealed_matmul_bound_ms"] = b_ms
     ticks["sealed_matmul_bound_by"] = b_by
     log(f"[time] the tick's sealed matmuls at their bound: {b_ms:.3f} ms "
-        f"({b_by}; {tb_bytes / 1e9:.2f} GB, {tb_ops / 1e9:.1f} G int ops)")
+        f"({b_by}; {tb_bytes / 1e9:.2f} GB, {tb_ops / 1e9:.1f} G int ops, "
+        f"{tb_alu / 1e9:.1f} G of them on the ALU pipe)")
+    # the 169 launches of a tick (M = 4) and of a 32-row chunk, summed from
+    # the per-leaf times above (each launch timed alone, L2 flushed)
+    shape_leaf = {kn: name for name, kn in _shapes().items()}
+    sums = {}
+    for kern in ("sealed_matmul", "sealed_matmul_dec"):
+        for m in (4, 32):
+            total = 0.0
+            for path, st in eng.sealed.tensors.items():
+                if st.meta.layout != "tiles":
+                    continue
+                layers = st.meta.shape[0] if st.meta.n_batch else 1
+                leaf = shape_leaf[(st.k_size, st.n_size)]
+                total += layers * by[(kern, leaf, m)]["ms"]
+            sums[f"{kern} M={m}"] = total
+    ticks["fused_matmul_sum_ms"] = sums
+    log(f"[time] the 169 fused matmuls of a dispatch, summed: " + ", ".join(
+        f"{key_} {v:.3f} ms" for key_, v in sums.items())
+        + f" (the tick's bound {b_ms:.3f} ms)")
     out["decode_tick"] = ticks
-    out["tick_profile"] = _profile(torch, serve["engine"]._decode_tick, 3,
-                                   "sealed decode ticks")
+    prof = _profile(torch, serve["engine"]._decode_tick, 3,
+                    "sealed decode ticks")
+    out["tick_profile"] = prof
+    if any("splitk_reduce" in name for name in prof["device_ms"]):
+        raise AssertionError("a sealed decode tick still runs splitk_reduce")
+    dec_ms = sum(v for name, v in prof["device_ms"].items()
+                 if "sealed_matmul_dec" in name) / prof["reps"]
+    ticks["sealed_matmul_dec_device_ms_per_tick"] = dec_ms
+    log(f"[profile] sealed_matmul_dec: {dec_ms:.3f} ms of device time per "
+        f"tick (bound {b_ms:.3f} ms); no splitk_reduce")
     for key_ in ("engine", "plain_engine", "params", "prompts"):
         serve.pop(key_)
     out.update(_time_group(torch, dev, gen, flush, report["group"]))
@@ -1148,6 +1299,7 @@ def _profile(torch, fn, reps, label, top=12):
     busy_ms = sum(r[0] for r in rows) / 1e3
     out = {"reps": reps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "idle_share": max(0.0, 1 - busy_ms / wall_ms),
+           "device_ms": {k: us / 1e3 for us, k, _ in rows},
            "top": [{"kernel": k[:90], "calls": c, "device_ms": us / 1e3}
                    for us, k, c in rows[:top]]}
     log(f"[profile] {reps} {label}: wall {wall_ms:.2f} ms, "

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (flash_attention_tc.cu, sealed_matmul_tc.cu): mbarriers, TMA tile loads,
-// wgmma shared-memory descriptors and the few wgmma shapes those kernels
-// issue, and the host-side encoding of TMA tensor maps.
+// (flash_attention_tc.cu, sealed_matmul_tc.cu, sealed_matmul_dec.cu):
+// mbarriers, TMA tile loads, wgmma shared-memory descriptors and the few
+// wgmma shapes those kernels issue, and the host-side encoding of TMA
+// tensor maps.
 //
 // Shared-memory operands use the 128-byte swizzle throughout: a tile is cut
 // into 1024-byte atoms of 8 rows x 128 bytes, and the 16-byte chunk c of row
@@ -213,6 +214,46 @@ __device__ __forceinline__ void wgmma_n128_ss_mn(float (&d)[64], uint64_t da,
       ", %64, %65, p, 1, 1, 0, 1;\n}\n"
       : HOP_F64(d)
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x N, f32) += A (64 x 16, smem, MN-major) . B (16 x N, smem, K-major:
+// stored as N rows of 16 contraction values), for N = 8, 16, 32 or 64: the
+// decode kernel's swapped product, A a decrypted weight tile (64 output
+// columns) and B the activations (N rows of M).
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tk(float (&d)[N / 2], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  static_assert(N == 8 || N == 16 || N == 32 || N == 64, "wgmma width");
+  if constexpr (N == 8) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(scale_d));
+  } else if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 0;\n}\n"
+        : HOP_F8(d, 0)
+        : "l"(da), "l"(db), "r"(scale_d));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15}, %16, %17, p, 1, 1, 1, 0;\n}\n"
+        : HOP_F8(d, 0), HOP_F8(d, 8)
+        : "l"(da), "l"(db), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOP_R32
+        ", %32, %33, p, 1, 1, 1, 0;\n}\n"
+        : HOP_F32(d)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
 }
 
 #undef HOP_F8

@@ -6,7 +6,8 @@ library with a plain C interface, loaded with ``ctypes``. Builds go to
 named by a hash of the sources, so an edited source rebuilds and an
 unchanged one loads. Nothing is built at import: a kernel is built at its
 first launch, or by ``build_all`` (which starts one ``nvcc`` per source, all
-at once).
+at once). ``load`` sets each exported function's ctypes prototype
+(``PROTOTYPES``) once, when it first loads the library.
 """
 from __future__ import annotations
 
@@ -22,7 +23,23 @@ from typing import Dict, List, Tuple
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("chacha20", "sealed_matmul", "flash_attention",
-           "sealed_matmul_tc", "flash_attention_tc")
+           "sealed_matmul_tc", "flash_attention_tc", "sealed_matmul_dec")
+
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
+# Each library's exported function and its argument types (pointers and the
+# stream as c_void_p, so that ctypes does not cut them to 32 bits); every one
+# returns an int error code.
+PROTOTYPES = {
+    "chacha20": ("chacha20_blocks", [_P, _P, _P, _I, _P, _I, _P]),
+    "sealed_matmul": ("sealed_matmul", [_P] * 8 + [_I] * 9 + [_P]),
+    "sealed_matmul_tc": ("sealed_matmul_tc", [_P] * 7 + [_I] * 5 + [_P]),
+    "sealed_matmul_dec": ("sealed_matmul_dec", [_P] * 9 + [_I] * 7 + [_P]),
+    "flash_attention": ("flash_attention", [_P] * 4 + [_I] * 6 + [_L] * 12
+                        + [_F, _F, _I, _I, _P]),
+    "flash_attention_tc": ("flash_attention_tc", [_P] * 4 + [_I] * 6
+                           + [_L] * 12 + [_F, _F, _I, _P]),
+}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -84,13 +101,18 @@ def build_all(names=SOURCES) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library for ``csrc/<name>.cu``, built first if needed,
+    with its function's prototype set."""
     lib = _loaded.get(name)
     if lib is None:
         path = _lib_path(name)
         if not path.exists():
             build_all((name,))
         lib = ctypes.CDLL(str(path))
+        fn_name, argtypes = PROTOTYPES[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib
 
@@ -107,6 +129,20 @@ def sass_counts(names=SOURCES, opcodes=("HGMMA", "HMMA")) -> Dict[str, Dict]:
                               ).stdout
         counts[name] = {op: len(re.findall(rf"\b{op}\b", sass))
                         for op in opcodes}
+    return counts
+
+
+def sass_opcodes(name: str) -> Dict[str, int]:
+    """How many SASS instructions of each opcode (with its modifiers, e.g.
+    ``IMAD.IADD``, ``LOP3.LUT``, ``SHF.L.W.U32.HI``) ``cuobjdump -sass``
+    lists in the built library: the static mix, which tells which pipe an
+    unrolled loop such as the ChaCha rounds issues on."""
+    sass = subprocess.run([_tool("cuobjdump"), "-sass", str(_lib_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    counts: Dict[str, int] = {}
+    line = r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
+    for m in re.finditer(line, sass):
+        counts[m.group(1)] = counts.get(m.group(1), 0) + 1
     return counts
 
 

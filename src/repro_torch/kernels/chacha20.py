@@ -16,8 +16,6 @@ registers, four 16-byte stores per block.
 """
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -100,12 +98,7 @@ def chacha20_blocks_cuda(key_words, counters, nonce_words) -> torch.Tensor:
     out = torch.empty((n, 16), dtype=torch.int32, device=dev)
     if n == 0:
         return out
-    lib = _build.load("chacha20")
-    fn = lib.chacha20_blocks
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.load("chacha20").chacha20_blocks
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(key_words.data_ptr(), counters.data_ptr(),

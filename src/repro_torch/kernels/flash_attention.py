@@ -33,8 +33,6 @@ the live kv tiles.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import _build
@@ -161,13 +159,7 @@ def flash_attention_tc_cuda(q, k, v, *, scale: float, softcap: float = 0.0,
     out = torch.empty((b, s, hq, dh), dtype=q.dtype, device=dev)
     if out.numel() == 0 or t == 0:
         return out.zero_()
-    lib = _build.load("flash_attention_tc")
-    fn = lib.flash_attention_tc
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_longlong] * 12
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = _build.load("flash_attention_tc").flash_attention_tc
     strides = [st for x in (q, k, v, out) for st in x.stride()[:3]]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -194,13 +186,7 @@ def flash_attention_cuda(q, k, v, *, scale: float, softcap: float = 0.0,
     out = torch.empty((b, s, hq, dh), dtype=q.dtype, device=dev)
     if out.numel() == 0 or t == 0:
         return out.zero_()
-    lib = _build.load("flash_attention")
-    fn = lib.flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_longlong] * 12
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = _build.load("flash_attention").flash_attention
     strides = [st for x in (q, k, v, out) for st in x.stride()[:3]]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -20,6 +20,7 @@ from repro_torch.kernels import sealed_matmul as _sm
 _COUNTED = {"chacha20": _cc.chacha20_blocks,
             "sealed_matmul": _sm.sealed_matmul_cuda,
             "sealed_matmul_tc": _sm.sealed_matmul_tc_cuda,
+            "sealed_matmul_dec": _sm.sealed_matmul_dec_cuda,
             "flash_attention": _fa.flash_attention_cuda,
             "flash_attention_tc": _fa.flash_attention_tc_cuda}
 

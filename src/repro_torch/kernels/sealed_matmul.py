@@ -2,11 +2,15 @@
 their plain PyTorch version.
 
 Port of ``repro/kernels/sealed_matmul.py::sealed_matmul`` (kernel body
-``_make_kernel``), as two kernels that compute the same function:
+``_make_kernel``), as three kernels that compute the same function:
 
 * ``csrc/sealed_matmul.cu`` (``sealed_matmul_cuda``): f32 FMAs on the CUDA
-  cores, any M; the decode path (M <= 64), f32 compute and seal tiles with
-  ``bn == 8``;
+  cores, any M; f32 compute, seal tiles with ``bn == 8`` and every shape the
+  other two do not take;
+* ``csrc/sealed_matmul_dec.cu`` (``sealed_matmul_dec_cuda``): bf16 ``wgmma``
+  with swapped operands (the decrypted weight tile is the 64-row A operand)
+  fed by a TMA ring, for bf16 compute at decode sizes (M <= 64,
+  N % 64 == 0, ``bn >= 16``), split K reduced inside the launch;
 * ``csrc/sealed_matmul_tc.cu`` (``sealed_matmul_tc_cuda``): bf16 ``wgmma``
   on the tensor cores with a TMA ring, for bf16 compute at prefill sizes
   (M > 64, N % 128 == 0, ``bn >= 16``).
@@ -21,13 +25,13 @@ encrypted words. At full internlm2-1.8B width one decode tick reads about
 6.8 GB (1.70 B words) and, with every row encrypted, needs about 106 M
 blocks; so the bound is the ChaCha arithmetic or the weight reads, whichever
 is larger: the arithmetic where more than about 65% of rows are encrypted,
-the reads at SE ratio 0.5. The kernel makes each pad once per word (all M
-rows of a column strip in one block, split-K for occupancy) and skips the
+the reads at SE ratio 0.5. The kernels make each pad once per word (all M
+rows of a column strip in one block, split-K for occupancy) and skip the
 pads of plaintext rows.
 """
 from __future__ import annotations
 
-import ctypes
+from typing import Dict, Tuple
 
 import torch
 
@@ -39,6 +43,10 @@ BK, BN = 32, 64          # the CUDA-core kernel's K step and column strip
 _TARGET_BLOCKS = 1600    # ~2 waves of resident blocks on 132 SMs
 TC_MIN_M = 65            # the tensor-core kernel takes M above decode sizes
 TC_BN = 128              # ... and N in whole 128-column tiles
+DEC_MAX_M = 64           # the decode kernel takes 1 <= M <= 64,
+DEC_BN = 64              # ... N in whole 64-column strips,
+DEC_BK = 64              # ... and K in slabs of 64 rows
+DEC_SLOTS = 2 * 132      # two resident blocks on each of the H100's 132 SMs
 
 
 def sealed_matmul_plain(x, w_ct, row_mask, key_words, nonce_words,
@@ -58,15 +66,63 @@ def _pow2(v: int) -> bool:
 
 
 def _variant(m: int, n: int, bk: int, bn: int, compute_dtype: str) -> str:
-    """The kernel a CUDA call runs: ``"sealed_matmul_tc"`` (tensor cores) for
-    bf16 compute with M > 64, N a multiple of 128 and seal tiles that are
-    powers of two of at least 16 columns (every tile
-    ``sealed_store._pick_block`` picks, but bn = 8), else ``"sealed_matmul"``
-    (CUDA cores). Depends on dtype and shape only."""
-    if (compute_dtype == "bfloat16" and m >= TC_MIN_M and n % TC_BN == 0
-            and bn >= 16 and _pow2(bn) and _pow2(bk)):
-        return "sealed_matmul_tc"
+    """The kernel a CUDA call runs, by dtype and shape only. For bf16 compute
+    with seal tiles that are powers of two of at least 16 columns (every
+    tile ``sealed_store._pick_block`` picks, but bn = 8):
+    ``"sealed_matmul_tc"`` (tensor cores, prefill sizes) for M > 64 and N a
+    multiple of 128, ``"sealed_matmul_dec"`` (tensor cores, decode sizes)
+    for M <= 64 and N a multiple of 64. Everything else, f32 compute
+    included, runs ``"sealed_matmul"`` (CUDA cores)."""
+    if compute_dtype == "bfloat16" and bn >= 16 and _pow2(bn) and _pow2(bk):
+        if m >= TC_MIN_M and n % TC_BN == 0:
+            return "sealed_matmul_tc"
+        if m <= DEC_MAX_M and n % DEC_BN == 0:
+            return "sealed_matmul_dec"
     return "sealed_matmul"
+
+
+def dec_geometry(m: int, k: int, n: int) -> Tuple[int, int, int, int]:
+    """Launch geometry of the decode kernel: (wgmma width NW, column strips,
+    K splits, rows of K per split). NW is M rounded up to 8, 16, 32 or 64;
+    a block takes one 64-column strip and one K range of whole 64-row slabs,
+    and the split divides the slab count, so every block has the same work.
+    The split is the fewest whose slabs per SM slot (``DEC_SLOTS`` blocks
+    run at a time) come within 10% of the least, among splits that give at
+    least one block per SM: fewer splits mean less split-K traffic and fewer
+    fixed costs per block."""
+    if not 1 <= m <= DEC_MAX_M:
+        raise ValueError(f"M={m}: the decode kernel takes 1 <= M <= "
+                         f"{DEC_MAX_M}")
+    nw = 8 if m <= 8 else 16 if m <= 16 else 32 if m <= 32 else 64
+    strips = n // DEC_BN
+    slabs = -(-k // DEC_BK)
+    splits = [s for s in range(1, slabs + 1) if slabs % s == 0]
+    full = [s for s in splits if strips * s >= DEC_SLOTS // 2]
+    splits = full or splits[-1:]
+    cost = {s: max(1.0, strips * s / DEC_SLOTS) * (slabs // s)
+            for s in splits}
+    least = min(cost.values())
+    split = min(s for s in splits if cost[s] <= 1.1 * least)
+    return nw, strips, split, slabs // split * DEC_BK
+
+
+# per device: the decode kernel's split-K workspace (splits x N x NW f32
+# partial sums) and its per-strip arrival counters (int32, zero between
+# launches); grown when a call needs more, never shrunk
+_DEC_WORK: Dict[str, Dict[str, torch.Tensor]] = {}
+
+
+def _dec_workspace(dev, part_numel: int, strips: int):
+    work = _DEC_WORK.setdefault(str(dev), {})
+    part = work.get("part")
+    if part is None or part.numel() < part_numel:
+        part = work["part"] = torch.empty((part_numel,), dtype=torch.float32,
+                                          device=dev)
+    cnt = work.get("counters")
+    if cnt is None or cnt.numel() < strips:
+        cnt = work["counters"] = torch.zeros((strips,), dtype=torch.int32,
+                                             device=dev)
+    return part, cnt
 
 
 def _launch_shape(m: int, k: int, n: int):
@@ -103,11 +159,7 @@ def sealed_matmul_cuda(x, w_ct, row_mask, key_words, nonce_words,
     bm, splits, kps = _launch_shape(m, k, n)
     part = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
             if splits > 1 else out)
-    lib = _build.load("sealed_matmul")
-    fn = lib.sealed_matmul
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.load("sealed_matmul").sealed_matmul
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(x.data_ptr(), w_ct.data_ptr(), mask.data_ptr(),
@@ -148,11 +200,7 @@ def sealed_matmul_tc_cuda(x, w_ct, row_mask, key_words, nonce_words,
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0:
         return out
-    lib = _build.load("sealed_matmul_tc")
-    fn = lib.sealed_matmul_tc
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.load("sealed_matmul_tc").sealed_matmul_tc
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), w_ct.data_ptr(), mask.data_ptr(),
@@ -160,6 +208,52 @@ def sealed_matmul_tc_cuda(x, w_ct, row_mask, key_words, nonce_words,
                 out.data_ptr(), m, k, n, bk, bn, stream)
     _build.check(rc, "sealed_matmul_tc")
     sealed_matmul_tc_cuda.launches += 1
+    return out
+
+
+def sealed_matmul_dec_cuda(x, w_ct, row_mask, key_words, nonce_words,
+                           write_counter, *, bk: int, bn: int,
+                           compute_dtype: str = "bfloat16") -> torch.Tensor:
+    """Launch ``csrc/sealed_matmul_dec.cu`` on PyTorch's current stream.
+
+    Operands as ``sealed_matmul_cuda``; x is rounded to bf16 (round to
+    nearest even) unless it is bf16 already. Takes
+    ``compute_dtype="bfloat16"``, 1 <= M <= 64, N % 64 == 0 and seal tiles
+    that are powers of two with ``bn >= 16`` only; raises on anything else.
+    The split-K workspace is the device's (``_dec_workspace``): launches that
+    share it run one after another on one stream."""
+    if compute_dtype != "bfloat16":
+        raise ValueError("the decode kernel computes in bfloat16 only")
+    x, w_ct, mask, key_words, nonce_words, wc = _checked(
+        x, w_ct, row_mask, key_words, nonce_words, write_counter, bk=bk,
+        bn=bn, compute_dtype=compute_dtype)
+    m, k = x.shape
+    n = w_ct.shape[1]
+    if m > DEC_MAX_M or n % DEC_BN or bn < 16 or not (_pow2(bk)
+                                                      and _pow2(bn)):
+        raise ValueError(f"M={m}, N={n}, bk={bk}, bn={bn}: the decode kernel "
+                         f"takes M <= {DEC_MAX_M}, N % {DEC_BN} == 0 and seal "
+                         f"tiles that are powers of two with bn >= 16")
+    x = x.to(torch.bfloat16).contiguous()
+    if x.data_ptr() % 16:       # TMA reads from 16-byte aligned rows
+        x = x.clone()
+    if w_ct.data_ptr() % 16:
+        raise ValueError("w_ct is not 16-byte aligned, which TMA needs")
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m == 0:
+        return out
+    nw, strips, splits, kps = dec_geometry(m, k, n)
+    part, counters = _dec_workspace(x.device, splits * n * nw if splits > 1
+                                    else 1, strips)
+    fn = _build.load("sealed_matmul_dec").sealed_matmul_dec
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), w_ct.data_ptr(), mask.data_ptr(),
+                key_words.data_ptr(), nonce_words.data_ptr(), wc.data_ptr(),
+                part.data_ptr(), counters.data_ptr(), out.data_ptr(), m, k, n,
+                bk, bn, splits, kps, stream)
+    _build.check(rc, "sealed_matmul_dec")
+    sealed_matmul_dec_cuda.launches += 1
     return out
 
 
@@ -205,14 +299,15 @@ def sealed_matmul(x, w_ct, row_mask, key_words, nonce_words, write_counter,
     launches the kernel ``_variant`` names, or raises."""
     if not x.is_cuda:
         fn = sealed_matmul_plain
-    elif _variant(x.shape[0], w_ct.shape[1], bk, bn,
-                  compute_dtype) == "sealed_matmul_tc":
-        fn = sealed_matmul_tc_cuda
     else:
-        fn = sealed_matmul_cuda
+        v = _variant(x.shape[0], w_ct.shape[1], bk, bn, compute_dtype)
+        fn = (sealed_matmul_tc_cuda if v == "sealed_matmul_tc" else
+              sealed_matmul_dec_cuda if v == "sealed_matmul_dec" else
+              sealed_matmul_cuda)
     return fn(x, w_ct, row_mask, key_words, nonce_words, write_counter,
               bk=bk, bn=bn, compute_dtype=compute_dtype)
 
 
 sealed_matmul_cuda.launches = 0
 sealed_matmul_tc_cuda.launches = 0
+sealed_matmul_dec_cuda.launches = 0

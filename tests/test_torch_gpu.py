@@ -5,9 +5,10 @@ for the card and skips without one. On a machine with a card:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: keystreams bitwise; each fused-matmul kernel (CUDA cores, and
-tensor cores at bf16 prefill sizes) against the plain version at 1e-4 of
-the output scale in f32 and in bf16 (both round the same operands and sum in
-f32; only the order of the sums differs); the CUDA-core flash kernel against
+tensor cores at bf16 decode and prefill sizes) against the plain version at
+1e-4 of the output scale in f32 and in bf16 (both round the same operands
+and sum in f32; only the order of the sums differs), and the decode kernel
+bitwise against itself; the CUDA-core flash kernel against
 its plain version's f32 result at 2e-5 of the output scale in f32, plus one
 bf16 rounding of each element in bf16; the tensor-core flash kernel (bf16,
 head dim 64 or 128, probabilities rounded to bf16 before ``p @ v``) under
@@ -83,6 +84,65 @@ def test_sealed_matmul_kernel_matches_plain(cuda, m, k, n, bk, bn, cdt):
     want = SMK.sealed_matmul_plain(x, ct, mask, key, nonce, wc, bk=bk, bn=bn,
                                    compute_dtype=cdt)
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("m,k,n,bk,bn", [(1, 256, 64, 128, 64),
+                                         (5, 512, 192, 64, 16),
+                                         (17, 1024, 128, 128, 128),
+                                         (33, 200, 320, 8, 64),
+                                         (64, 2048, 1024, 128, 128)])
+@pytest.mark.parametrize("ratio", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("wc", [0, 5])
+def test_sealed_matmul_dec_kernel(cuda, m, k, n, bk, bn, ratio, wc):
+    """The decode kernel (bf16, M <= 64): ragged M, a K that is not a
+    multiple of its 64-row slab, SE 0/0.5/1, two write counters; one launch
+    counted per call, and two launches give the same bits (the split-K sum
+    runs in split order)."""
+    gen = torch.Generator(device=cuda).manual_seed(m * n + int(10 * ratio))
+    w = torch.randn((k, n), generator=gen, device=cuda)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    mask = torch.rand((k,), generator=gen, device=cuda) < ratio
+    key, nonce = _words(gen, (8,), cuda), _words(gen, (3,), cuda)
+    wcw = torch.tensor(u32.const(wc), dtype=torch.int32, device=cuda)
+    ct = ref.seal_weights_ref(w, key, nonce, bk, bn, mask, wcw)
+    assert SMK._variant(m, n, bk, bn, "bfloat16") == "sealed_matmul_dec"
+    before = ops.launch_counts()
+    got = ops.sealed_matmul(x, ct, mask, key, nonce, wcw, bk=bk, bn=bn,
+                            compute_dtype="bfloat16")
+    again = ops.sealed_matmul(x, ct, mask, key, nonce, wcw, bk=bk, bn=bn,
+                              compute_dtype="bfloat16")
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert {name: after[name] - before[name] for name in after} == {
+        name: 2 if name == "sealed_matmul_dec" else 0 for name in after}
+    assert torch.equal(got, again)
+    want = SMK.sealed_matmul_plain(x, ct, mask, key, nonce, wcw, bk=bk, bn=bn,
+                                   compute_dtype="bfloat16")
+    assert got.shape == (m, n)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("m", [24, 32])
+def test_sealed_matmul_dec_kernel_repeats_at_width(cuda, m):
+    """Many blocks a wave, long K loops and no pads (SE 0, the fastest
+    consumers): ten launches in a row all give the plain version's result,
+    so no warpgroup reads a ring stage before its load has landed."""
+    k, n = 2048, 32768
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    w = torch.randn((k, n), generator=gen, device=cuda)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    mask = torch.zeros((k,), dtype=torch.bool, device=cuda)
+    key, nonce = _words(gen, (8,), cuda), _words(gen, (3,), cuda)
+    wcw = torch.tensor(u32.const(0), dtype=torch.int32, device=cuda)
+    ct = ref.seal_weights_ref(w, key, nonce, 128, 128, mask, wcw)
+    want = SMK.sealed_matmul_plain(x, ct, mask, key, nonce, wcw, bk=128,
+                                   bn=128, compute_dtype="bfloat16")
+    for _ in range(10):
+        got = SMK.sealed_matmul_dec_cuda(x, ct, mask, key, nonce, wcw,
+                                         bk=128, bn=128)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= 1e-4 * float(
+            want.abs().max())
 
 
 def test_sealed_serving_on_the_card_matches_cpu(cuda):

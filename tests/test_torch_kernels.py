@@ -136,5 +136,6 @@ def test_launch_counts_untouched_on_cpu():
     TO.flash_attention(q, q, q, scale=1.0)
     assert TO.launch_counts() == {"chacha20": 0, "sealed_matmul": 0,
                                   "sealed_matmul_tc": 0,
+                                  "sealed_matmul_dec": 0,
                                   "flash_attention": 0,
                                   "flash_attention_tc": 0}

@@ -102,9 +102,20 @@ def test_ops_pads_m_like_the_reference():
 @pytest.mark.parametrize("m,n,bk,bn,cdt,want", [
     (3560, 8192, 128, 128, "bfloat16", "sealed_matmul_tc"),  # group prefill
     (65, 128, 8, 16, "bfloat16", "sealed_matmul_tc"),        # the smallest
-    (64, 8192, 128, 128, "bfloat16", "sealed_matmul"),       # decode sizes
-    (4, 92544, 128, 128, "bfloat16", "sealed_matmul"),
+    (64, 8192, 128, 128, "bfloat16", "sealed_matmul_dec"),   # decode sizes
+    (4, 92544, 128, 128, "bfloat16", "sealed_matmul_dec"),
     (3560, 8192, 128, 128, "float32", "sealed_matmul"),      # exact f32 path
+    # the decode kernel on every main-path leaf (wq/wo, wk/wv, MLP wi/wg,
+    # MLP wo, head) at decode ticks (M = slots) and 32-row chunks
+    *[(m, n, 128, 128, "bfloat16", "sealed_matmul_dec")
+      for m in (1, 4, 32, 64) for n in (2048, 1024, 8192, 92544)],
+    (4, 2048, 128, 128, "float32", "sealed_matmul"),         # f32 at decode
+    (32, 8192, 128, 128, "float32", "sealed_matmul"),
+    (4, 2056, 128, 8, "bfloat16", "sealed_matmul"),          # bn == 8
+    (65, 2048, 128, 128, "bfloat16", "sealed_matmul_tc"),    # M = 65
+    (65, 1024, 128, 128, "bfloat16", "sealed_matmul_tc"),
+    (4, 96, 32, 32, "bfloat16", "sealed_matmul"),            # N % 64 != 0
+    (4, 384, 24, 128, "bfloat16", "sealed_matmul"),          # bk not 2^k
     (3560, 2056, 128, 8, "bfloat16", "sealed_matmul"),       # bn == 8
     (3560, 192, 64, 64, "bfloat16", "sealed_matmul"),        # N % 128 != 0
     (1000, 384, 128, 8, "bfloat16", "sealed_matmul"),        # bn < 16
@@ -113,6 +124,32 @@ def test_ops_pads_m_like_the_reference():
 ])
 def test_variant_picks_by_dtype_and_shape(m, n, bk, bn, cdt, want):
     assert TSM._variant(m, n, bk, bn, cdt) == want
+
+
+_LEAVES = {"wq/wo": (2048, 2048), "wk/wv": (2048, 1024),
+           "mlp_wi/wg": (2048, 8192), "mlp_wo": (8192, 2048),
+           "head": (2048, 92544)}
+
+
+@pytest.mark.parametrize("leaf", sorted(_LEAVES))
+def test_dec_geometry_keeps_its_promises(leaf):
+    """The decode kernel's launch geometry on every main-path leaf of
+    internlm2-1.8B and every M it takes: the K split divides K into whole
+    64-row slabs, every block has work, the grid fills the H100's 132 SMs,
+    and the wgmma width holds M."""
+    k, n = _LEAVES[leaf]
+    for m in range(1, 65):
+        nw, strips, splits, kps = TSM.dec_geometry(m, k, n)
+        assert nw in (8, 16, 32, 64) and m <= nw and (nw == 8 or nw // 2 < m)
+        assert strips == n // TSM.DEC_BN and n % TSM.DEC_BN == 0
+        assert kps % TSM.DEC_BK == 0 and kps * splits == k
+        assert strips * splits >= 132
+
+
+@pytest.mark.parametrize("m", [0, 65])
+def test_dec_geometry_refuses_m_out_of_range(m):
+    with pytest.raises(ValueError):
+        TSM.dec_geometry(m, 2048, 2048)
 
 
 def test_dense_takes_bf16_x_bitwise():
