@@ -8,7 +8,16 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (printing
 tensor-core instructions), prints the card's name and power limit, and then
 runs:
 
-1. the ChaCha20 kernel against its plain PyTorch version, bitwise;
+1. the ChaCha20 kernel against its plain PyTorch version, bitwise; then
+   the kernels that make ChaCha pads where they are used (the paged cache's
+   view and splice, the line layout's unseal and row gather), each launched
+   twice and held bitwise against its plain version at the main path's
+   shapes (4 slots x 16 blocks of 8192 words, the splice at C = 1 and 32
+   over 24 layers, the embedding's rows at B*S = 4 and 3560) and at the
+   edges (partial 16-word units, lengths 0 and full, counts 0, write
+   counters at 2^32 - 1, ColoE and counter layouts, mixed SE flags, rows off
+   line boundaries), and timed there beside their bounds and plain
+   versions;
 2. the three fused decrypt-in-matmul kernels against their plain version
    at the full-width internlm2-1.8B shapes (wq/wo, wk/wv, MLP wi/wo, LM
    head): the CUDA-core kernel at decode M and at a ragged M of 1000 rows,
@@ -23,14 +32,18 @@ runs:
    128 through the tensor-core kernel under ``flash_attention.bf16_gate``;
 4. sealed continuous-batching serving of internlm2-1.8B at full width (ColoE,
    SE ratio 0.5, fused decrypt, sealed KV cache): 8 greedy requests through
-   ``ServeEngine``, launch counts read around that run, the first decode
+   ``ServeEngine``, launch counts read around that run (exactly 24 cache
+   views, one splice, one embedding-row gather and one unseal per other
+   line leaf per dispatch, and no launch of the keystream kernel
+   `chacha20.cu`, which only sealing runs now), the first decode
    tick's logits held against a plaintext engine's on the same tokens (in
    bf16, and in f32 where only sum order separates the two), and a
    reduced-size run on the card held against the CPU plain path;
 5. sealed group-drain serving at full width: 8 greedy requests of 512-1024
    prompt tokens through ``launch.serve.drive`` on a sealed
    ``GroupServeEngine`` (one-shot prefill through the flash kernel) and a
-   plaintext one, launch counts read around the sealed run, teacher-forced
+   plaintext one, launch counts read around the sealed run (the embedding's
+   rows through the gather kernel every dispatch), teacher-forced
    prefill and first-step logits sealed vs plaintext (bf16 and f32), and
    one 1024-token prompt's one-shot prefill held against the chunked path
    of phase 4;
@@ -38,11 +51,13 @@ runs:
    matmul's decode kernels on every leaf at M = 4 and 32, and their sum
    over a decode tick's 169 launches; flash beside
    ``scaled_dot_product_attention`` under each backend that runs, the
-   fastest as the library yardstick), of ChaCha at its two kinds of call,
-   of one decode tick and of one group prefill and decode step, each
-   kernel beside the least time the card could take for the same work,
-   and profiler splits of sealed decode ticks and of a sealed and a
-   plaintext group prefill. A device-side sleep before each timed launch
+   fastest as the library yardstick), of the keystream kernel at the two
+   kinds of call the serving path made of it before its pads moved into
+   the fused ChaCha kernels, of one decode tick and of one
+   group prefill and decode step, each kernel beside the least time the
+   card could take for the same work, and profiler splits of sealed decode
+   ticks and of a sealed and a plaintext group prefill (each ChaCha
+   kernel's device time and the idle share among them). A device-side sleep before each timed launch
    keeps the host's dispatch out of the timed window.
 
 Every phase raises on failure, so the script exits non-zero. The line before
@@ -59,7 +74,6 @@ import os
 import subprocess
 import sys
 import time
-import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -85,6 +99,12 @@ CHACHA_XOR_OPS = 16       # XOR of one block into 16 ciphertext words
 
 # SASS opcodes of 32-bit integer work that the ChaCha rounds may compile to
 INT_OPCODES = ("IADD3", "IMAD", "LOP3", "SHF", "PRMT", "IADD", "LEA")
+
+# the CUDA source of each kernel variant whose name is not its file's
+SOURCE = {"chacha20_cache_view": "chacha20_cache",
+          "chacha20_cache_splice": "chacha20_cache",
+          "chacha20_lines_unseal": "chacha20_lines",
+          "chacha20_lines_gather": "chacha20_lines"}
 
 SM_REPLACES = "src/repro/kernels/sealed_matmul.py:94"
 CC_REPLACES = "src/repro/kernels/chacha20.py:91"
@@ -175,7 +195,8 @@ def main(argv=None) -> int:
     # which pipes the ChaCha rounds issue on: the integer mix of each
     # library that makes pads (static counts; the rounds are unrolled)
     int_ops = {}
-    for name in ("chacha20", "sealed_matmul_dec"):
+    for name in ("chacha20", "sealed_matmul_dec", "chacha20_cache",
+                 "chacha20_lines"):
         mix = _build.sass_opcodes(name)
         int_ops[name] = {op: n for op, n in sorted(mix.items())
                          if op.split(".")[0] in INT_OPCODES}
@@ -193,6 +214,7 @@ def main(argv=None) -> int:
     from repro_torch.device import resolve_device
     resolve_device(dev)
     report["chacha"] = phase_chacha(torch, dev, args.seed)
+    report["chacha_fused"] = phase_chacha_fused(torch, dev, args.seed)
     report["sealed_matmul"] = phase_sealed_matmul(torch, dev, args.seed)
     report["flash"] = phase_flash(torch, dev, args.seed)
     report["serve"] = phase_serve(torch, dev, args)
@@ -230,8 +252,17 @@ def kernel_records(report):
          report["sealed_matmul"]["max_abs_err_dec"]),
         ("sealed_matmul_tc", SM_REPLACES, group["sealed_matmul_tc"],
          report["sealed_matmul"]["max_abs_err_tc"]),
-        ("chacha20", CC_REPLACES, serve["chacha20"],
+        # the keystream kernel runs only at sealing: counted over the
+        # sealing of phase 4's engine
+        ("chacha20", CC_REPLACES, report["serve"]["seal_launches"]["chacha20"],
          report["chacha"]["max_abs_err"]),
+        ("chacha20_cache_view", CC_REPLACES, serve["chacha20_cache_view"], 0),
+        ("chacha20_cache_splice", CC_REPLACES, serve["chacha20_cache_splice"],
+         0),
+        ("chacha20_lines_unseal", CC_REPLACES, serve["chacha20_lines_unseal"],
+         0),
+        ("chacha20_lines_gather", CC_REPLACES, serve["chacha20_lines_gather"],
+         0),
         # the bf16 main path runs only the tensor-core flash kernel; the
         # CUDA-core one is the f32 path's, counted over the f32
         # teacher-forced group prefill and step of phase 5
@@ -240,12 +271,15 @@ def kernel_records(report):
         ("flash_attention_tc", FA_REPLACES, group["flash_attention_tc"],
          report["flash"]["max_abs_err_tc"]),
     ]
+    fused = report["chacha_fused"]["timing"]
+    for name, recs in fused.items():    # the main path's shape: the first
+        t[name] = dict(recs[0])
     kernels = []
     for name, replaces, launches, err in rows:
         tk = t[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu",
+            "source": f"src/repro_torch/csrc/{SOURCE.get(name, name)}.cu",
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": tk["ms"], "plain_ms": tk["plain_ms"],
             "bound_ms": tk["bound_ms"], "bound_by": tk["bound_by"],
@@ -296,6 +330,292 @@ def phase_chacha(torch, dev, seed):
         raise AssertionError("ops.keystream != chacha20_keystream_ref")
     log(f"[chacha] {cases + 1} cases bitwise equal to the plain version")
     return {"cases": cases + 1, "max_abs_err": 0}
+
+
+# --------------------------------------------------------------------------
+# phase 1b: the fused ChaCha routes vs plain, bitwise, and their times
+# --------------------------------------------------------------------------
+
+# the continuous run's paged cache at full width: 4 slots of 256 positions
+# in 16-token blocks of 512 words a token (8 kv heads x 128 x bf16), 24
+# layers; its chunks are 32 tokens of one slot (the admit width)
+CACHE_MB, CACHE_BS, CHUNK = 16, 16, 32
+
+
+def _pad_bound(nbytes, pads):
+    """Bound of a pass that moves ``nbytes`` and makes ``pads`` ChaCha
+    blocks, each XORed into 16 words."""
+    return bound_ms(nbytes, pads * (CHACHA_OPS + CHACHA_XOR_OPS),
+                    alu_ops=pads * (CHACHA_ALU_OPS + CHACHA_XOR_OPS))
+
+
+def _cache_operands(torch, gen, dev, n, slots, mb, wpb):
+    """A stacked (n, NB, wpb) k and v pool of random words (rows strided:
+    a view of a wider buffer, as a layer slice of the engine's pool is a
+    view), tables of distinct blocks, write counters with every third at
+    2^32 - 1, a key and layer ids (the last 2^32 - 1)."""
+    nb = 1 + slots * mb
+    wide = _rand_words(torch, gen, (2, n, nb, wpb + 4), dev)
+    tables = (1 + torch.randperm(nb - 1, generator=gen, device=dev)
+              [:slots * mb]).reshape(slots, mb)
+    wc = _rand_words(torch, gen, (nb,), dev)
+    wc[1::3] = -1
+    lids = torch.arange(n, dtype=torch.int32, device=dev)
+    lids[-1] = -1
+    return (wide[0, ..., :wpb], wide[1, ..., :wpb], tables, wc,
+            _rand_words(torch, gen, (8,), dev), lids)
+
+
+NONCES = ((0x12345678, 2**32 - 1, 7), (2**31, 0, 2**32 - 2))
+
+
+def _check_view(torch, gen, dev, n, slots, mb, wpb, wpt, lengths, label):
+    from repro_torch.kernels import chacha20 as CC
+    pk, pv, tables, wc, key, lids = _cache_operands(torch, gen, dev, n, slots,
+                                                    mb, wpb)
+    lengths = torch.tensor(lengths, device=dev)
+    i = n // 2
+    args = (key, *NONCES, pk[i], pv[i], lids[i], tables, lengths, wc, wpt)
+    got = [CC.cache_view_cuda(*args) for _ in range(2)]
+    want = CC.cache_view_plain(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, want) for g in got):
+        raise AssertionError(f"cache_view kernel != plain: {label}")
+    return label
+
+
+def _check_splice(torch, gen, dev, n, slots, mb, wpb, wpt, c, lengths, counts,
+                  label):
+    from repro_torch.kernels import chacha20 as CC
+    pk, pv, tables, wc, key, lids = _cache_operands(torch, gen, dev, n, slots,
+                                                    mb, wpb)
+    new = [_rand_words(torch, gen, (n, slots, c, wpt), dev) for _ in range(2)]
+    args = (lids, *new, tables, torch.tensor(lengths, device=dev),
+            torch.tensor(counts, device=dev), wc, wpb // wpt)
+    want = [pk.clone(), pv.clone()]
+    CC.cache_splice_plain(key, *NONCES, *want, *args)
+    for _ in range(2):
+        got = [pk.clone(), pv.clone()]
+        CC.cache_splice_cuda(key, *NONCES, *got, *args)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"cache_splice kernel != plain: {label}")
+    if torch.equal(want[0], pk):
+        raise AssertionError(f"cache_splice wrote nothing: {label}")
+    return label
+
+
+def _line_operands(torch, gen, dev, n_lines, scheme):
+    """Random line-sealed words: ColoE records or counter-layout lines and
+    counter words, flags mixed at random, every third write counter at the
+    top of its range."""
+    if scheme == "coloe":
+        payload = _rand_words(torch, gen, (n_lines, 34), dev)
+        payload[::3, 32] = -1
+        return payload, None
+    counters = _rand_words(torch, gen, (n_lines,), dev)
+    counters[::3] |= 0x7FFFFFFF
+    return _rand_words(torch, gen, (n_lines, 32), dev), counters
+
+
+def _check_unseal(torch, gen, dev, orig_len, scheme, label):
+    from repro_torch.kernels import chacha20 as CC
+    payload, counters = _line_operands(torch, gen, dev, -(-orig_len // 32),
+                                       scheme)
+    key = _rand_words(torch, gen, (8,), dev)
+    args = (key, payload, counters, orig_len, NONCES[0][:2])
+    got = [CC.lines_unseal_cuda(*args) for _ in range(2)]
+    want = CC.lines_unseal_plain(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, want) for g in got):
+        raise AssertionError(f"lines_unseal kernel != plain: {label}")
+    return label
+
+
+def _bits(torch, t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _check_gather(torch, dev, key, payload, counters, shape, src, tokens, out,
+                  label):
+    from repro_torch.kernels import chacha20 as CC
+    args = (key, payload, counters, NONCES[1][:2], shape, src, tokens, out)
+    got = [CC.lines_gather_rows_cuda(*args) for _ in range(2)]
+    want = CC.lines_gather_rows_plain(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(_bits(torch, g), _bits(torch, want))
+               and g.shape == want.shape for g in got):
+        raise AssertionError(f"lines_gather_rows kernel != plain: {label}")
+    return label
+
+
+def _view_work(lengths, slots, mb, wpb, wpt):
+    """(bytes, pads) a view launch needs: live words read, every word
+    written, one pad per live 16-word unit, for k and v."""
+    live_units = live_words = 0
+    for length in lengths:
+        for m in range(mb):
+            words = max(0, min(wpb, length * wpt - m * wpb))
+            live_words += words
+            live_units += -(-words // 16)
+    nbytes = 2 * (4 * live_words + 4 * slots * mb * wpb) + 12 * slots * mb
+    return nbytes, 2 * live_units
+
+
+def _splice_work(n, lengths, counts, c, wpb, wpt, bs):
+    """(bytes, pads) a splice launch needs over n layers, k and v: each
+    touched unit written, read unless all its words are new, the new words
+    read, two pads a unit (one where every word is new)."""
+    nspan = 1 + (c + bs - 2) // bs
+    units = reads = fresh = 0
+    for length, cnt in zip(lengths, counts):
+        o = length % bs
+        if cnt <= 0:
+            continue
+        fresh += cnt * wpt
+        for s in range(nspan):
+            if not (s * bs < o + cnt and (s + 1) * bs > o):
+                continue
+            for u in range(-(-wpb // 16)):
+                g0 = s * wpb + 16 * u
+                nw = min(16, wpb - 16 * u)
+                units += 1
+                reads += not (o * wpt - g0 <= 0 and (o + cnt) * wpt - g0 >= nw)
+    k = 2 * n                                  # layers, k and v
+    nbytes = k * (64 * units + 64 * reads + 4 * fresh)
+    return nbytes, k * (units + reads)
+
+
+def phase_chacha_fused(torch, dev, seed):
+    """The paged cache's view and splice and the line layout's unseal and
+    row gather, each launched twice and held bitwise against its plain
+    version: at the main path's shapes and at the edges (partial units,
+    lengths 0 and full, counts 0, write counters at 2^32 - 1, ColoE and
+    counter layouts, mixed SE flags, rows off line boundaries); then timed
+    at the main path's shapes beside their bounds and plain versions."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import chacha20 as CC
+    from repro_torch.models.cache import kv_words_per_token
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    cfg = get_config("internlm2_1_8b")
+    n, wpt = cfg.num_layers, kv_words_per_token(cfg)
+    wpb = CACHE_BS * wpt
+    full = CACHE_MB * CACHE_BS
+    done = []
+    # the view: a decode tick, a chunk's row, and partial units
+    done.append(_check_view(torch, gen, dev, n, SLOTS, CACHE_MB, wpb, wpt,
+                            [0, 1, 137, full], "tick, lengths 0/1/137/full"))
+    done.append(_check_view(torch, gen, dev, n, 1, CACHE_MB, wpb, wpt, [64],
+                            "chunk row"))
+    for w, t in ((24, 6), (40, 10)):
+        done.append(_check_view(torch, gen, dev, 2, 4, 3, w, t,
+                                [0, 1, 3 * w // t, 5], f"wpb {w} wpt {t}"))
+    # the splice: a decode write, chunk writes, partial units
+    done.append(_check_splice(torch, gen, dev, n, SLOTS, CACHE_MB, wpb, wpt, 1,
+                              [0, 15, 137, 200], [1, 1, 0, 1], "C=1, tick"))
+    done.append(_check_splice(torch, gen, dev, n, 1, CACHE_MB, wpb, wpt, CHUNK,
+                              [64], [CHUNK], "C=32, one row"))
+    done.append(_check_splice(torch, gen, dev, n, SLOTS, CACHE_MB, wpb, wpt,
+                              CHUNK, [0, 15, 16, 100], [32, 0, 20, 32],
+                              "C=32, nspan 3"))
+    for w, t in ((24, 6), (40, 10)):
+        for c in (1, 5):
+            done.append(_check_splice(
+                torch, gen, dev, 3, 4, 5, w, t, c, [0, 3, 4, 7],
+                [c, min(c, 2), 0, c], f"wpb {w} wpt {t} C={c}"))
+    # the unseal: the norm leaves, partial final lines, both layouts
+    for scheme in ("coloe", "counter"):
+        for orig_len in (n * cfg.d_model, cfg.d_model, 1000, 4097):
+            done.append(_check_unseal(torch, gen, dev, orig_len, scheme,
+                                      f"{scheme} {orig_len} words"))
+    # the gather: the full embedding at a tick's and a group prefill's rows
+    vocab, d = cfg.vocab_size, cfg.d_model
+    key = _rand_words(torch, gen, (8,), dev)
+    emb, _ = _line_operands(torch, gen, dev, vocab * d // 32, "coloe")
+    tick_tok = torch.randint(0, vocab, (SLOTS, 1), generator=gen, device=dev)
+    pre_tok = torch.randint(0, vocab, (SLOTS, 890), generator=gen,
+                            device=dev)
+    pre_tok[0, :2] = torch.tensor([0, vocab - 1])
+    for tok, out in ((tick_tok, torch.bfloat16), (pre_tok, torch.bfloat16),
+                     (tick_tok, torch.float32)):
+        done.append(_check_gather(torch, dev, key, emb, None, (vocab, d),
+                                  torch.float32, tok, out,
+                                  f"embedding, {tok.numel()} rows, {out}"))
+    pay, ctr = _line_operands(torch, gen, dev, 4096 * d // 32, "counter")
+    done.append(_check_gather(torch, dev, key, pay, ctr, (4096, d),
+                              torch.float32, tick_tok.remainder(4096),
+                              torch.bfloat16, "counter layout, 4 rows"))
+    for dd, src in ((24, torch.float32), (40, torch.float32),
+                    (33, torch.bfloat16), (64, torch.bfloat16)):
+        size = torch.empty((), dtype=src).element_size()
+        pay, ctr = _line_operands(torch, gen, dev,
+                                  -(-300 * dd * size // 128), "counter")
+        tok = torch.tensor([[0, 299, 7], [7, 150, 1]], device=dev)
+        for out in (torch.bfloat16, torch.float32):
+            done.append(_check_gather(torch, dev, key, pay, ctr, (300, dd), src,
+                                      tok, out, f"D={dd} {src} -> {out}"))
+    log(f"[chacha_fused] {len(done)} cases, each kernel launched twice and "
+        f"bitwise equal to its plain version: " + "; ".join(done))
+
+    # times at the main path's shapes (L2 flushed before each launch)
+    scratch = torch.empty((64 * 2**20,), dtype=torch.int32, device=dev)
+    flush = lambda: scratch.zero_()
+    times = {}
+
+    def rec(name, shape, run, plain, nbytes, pads, iters=20):
+        ms = _time_ms(torch, run, iters, flush)
+        plain_ms = _time_ms(torch, plain, 2)
+        b_ms, b_by = _pad_bound(nbytes, pads)
+        times.setdefault(name, []).append(
+            {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+             "bound_by": b_by, "bytes": nbytes, "pads": pads})
+        log(f"[time] {name} {shape}: {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.2f} MB, {pads} pads;"
+            f" {b_ms / ms:.2f} of the kernel's time)")
+
+    pk, pv, tables, wc, key, lids = _cache_operands(torch, gen, dev, n, SLOTS,
+                                                    CACHE_MB, wpb)
+    lengths = [full] * SLOTS
+    args = (key, *NONCES, pk[n // 2], pv[n // 2], lids[n // 2], tables,
+            torch.tensor(lengths, device=dev), wc, wpt)
+    rec("chacha20_cache_view", f"{SLOTS} slots x {CACHE_MB} blocks, all live",
+        lambda: CC.cache_view_cuda(*args), lambda: CC.cache_view_plain(*args),
+        *_view_work(lengths, SLOTS, CACHE_MB, wpb, wpt))
+    for rows, c, lens, cnts in ((SLOTS, 1, [3, 40, 137, 200], [1] * SLOTS),
+                                (1, CHUNK, [64], [CHUNK])):
+        new = [_rand_words(torch, gen, (n, rows, c, wpt), dev)
+               for _ in range(2)]
+        sargs = (key, *NONCES, pk, pv, lids, *new, tables[:rows],
+                 torch.tensor(lens, device=dev),
+                 torch.tensor(cnts, device=dev), wc, CACHE_BS)
+        rec("chacha20_cache_splice", f"C={c}, {rows} rows x {n} layers",
+            lambda: CC.cache_splice_cuda(*sargs),
+            lambda: CC.cache_splice_plain(*sargs),
+            *_splice_work(n, lens, cnts, c, wpb, wpt, CACHE_BS))
+    norm, _ = _line_operands(torch, gen, dev, n * d // 32, "coloe")
+    flags = int((norm[:, 33] & 1).sum())
+    uargs = (key, norm, None, n * d, NONCES[0][:2])
+    rec("chacha20_lines_unseal", f"norm leaf ({n}, {d}) f32, ColoE",
+        lambda: CC.lines_unseal_cuda(*uargs),
+        lambda: CC.lines_unseal_plain(*uargs),
+        norm.numel() * 4 + n * d * 4, 2 * flags)
+    for tok in (tick_tok, pre_tok):
+        gargs = (key, emb, None, NONCES[1][:2], (vocab, d), torch.float32,
+                 tok, torch.bfloat16)
+        halves = torch.unique(tok.reshape(-1)[:, None] * (d // 16)
+                              + torch.arange(d // 16, device=dev)).numel()
+        lines = torch.unique(tok) * (d // 32)
+        lines = (lines[:, None] + torch.arange(d // 32, device=dev))
+        pads = 2 * int((emb[lines.reshape(-1), 33] & 1).sum())
+        rec("chacha20_lines_gather",
+            f"embedding ({vocab}, {d}) f32, {tok.numel()} rows -> bf16",
+            lambda: CC.lines_gather_rows_cuda(*gargs),
+            lambda: CC.lines_gather_rows_plain(*gargs),
+            halves * 68 + tok.numel() * (8 + 2 * d), pads,
+            iters=20 if tok.numel() < 100 else 10)
+    del emb, pk, pv, scratch
+    torch.cuda.empty_cache()
+    return {"cases": done, "max_abs_err": 0, "timing": times}
 
 
 # --------------------------------------------------------------------------
@@ -595,7 +915,7 @@ def phase_serve(torch, dev, args):
     p_gpu = map_leaves(lambda t: t.to(dev), p_small)
     sp = SS.seal_params(p_gpu, SealConfig(), bytes(range(32)))
     pre_g, dec_g, _ = first_tick_logits(
-        torch, small, SS.fused_params(sp, bytes(range(32))),
+        torch, small, SS.serving_params(sp, bytes(range(32))),
         SS.cache_seal_config(bytes(range(32)), dev), prompts,
         forced.to(dev), dev)
     err_small = max(_rel_err(torch, pre_g, pre_c), _rel_err(torch, dec_g, dec_c))
@@ -616,40 +936,25 @@ def phase_serve(torch, dev, args):
     prompts = _prompts(args.seed + 7, REQUESTS, cfg.vocab_size)
     seal = SealConfig()                   # ColoE, SE 0.5, fused decrypt
     t0 = time.time()
+    ops.reset_launch_counts()            # sealing: the keystream kernel
     eng = ServeEngine(cfg, params, batch_slots=SLOTS, max_len=256,
                       seal=seal, device=dev)
     torch.cuda.synchronize()
     out["seal_s"] = time.time() - t0
+    out["seal_launches"] = ops.launch_counts()
     fused = eng.stats["fused_matmul_leaves"]
     log(f"[serve] sealed in {out['seal_s']:.1f} s: {fused} fused leaf kinds, "
         f"stored {eng.sealed.stored_bytes() / 1e9:.3f} GB, plaintext per step "
         f"{eng.stats['weights_plaintext_bytes_per_step'] / 1e9:.3f} GB")
     handles = [eng.submit(p, max_tokens=NEW_TOKENS) for p in prompts]
 
-    # the size of every ChaCha call of the run, read where the cipher calls
-    # the kernel's wrapper (the wrapper counts the launches as it always does)
-    from repro_torch.core import cipher
-    from repro_torch.kernels import chacha20 as CC
-    sizes = {}
-
-    def record(key_words, counters, nonce_words):
-        n = int(counters.shape[0])
-        sizes[n] = sizes.get(n, 0) + 1
-        return CC.chacha20_blocks(key_words, counters, nonce_words)
-
-    real_cc = cipher._cc
-    cipher._cc = types.SimpleNamespace(chacha20_blocks=record)
     ops.reset_launch_counts()            # the main path starts here
     torch.cuda.synchronize()
     t0 = time.time()
-    try:
-        eng.run()
-        torch.cuda.synchronize()
-    finally:
-        cipher._cc = real_cc
+    eng.run()
+    torch.cuda.synchronize()
     launches = ops.launch_counts()       # ... and ends here
     serve_s = time.time() - t0
-    out["chacha_calls"] = sizes
     out["launches"] = launches
     out["serve_s"] = serve_s
     out["stats"] = {k: v for k, v in eng.stats.items()}
@@ -675,9 +980,14 @@ def phase_serve(torch, dev, args):
             f"sealed_matmul_dec launched {launches['sealed_matmul_dec']} "
             f"times and sealed_matmul {launches['sealed_matmul']}, expected "
             f"{dispatches * per_dispatch} and 0")
-    if launches["chacha20"] <= 0:
-        raise AssertionError("the ChaCha kernel never ran on the main path")
-    log(f"[serve] ChaCha calls by blocks per call: {sizes}")
+    # every pad of the run is made where it is used: one cache view a layer
+    # and one splice a write per dispatch, one row gather of the embedding
+    # and one unseal of each other line leaf; no keystream to device memory
+    want = _chacha_launches(eng, dispatches, paged=True)
+    got = {name: launches[name] for name in want}
+    log(f"[serve] ChaCha launches: {got} over {dispatches} dispatches")
+    if got != want:
+        raise AssertionError(f"ChaCha launches {got}, expected {want}")
     eng.check_device_mirror()
 
     plain = ServeEngine(cfg, params, batch_slots=SLOTS, max_len=256,
@@ -730,6 +1040,22 @@ def phase_serve(torch, dev, args):
 def _leaves(tree):
     from repro_torch.tree import leaves
     return leaves(tree)
+
+
+def _chacha_launches(eng, dispatches, paged):
+    """Launches of each ChaCha kernel a sealed engine's run of
+    ``dispatches`` must show: per dispatch one ``lines_gather_rows`` (the
+    embedding), one ``lines_unseal`` per other line leaf and, over a paged
+    cache, one view per layer and one splice per pattern position; never
+    ``chacha20_blocks``."""
+    cfg = eng.cfg
+    lines = sum(st.meta.layout == "lines" for st in eng.sealed.tensors.values())
+    return {"chacha20": 0,
+            "chacha20_lines_gather": dispatches,
+            "chacha20_lines_unseal": dispatches * (lines - 1),
+            "chacha20_cache_view": dispatches * cfg.num_layers if paged else 0,
+            "chacha20_cache_splice":
+                dispatches * len(cfg.pattern) if paged else 0}
 
 
 # --------------------------------------------------------------------------
@@ -832,8 +1158,12 @@ def phase_group(torch, dev, args, serve):
         if launches[name] != n:
             raise AssertionError(f"{name} launched {launches[name]} times "
                                  f"in the group run, expected {n}")
-    if launches["chacha20"] <= 0:
-        raise AssertionError("the ChaCha kernel never ran on the group path")
+    cc_want = _chacha_launches(eng, dispatches, paged=False)
+    cc_got = {name: launches[name] for name in cc_want}
+    log(f"[group] ChaCha launches: {cc_got} over {dispatches} dispatches")
+    if cc_got != cc_want:
+        raise AssertionError(f"group ChaCha launches {cc_got}, expected "
+                             f"{cc_want}")
 
     plain = GroupServeEngine(cfg, params, batch_slots=SLOTS,
                              max_len=GROUP_MAX_LEN, seal=None, device=dev)
@@ -1045,7 +1375,9 @@ def phase_timing(torch, dev, args, report):
         f"{out['sealed_matmul_tc']['plain_ms']:.3f} ms, bound "
         f"{out['sealed_matmul_tc']['bound_ms']:.4f} ms")
 
-    # ChaCha at the main path's largest call: the embedding's line OTP
+    # the keystream kernel at the two kinds of call the serving path made
+    # of it before its pads moved into the fused kernels: the embedding's
+    # line OTP
     # (two blocks per 128 B line, per-block nonces), and one cache-block OTP
     from repro_torch import u32
     cfg = report["serve"]["engine"].cfg
@@ -1067,17 +1399,8 @@ def phase_timing(torch, dev, args, report):
                                      "bound_by": b_by})
         log(f"[time] chacha20 {label}: {nblk} blocks, {ms:.4f} ms, plain "
             f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
-    # the continuous run's ChaCha launches by kind: the embedding's line
-    # OTP is the one call of n_embed blocks, every other call a cache OTP
-    calls = report["serve"]["chacha_calls"]
-    line_calls = calls.get(n_embed, 0)
-    out["chacha_shapes"][0]["launches"] = line_calls
-    out["chacha_shapes"][1]["launches"] = sum(calls.values()) - line_calls
-    out["chacha_shapes"][1]["blocks_per_call"] = {
-        n: c for n, c in sorted(calls.items()) if n != n_embed}
     for rec in out["chacha_shapes"]:
-        log(f"[time] chacha20 {rec['call']}: {rec['launches']} launches in "
-            f"the continuous run, {rec['ms']:.4f} ms against a "
+        log(f"[time] chacha20 {rec['call']}: {rec['ms']:.4f} ms against a "
             f"{rec['bound_ms']:.4f} ms bound ({rec['bound_ms'] / rec['ms']:.2f})")
     c0 = out["chacha_shapes"][0]
     out["chacha20"] = {"ms": c0["ms"], "plain_ms": c0["plain_ms"],
@@ -1152,6 +1475,11 @@ def phase_timing(torch, dev, args, report):
     ticks["sealed_matmul_dec_device_ms_per_tick"] = dec_ms
     log(f"[profile] sealed_matmul_dec: {dec_ms:.3f} ms of device time per "
         f"tick (bound {b_ms:.3f} ms); no splitk_reduce")
+    ticks["chacha_device_ms_per_tick"] = _chacha_device_ms(prof)
+    log(f"[profile] ChaCha kernels per sealed tick (device ms): "
+        f"{ticks['chacha_device_ms_per_tick']}; idle share "
+        f"{prof['idle_share']:.3f}; the tick {ticks['sealed']['ms']:.2f} ms "
+        f"between events")
     for key_ in ("engine", "plain_engine", "params", "prompts"):
         serve.pop(key_)
     out.update(_time_group(torch, dev, gen, flush, report["group"]))
@@ -1231,6 +1559,10 @@ def _time_group(torch, dev, gen, flush, group):
     out["prefill_profile"] = _profile(
         torch, lambda: T.prefill(cfg, eng.params(), toks, eng.max_len), 1,
         "sealed group prefill")
+    out["prefill_profile"]["chacha_device_ms"] = _chacha_device_ms(
+        out["prefill_profile"])
+    log(f"[profile] ChaCha kernels in a sealed group prefill (device ms): "
+        f"{out['prefill_profile']['chacha_device_ms']}")
     out["plain_prefill_profile"] = _profile(
         torch, lambda: T.prefill(cfg, plain.params(), toks, plain.max_len), 1,
         "plaintext group prefill")
@@ -1271,6 +1603,21 @@ def _time_sdpa(torch, F, q, k, v, scale, flush, ref):
         raise AssertionError(f"no SDPA backend ran: {times}")
     best = min(ran, key=ran.get)
     return ran[best], best, times, errs[best]
+
+
+# profiler names of the ChaCha kernels (demangled device functions)
+CHACHA_KERNELS = {"chacha20": "chacha20_blocks_kernel",
+                  "chacha20_cache_view": "cache_view_kernel",
+                  "chacha20_cache_splice": "cache_splice_kernel",
+                  "chacha20_lines_unseal": "lines_unseal_kernel",
+                  "chacha20_lines_gather": "lines_gather_kernel"}
+
+
+def _chacha_device_ms(prof):
+    """Device ms of each ChaCha kernel per call of a ``_profile`` window."""
+    return {name: sum(v for key, v in prof["device_ms"].items()
+                      if fn in key) / prof["reps"]
+            for name, fn in CHACHA_KERNELS.items()}
 
 
 def _profile(torch, fn, reps, label, top=12):

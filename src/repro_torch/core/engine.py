@@ -8,8 +8,10 @@ half of ``repro/core/engine.py``: ``tensor_to_words``/``words_to_tensor``,
 * ``ColoEEngine``   — the same OTP, counters co-located per line in a packed
   34-word record (the paper's contribution).
 
-Words are int32 bit patterns of u32 (``repro_torch.u32``). On the card every
-keystream comes from the ChaCha kernel (``core.cipher.chacha20_block``).
+Words are int32 bit patterns of u32 (``repro_torch.u32``). On the card a
+decrypt makes its pads inside one kernel a leaf (``ops.lines_unseal``), and
+sealing takes its keystream from the ChaCha kernel
+(``core.cipher.chacha20_block``).
 ``DirectEngine`` (AES-128) and the MAC hooks come with later slices.
 """
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 from repro_torch import u32
 from repro_torch.core import cipher as C
 from repro_torch.core import coloe as CL
+from repro_torch.kernels import ops
 from repro_torch.kernels import ref as _ref
 
 _FLAG_BIT = 1 << 31
@@ -51,9 +54,12 @@ def words_to_tensor(words: torch.Tensor, shape, dtype: torch.dtype):
     return flat[:n].reshape(shape)
 
 
-def _line_otp(key_words, line_addrs, write_counters, nonce2):
+def _line_otp(key_words, line_addrs, write_counters, nonce2, block_fn=None):
     """128 B OTP per line: two ChaCha blocks with
-    nonce = (line_addr, nonce2[0], nonce2[1]), counter = wc*2 + subblock."""
+    nonce = (line_addr, nonce2[0], nonce2[1]), counter = wc*2 + subblock.
+    Sealing uses it; a decrypt makes these pads inside its kernel
+    (``kernels.chacha20.lines_unseal``), whose plain version passes
+    ``block_fn``."""
     dev = key_words.device
     n_lines = line_addrs.shape[0]
     addrs = u32.to_i64(line_addrs).repeat_interleave(2)
@@ -64,7 +70,8 @@ def _line_otp(key_words, line_addrs, write_counters, nonce2):
         addrs,
         torch.full_like(addrs, int(nonce2[0]) & u32.MASK),
         torch.full_like(addrs, int(nonce2[1]) & u32.MASK)], dim=1)
-    ks = C.chacha20_block(key_words, counters, u32.from_i64(nonces))
+    ks = (block_fn or C.chacha20_block)(key_words, counters,
+                                        u32.from_i64(nonces))
     return ks.reshape(n_lines, CL.WORDS_PER_LINE)
 
 
@@ -113,6 +120,14 @@ class _CtrBase:
 
     def _nonce3(self, nonce3):
         return u32.words(nonce3, self.key_words.device)
+
+    def decrypt(self, s: SealedBuffer):
+        """The tensor back from its lines: each line unsealed under the wc and
+        flag its scheme keeps (ColoE in the record, counter mode in the
+        separate counter word)."""
+        words = ops.lines_unseal(self.key_words, s.payload, s.counters,
+                                 s.orig_len, s.nonce2)
+        return words_to_tensor(words, s.shape, s.dtype)
 
     def encrypt_tiles(self, w2d, nonce3, row_mask, write_counter,
                       bk: int, bn: int):
@@ -163,10 +178,6 @@ class CounterEngine(_CtrBase):
         return SealedBuffer("counter", ct, u32.from_i64(wc), orig, shape, dt,
                             tuple(nonce2))
 
-    def decrypt(self, s: SealedBuffer):
-        pt = self._seal(s.payload, u32.to_i64(s.counters), s.nonce2)
-        return words_to_tensor(pt.reshape(-1)[:s.orig_len], s.shape, s.dtype)
-
     def rewrite(self, s: SealedBuffer, x) -> SealedBuffer:
         """Write-back: bump per-line counters so OTPs are never reused."""
         words, shape, dt = tensor_to_words(x)
@@ -201,11 +212,6 @@ class ColoEEngine(_CtrBase):
         ct = self._seal(lines, wc, flags, nonce2)
         return SealedBuffer("coloe", CL.coloe_pack(ct, wc, flags), None, orig,
                             shape, dt, tuple(nonce2))
-
-    def decrypt(self, s: SealedBuffer):
-        ct, wc, flags = CL.coloe_unpack(s.payload)
-        pt = self._seal(ct, wc, flags, s.nonce2)
-        return words_to_tensor(pt.reshape(-1)[:s.orig_len], s.shape, s.dtype)
 
     def rewrite(self, s: SealedBuffer, x) -> SealedBuffer:
         _, wc, flags = CL.coloe_unpack(s.payload)

@@ -11,8 +11,11 @@ use. Port of ``repro/core/sealed_store.py`` (without MACs and
 * every other leaf (norms, the embedding) takes the line-packed layout and is
   decrypted before use.
 
-``fused_params`` is the serving view (line leaves decrypted, tile leaves
-passed through sealed); ``unseal_params`` decrypts everything. Nonces are
+``fused_params`` is the reference's serving view (line leaves decrypted,
+tile leaves passed through sealed); ``serving_params``, what the port's
+engines serve from, also leaves the token embedding line-sealed, so that a
+dispatch decrypts only the rows it embeds; ``unseal_params`` decrypts
+everything. Nonces are
 sha256 hashes of the leaf paths, so the port's paths must equal the
 reference's (``repro_torch.tree``).
 """
@@ -32,6 +35,10 @@ from repro_torch.core import engine as E
 from repro_torch.core import plan as P
 from repro_torch.core.sealed_tensor import SealedTensor, SealMeta, torch_dtype
 from repro_torch.tree import flatten_with_path, map_leaves, unflatten
+
+
+# the token embedding's path: ``serving_params`` keeps it line-sealed
+EMBED = "embed/w"
 
 
 def _dtype_name(dt: torch.dtype) -> str:
@@ -75,6 +82,18 @@ class SealedParams:
         the line-layout leaves only."""
         return sum(t.logical_bytes() for t in self.tensors.values()
                    if t.meta.layout != "tiles")
+
+    def serving_plaintext_bytes(self, rows: int, dtype: torch.dtype,
+                                tie_embeddings: bool = False) -> int:
+        """Plaintext bytes ``serving_params`` materializes in a dispatch
+        that embeds ``rows`` tokens in ``dtype``: the line-layout leaves but
+        the embedding, plus the gathered rows (the whole embedding when the
+        unembedding shares it)."""
+        kept = _sealed_in_view(self, tie_embeddings)
+        row = self.tensors[EMBED].meta.shape[-1] * torch.empty(
+            (), dtype=dtype).element_size() if kept else 0
+        return sum(t.logical_bytes() for p, t in self.tensors.items()
+                   if t.meta.layout != "tiles" and p not in kept) + rows * row
 
 
 def _nonce2(path: str) -> Tuple[int, int]:
@@ -289,10 +308,39 @@ def unseal_params(sp: SealedParams, key_bytes: bytes):
                      [_unseal_tensor(eng, sp.tensors[p]) for p in sp.plans])
 
 
-def fused_params(sp: SealedParams, key_bytes: bytes):
-    """The serving view: line-layout leaves decrypted, tile-sealed leaves
-    passed through still sealed to their consumption site."""
+def _view(sp: SealedParams, key_bytes: bytes, keep=()):
+    """Tile leaves passed through sealed; line leaves decrypted, but those
+    in ``keep``, which stay line-sealed and carry the key words."""
     eng = sp.engine(key_bytes)
-    return unflatten(sp.skeleton, [
-        sp.tensors[p] if sp.tensors[p].meta.layout == "tiles"
-        else _unseal_tensor(eng, sp.tensors[p]) for p in sp.plans])
+
+    def leaf(p):
+        st = sp.tensors[p]
+        if st.meta.layout == "tiles":
+            return st
+        if p in keep:
+            return SealedTensor(st.payload, st.counters, None, eng.key_words,
+                                None, st.meta)
+        return _unseal_tensor(eng, st)
+
+    return unflatten(sp.skeleton, [leaf(p) for p in sp.plans])
+
+
+def fused_params(sp: SealedParams, key_bytes: bytes):
+    """The reference's serving view: line-layout leaves decrypted,
+    tile-sealed leaves passed through still sealed to their consumption
+    site."""
+    return _view(sp, key_bytes)
+
+
+def _sealed_in_view(sp: SealedParams, tie_embeddings: bool):
+    return () if tie_embeddings or EMBED not in sp.tensors else (EMBED,)
+
+
+def serving_params(sp: SealedParams, key_bytes: bytes,
+                   tie_embeddings: bool = False):
+    """The port's serving view: ``fused_params`` with the token embedding
+    left line-sealed (``SealedTensor.gather_rows`` decrypts a dispatch's
+    rows inside the gather kernel), so no plaintext embedding is written to
+    device memory. A model whose unembedding shares the embedding needs
+    the whole matrix, so there it is decrypted as before."""
+    return _view(sp, key_bytes, _sealed_in_view(sp, tie_embeddings))

@@ -5,7 +5,9 @@ Two layouts:
 
 * ``"lines"`` — the at-rest image: payload (L, 32) data lines (counter
   scheme, counters in a separate table) or (L, 34) ColoE records. Decrypted
-  before use (``sealed_store.fused_params`` / ``unseal_params``).
+  before use (``sealed_store.fused_params`` / ``unseal_params``), except the
+  serving view's token embedding: ``gather_rows`` decrypts only the rows a
+  dispatch embeds, inside the gather kernel.
 * ``"tiles"`` — the matmul operand: the logical weight bitcast to u32 words
   in its own shape, sealed so that every (bk, bn) tile's keystream derives
   from the tile address. ``matmul`` hands it to the fused decrypt-in-matmul
@@ -51,7 +53,8 @@ class SealedTensor:
     payload:     int32 words (layout-dependent shape, see module doc)
     counters:    (L,) separate counter table — counter scheme, lines only
     row_mask:    (batch..., K) bool SE row flags — tiles only
-    key_words:   (batch..., 8) int32 — tiles only
+    key_words:   (batch..., 8) int32 — tiles, and the serving view's
+                 line-sealed embedding (``sealed_store.serving_params``)
     wc:          (batch...,) int32 per-slice write counter — tiles only
     nonce_words: (3,) int32 on the payload's device — tiles only; kept as a
                  tensor so a matmul launches without a host-to-device copy
@@ -157,6 +160,22 @@ class SealedTensor:
             self.row_mask.reshape(self.k_size), self.key_words.reshape(8),
             self.nonce_words, write_counter=self.wc.reshape(()),
             bk=m.bk, bn=m.bn, compute_dtype=compute_dtype)
+
+
+    def gather_rows(self, tokens: torch.Tensor,
+                    dtype: torch.dtype) -> torch.Tensor:
+        """Rows ``tokens`` of a line-sealed (V, D) leaf, in ``dtype``: only
+        the lines that hold them are decrypted, inside the gather kernel
+        (``ops.lines_gather_rows``). Needs the key words the serving view
+        attaches."""
+        m = self.meta
+        if m.layout != "lines" or self.key_words is None:
+            raise ValueError("gather_rows needs a line-sealed leaf with its "
+                             "key words (sealed_store.serving_params)")
+        from repro_torch.kernels import ops   # deferred, as in ``matmul``
+        return ops.lines_gather_rows(self.key_words, self.payload,
+                                     self.counters, m.nonce, m.shape,
+                                     torch_dtype(m.dtype), tokens, dtype)
 
 
 def slice_layer(leaf, i: int):

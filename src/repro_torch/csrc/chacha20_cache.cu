@@ -1,0 +1,305 @@
+// The paged KV cache's ChaCha20 pads, made where they are used (sm_90a).
+//
+// Replaces, for the KV cache, the Pallas kernel
+// src/repro/kernels/chacha20.py::chacha20_keystream (_keystream_kernel) as
+// the reference applies it through kernels/ref.py::cache_block_otp in
+// models/paged.py::_dense_view (the read) and ::append_tokens (the write).
+// Two entry points:
+//
+//   cache_view    one layer's k and v blocks gathered through the block
+//                 tables into dense (B, MB*wpb) words, unsealed, and zeroed
+//                 at and past each slot's length: one launch per layer;
+//   cache_splice  every layer of a stack, k and v, in place on the pools:
+//                 each touched (row, span) block is unsealed under wc[pb],
+//                 the new token words spliced in where they fall, and the
+//                 block re-sealed under wc[pb] + 1: one launch per write.
+//
+// Keystream contract (cache_block_otp): 16-word unit c of pool block b in
+// layer lid, under write counter wc, XORs the ChaCha20 block with
+//   counter = b * ceil(wpb/16) + c,  nonce = (n0 ^ lid, n1 ^ wc, n2),
+// all u32 with wrap-around; a final unit of a block whose wpb is not a
+// multiple of 16 uses the first wpb % 16 words of its block.
+//
+// What bounds it on this card: per unit 64 bytes read and 64 written, and
+// one ChaCha block (two in the splice), whose 640 XORs and rotations issue
+// only on the integer ALU pipe (16.7e12 lane operations a second on 132
+// SMs) against 128 bytes at 3.35 TB/s: the pads and the bytes take about
+// the same time in the view, the pads twice as long in the splice. The
+// composition these kernels replace wrote every pad to device memory, read
+// it back for a separate XOR and built int64 counters and nonce arrays
+// first, some 50 launches per layer.
+// Here one thread takes one unit: it derives the counter and nonce from the
+// table entry, makes the pad in registers and XORs it into the words it
+// moves (16-byte loads and stores where the geometry allows), so no
+// keystream, counter or nonce array reaches device memory. A unit with no
+// live word writes zeros and makes no pad; an untouched splice unit writes
+// nothing; a splice unit whose words are all new skips the unseal's pad.
+#include <cuda_runtime.h>
+#include <cstdint>
+
+#include "chacha20.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+struct Nonce {
+  uint32_t w[3];
+};
+
+struct Key {
+  uint32_t w[8];
+};
+
+__device__ __forceinline__ Key load_key(const uint32_t* __restrict__ key) {
+  Key k;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) k.w[j] = __ldg(key + j);
+  return k;
+}
+
+// The pad of unit c of pool block blk (cache_block_otp's derivation).
+__device__ __forceinline__ void cache_pad(const Key& k, uint32_t blk,
+                                          uint32_t cpb, uint32_t c,
+                                          uint32_t lid, uint32_t wc,
+                                          const Nonce& n, uint32_t p[16]) {
+  seal::chacha20_block(k.w, blk * cpb + c, n.w[0] ^ lid, n.w[1] ^ wc, n.w[2],
+                       p);
+}
+
+// 16 words at p (16-byte aligned when VEC, else the first nw of them).
+template <bool VEC>
+__device__ __forceinline__ void load16(const uint32_t* p, int nw,
+                                       uint32_t w[16]) {
+  if (VEC) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint4 v = *reinterpret_cast<const uint4*>(p + 4 * q);
+      w[4 * q] = v.x;
+      w[4 * q + 1] = v.y;
+      w[4 * q + 2] = v.z;
+      w[4 * q + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) w[j] = j < nw ? p[j] : 0u;
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store16(uint32_t* p, int nw,
+                                        const uint32_t w[16]) {
+  if (VEC) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      *reinterpret_cast<uint4*>(p + 4 * q) =
+          make_uint4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      if (j < nw) p[j] = w[j];
+  }
+}
+
+// Thread i: unit c of block m of slot b, for k (kv = 0) or v (kv = 1);
+// out is (2, B, MB*wpb).
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+cache_view_kernel(const uint32_t* __restrict__ key,
+                  const uint32_t* __restrict__ pool_k,
+                  const uint32_t* __restrict__ pool_v, long long stride_k,
+                  long long stride_v, const uint32_t* __restrict__ lid_p,
+                  const long long* __restrict__ tables,
+                  const long long* __restrict__ lengths,
+                  const uint32_t* __restrict__ wc, uint32_t* __restrict__ out,
+                  int slots, int mb, int wpb, int wpt, Nonce nk, Nonce nv) {
+  const int cpb = (wpb + 15) / 16;
+  const long long per_kv = static_cast<long long>(slots) * mb * cpb;
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (i >= 2 * per_kv) return;
+  const int kv = i >= per_kv;
+  const long long r = i - kv * per_kv;
+  const int c = static_cast<int>(r % cpb);
+  const long long sm = r / cpb;                 // b * MB + m
+  const int m = static_cast<int>(sm % mb);
+  const int b = static_cast<int>(sm / mb);
+  const int w0 = 16 * c;
+  const int nw = min(16, wpb - w0);
+  // words of this unit at a token position below the slot's length
+  const long long live_words = __ldg(lengths + b) * wpt -
+                               static_cast<long long>(m) * wpb - w0;
+  const int live = static_cast<int>(
+      max(0LL, min(static_cast<long long>(nw), live_words)));
+  uint32_t* dst = out + (kv * static_cast<long long>(slots) * mb + sm) * wpb +
+                  w0;
+  uint32_t w[16];
+  if (live > 0) {
+    const long long blk = __ldg(tables + sm);
+    const uint32_t* src =
+        (kv ? pool_v + blk * stride_v : pool_k + blk * stride_k) + w0;
+    load16<VEC>(src, nw, w);
+    uint32_t p[16];
+    cache_pad(load_key(key), static_cast<uint32_t>(blk), cpb, c,
+              __ldg(lid_p), __ldg(wc + blk), kv ? nv : nk, p);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) w[j] = j < live ? w[j] ^ p[j] : 0u;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) w[j] = 0u;
+  }
+  store16<VEC>(dst, nw, w);
+}
+
+// Thread i: unit c of span s of row b in layer l, for k (kv = 0) or v.
+// pools (n, NB, wpb) with strides (ls, rs); fresh words (n, B, C, wpt).
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+cache_splice_kernel(const uint32_t* __restrict__ key,
+                    uint32_t* __restrict__ pool_k,
+                    uint32_t* __restrict__ pool_v,
+                    long long ls_k, long long rs_k, long long ls_v,
+                    long long rs_v, const uint32_t* __restrict__ lids,
+                    const uint32_t* __restrict__ new_k,
+                    const uint32_t* __restrict__ new_v,
+                    const long long* __restrict__ tables,
+                    const long long* __restrict__ lengths,
+                    const long long* __restrict__ counts,
+                    const uint32_t* __restrict__ wc, int layers, int rows,
+                    int mb, int wpb, int wpt, int bs, int ctok, int nspan,
+                    Nonce nk, Nonce nv) {
+  const int cpb = (wpb + 15) / 16;
+  const long long per_kv =
+      static_cast<long long>(layers) * rows * nspan * cpb;
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (i >= 2 * per_kv) return;
+  const int kv = i >= per_kv;
+  long long r = i - kv * per_kv;
+  const int c = static_cast<int>(r % cpb);
+  r /= cpb;
+  const int s = static_cast<int>(r % nspan);
+  r /= nspan;
+  const int b = static_cast<int>(r % rows);
+  const int l = static_cast<int>(r / rows);
+  const long long cnt = __ldg(counts + b);
+  if (cnt <= 0) return;
+  const long long len = __ldg(lengths + b);
+  const long long o = len % bs;
+  // the write covers tokens [o, o + cnt) of the window of nspan blocks
+  if (!(s * bs < o + cnt && (s + 1) * bs > o)) return;
+  const long long span = min(len / bs + s, static_cast<long long>(mb - 1));
+  const long long pb = __ldg(tables + static_cast<long long>(b) * mb + span);
+  const int w0 = 16 * c;
+  const int nw = min(16, wpb - w0);
+  // unit words [sel_lo, sel_hi) take fresh words: window word g = s*wpb + w
+  // is new for o*wpt <= g < (o + cnt)*wpt, and reads fresh word g - o*wpt
+  const long long g0 = static_cast<long long>(s) * wpb + w0;
+  const long long sel_lo = o * wpt - g0;
+  const long long sel_hi = (o + cnt) * wpt - g0;
+  const bool all_new = sel_lo <= 0 && sel_hi >= nw;
+  uint32_t* blkp =
+      (kv ? pool_v + l * ls_v + pb * rs_v : pool_k + l * ls_k + pb * rs_k) +
+      w0;
+  const uint32_t* fresh = (kv ? new_v : new_k) +
+                          (static_cast<long long>(l) * rows + b) * ctok * wpt;
+  const Key k = load_key(key);
+  const Nonce& n = kv ? nv : nk;
+  const uint32_t lid = __ldg(lids + l);
+  const uint32_t wcb = __ldg(wc + pb);
+  uint32_t w[16];
+  if (all_new) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) w[j] = 0u;
+  } else {
+    load16<VEC>(blkp, nw, w);
+    uint32_t p[16];
+    cache_pad(k, static_cast<uint32_t>(pb), cpb, c, lid, wcb, n, p);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) w[j] ^= p[j];
+  }
+  // a count above C reads zeros past the fresh words, as the reference's
+  // zero-padded window does
+  const long long fresh_words = static_cast<long long>(ctok) * wpt;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const long long f = g0 + j - o * wpt;
+    if (j < nw && j >= sel_lo && j < sel_hi)
+      w[j] = f < fresh_words ? __ldg(fresh + f) : 0u;
+  }
+  uint32_t p[16];
+  cache_pad(k, static_cast<uint32_t>(pb), cpb, c, lid, wcb + 1u, n, p);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) w[j] ^= p[j];
+  store16<VEC>(blkp, nw, w);
+}
+
+int blocks_for(long long units) {
+  return static_cast<int>((units + kThreads - 1) / kThreads);
+}
+
+}  // namespace
+
+// key (8,) u32; pool_k, pool_v: one layer's (NB, wpb) u32 words with row
+// strides stride_k, stride_v (in words); lid: one u32 word; tables (B, MB)
+// and lengths (B,) int64; wc (NB,) u32; out (2, B, MB*wpb) u32. vec != 0:
+// wpb % 16 == 0 and every row start and out 16-byte aligned. Device
+// pointers; launches on `stream`; returns the launch's cudaError_t.
+extern "C" int cache_view(const void* key, const void* pool_k,
+                          const void* pool_v, long long stride_k,
+                          long long stride_v, const void* lid,
+                          const void* tables, const void* lengths,
+                          const void* wc, void* out, int slots, int mb,
+                          int wpb, int wpt, unsigned nk0, unsigned nk1,
+                          unsigned nk2, unsigned nv0, unsigned nv1,
+                          unsigned nv2, int vec, void* stream) {
+  const long long units =
+      2LL * slots * mb * ((wpb + 15) / 16);
+  if (units <= 0) return 0;
+  const Nonce nk{{nk0, nk1, nk2}}, nv{{nv0, nv1, nv2}};
+  auto launch = vec ? cache_view_kernel<true> : cache_view_kernel<false>;
+  launch<<<blocks_for(units), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(key), static_cast<const uint32_t*>(pool_k),
+      static_cast<const uint32_t*>(pool_v), stride_k, stride_v,
+      static_cast<const uint32_t*>(lid), static_cast<const long long*>(tables),
+      static_cast<const long long*>(lengths),
+      static_cast<const uint32_t*>(wc), static_cast<uint32_t*>(out), slots,
+      mb, wpb, wpt, nk, nv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// key (8,) u32; pool_k, pool_v: (n, NB, wpb) u32 words with layer strides
+// ls_* and row strides rs_* (in words), updated in place; lids (n,) u32;
+// new_k, new_v (n, B, C, wpt) u32; tables (B, MB), lengths (B,), counts (B,)
+// int64; wc (NB,) u32, read only (the caller bumps it after the launch).
+// vec != 0: wpb % 16 == 0 and every row start 16-byte aligned. Device
+// pointers; launches on `stream`; returns the launch's cudaError_t.
+extern "C" int cache_splice(const void* key, void* pool_k, void* pool_v,
+                            long long ls_k, long long rs_k, long long ls_v,
+                            long long rs_v, const void* lids,
+                            const void* new_k, const void* new_v,
+                            const void* tables, const void* lengths,
+                            const void* counts, const void* wc, int layers,
+                            int rows, int mb, int wpb, int wpt, int bs,
+                            int ctok, int nspan, unsigned nk0, unsigned nk1,
+                            unsigned nk2, unsigned nv0, unsigned nv1,
+                            unsigned nv2, int vec, void* stream) {
+  const long long units =
+      2LL * layers * rows * nspan * ((wpb + 15) / 16);
+  if (units <= 0) return 0;
+  const Nonce nk{{nk0, nk1, nk2}}, nv{{nv0, nv1, nv2}};
+  auto launch = vec ? cache_splice_kernel<true> : cache_splice_kernel<false>;
+  launch<<<blocks_for(units), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(key), static_cast<uint32_t*>(pool_k),
+      static_cast<uint32_t*>(pool_v), ls_k, rs_k, ls_v, rs_v,
+      static_cast<const uint32_t*>(lids), static_cast<const uint32_t*>(new_k),
+      static_cast<const uint32_t*>(new_v),
+      static_cast<const long long*>(tables),
+      static_cast<const long long*>(lengths),
+      static_cast<const long long*>(counts),
+      static_cast<const uint32_t*>(wc), layers, rows, mb, wpb, wpt, bs, ctok,
+      nspan, nk, nv);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -6,8 +6,8 @@ library with a plain C interface, loaded with ``ctypes``. Builds go to
 named by a hash of the sources, so an edited source rebuilds and an
 unchanged one loads. Nothing is built at import: a kernel is built at its
 first launch, or by ``build_all`` (which starts one ``nvcc`` per source, all
-at once). ``load`` sets each exported function's ctypes prototype
-(``PROTOTYPES``) once, when it first loads the library.
+at once). ``load`` sets the ctypes prototype of each function a library
+exports (``PROTOTYPES``) once, when it first loads the library.
 """
 from __future__ import annotations
 
@@ -23,22 +23,32 @@ from typing import Dict, List, Tuple
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("chacha20", "sealed_matmul", "flash_attention",
-           "sealed_matmul_tc", "flash_attention_tc", "sealed_matmul_dec")
+           "sealed_matmul_tc", "flash_attention_tc", "sealed_matmul_dec",
+           "chacha20_cache", "chacha20_lines")
 
-_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                  ctypes.c_float)
-# Each library's exported function and its argument types (pointers and the
-# stream as c_void_p, so that ctypes does not cut them to 32 bits); every one
-# returns an int error code.
+_P, _I, _L, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_float, ctypes.c_uint)
+# Each library's exported functions and their argument types (pointers and
+# the stream as c_void_p, so that ctypes does not cut them to 32 bits); every
+# one returns an int error code.
 PROTOTYPES = {
-    "chacha20": ("chacha20_blocks", [_P, _P, _P, _I, _P, _I, _P]),
-    "sealed_matmul": ("sealed_matmul", [_P] * 8 + [_I] * 9 + [_P]),
-    "sealed_matmul_tc": ("sealed_matmul_tc", [_P] * 7 + [_I] * 5 + [_P]),
-    "sealed_matmul_dec": ("sealed_matmul_dec", [_P] * 9 + [_I] * 7 + [_P]),
-    "flash_attention": ("flash_attention", [_P] * 4 + [_I] * 6 + [_L] * 12
-                        + [_F, _F, _I, _I, _P]),
-    "flash_attention_tc": ("flash_attention_tc", [_P] * 4 + [_I] * 6
-                           + [_L] * 12 + [_F, _F, _I, _P]),
+    "chacha20": {"chacha20_blocks": [_P, _P, _P, _I, _P, _I, _P]},
+    "sealed_matmul": {"sealed_matmul": [_P] * 8 + [_I] * 9 + [_P]},
+    "sealed_matmul_tc": {"sealed_matmul_tc": [_P] * 7 + [_I] * 5 + [_P]},
+    "sealed_matmul_dec": {"sealed_matmul_dec": [_P] * 9 + [_I] * 7 + [_P]},
+    "flash_attention": {"flash_attention": [_P] * 4 + [_I] * 6 + [_L] * 12
+                        + [_F, _F, _I, _I, _P]},
+    "flash_attention_tc": {"flash_attention_tc": [_P] * 4 + [_I] * 6
+                           + [_L] * 12 + [_F, _F, _I, _P]},
+    "chacha20_cache": {
+        "cache_view": [_P] * 3 + [_L] * 2 + [_P] * 5 + [_I] * 4 + [_U] * 6
+                      + [_I, _P],
+        "cache_splice": [_P] * 3 + [_L] * 4 + [_P] * 7 + [_I] * 8 + [_U] * 6
+                        + [_I, _P]},
+    "chacha20_lines": {
+        "lines_unseal": [_P] * 3 + [_L] * 2 + [_U] * 2 + [_P] * 2,
+        "lines_gather_rows": [_P] * 3 + [_U] * 2 + [_P] + [_L] * 3
+                             + [_I] * 2 + [_P] * 2},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -102,17 +112,17 @@ def build_all(names=SOURCES) -> Dict[str, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed,
-    with its function's prototype set."""
+    with its functions' prototypes set."""
     lib = _loaded.get(name)
     if lib is None:
         path = _lib_path(name)
         if not path.exists():
             build_all((name,))
         lib = ctypes.CDLL(str(path))
-        fn_name, argtypes = PROTOTYPES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in PROTOTYPES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib
 

@@ -1,18 +1,36 @@
-"""ChaCha20 keystream: the Hopper kernel and its plain PyTorch version.
+"""ChaCha20: the Hopper kernels and their plain PyTorch versions.
 
 Port of ``repro/kernels/chacha20.py::chacha20_keystream`` (the Pallas kernel
-``_keystream_kernel`` with ``_chacha_rounds``/``_qr``). The CUDA source is
-``csrc/chacha20.cu``; its rounds live in ``csrc/chacha20.cuh`` and are shared
-with the fused sealed matmul.
+``_keystream_kernel`` with ``_chacha_rounds``/``_qr``), as three CUDA
+sources that share the rounds of ``csrc/chacha20.cuh`` with the fused
+sealed matmul:
 
-Unlike the Pallas kernel, the nonce may be per block ((n, 3)), so the line
-OTP and the KV-cache OTP run on the card through this kernel as well.
+* ``csrc/chacha20.cu`` (``chacha20_blocks``): keystream blocks to device
+  memory, one thread per block, the nonce shared or per block ((n, 3)).
+  Sealing, ``ops.keystream`` and the tests use it. What bounds it: 640 of a
+  block's 976 integer operations (its XORs and rotations) issue only on the
+  ALU pipe, 16.7e12 a second on the H100, against 80 bytes moved with a
+  per-block nonce: the arithmetic.
+* ``csrc/chacha20_cache.cu`` (``cache_view``, ``cache_splice``): the paged KV
+  cache's pads (``ref.cache_block_otp``) made in registers inside the pass
+  that consumes them: the gather of one layer's dense view (zeroed past
+  each slot's length) and the in-place splice of a write over every layer.
+* ``csrc/chacha20_lines.cu`` (``lines_unseal``, ``lines_gather_rows``): the
+  line layout's pads (``core.engine._line_otp``) made inside the unseal of a
+  whole leaf, or inside the gather of the embedding rows a dispatch needs.
 
-What bounds it on this card: 976 32-bit integer operations per 64-byte block
-written (80 bytes moved with the counter and a per-block nonce), so at the
-H100's issue rate of 33.5e12 lane operations per second against 3.35 TB/s
-the arithmetic, just ahead of the bytes. One thread per block, state in
-registers, four 16-byte stores per block.
+The last two replace the composition around ``chacha20_blocks`` that the
+serving path ran before them: the
+keystream written to device memory, XORed, selected and gathered by
+separate PyTorch passes after int64 counters and nonces were built for it.
+They move each word once and make each pad once, so their bound is the
+larger of the bytes and the pads' ALU work; the headers of the sources give
+the designs.
+
+Every route takes the plain version for a CPU tensor and launches its
+kernel, or raises, for a CUDA tensor. The plain versions are the PyTorch
+compositions the kernels replace, with ``chacha20_blocks_plain`` for the
+blocks, so they share no code with the kernels.
 """
 from __future__ import annotations
 
@@ -21,6 +39,7 @@ import torch
 
 from repro_torch import u32
 from repro_torch.kernels import _build
+from repro_torch.models.cache import SCRATCH_BLOCK
 
 _CONST = np.frombuffer(b"expand 32-byte k", np.uint32).astype(np.int64)
 
@@ -118,3 +137,381 @@ def chacha20_blocks(key_words, counters, nonce_words) -> torch.Tensor:
 
 
 chacha20_blocks.launches = 0
+
+
+# --------------------------------------------------------------------------
+# shared by the fused routes
+# --------------------------------------------------------------------------
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _nonce_words(nonce3):
+    """Host ints of a nonce given as a tuple of u32 values."""
+    return [int(v) & u32.MASK for v in nonce3]
+
+
+def _same_device(dev, *ts):
+    for t in ts:
+        if t is not None and t.device != dev:
+            raise ValueError("ChaCha operands must share one device")
+
+
+def _aligned(*ts) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+# --------------------------------------------------------------------------
+# the paged KV cache: the dense view of one layer and the write splice
+# --------------------------------------------------------------------------
+
+def cache_view_plain(key_words, nonce_k, nonce_v, pool_k, pool_v, lid,
+                     tables, lengths, wc, wpt: int) -> torch.Tensor:
+    """One layer's blocks gathered through ``tables`` (B, MB) into dense
+    words (2, B, MB*wpb) for k and v: unsealed with ``ref.cache_block_otp``
+    under ``wc[table entry]`` and layer ``lid`` (no pads when ``key_words``
+    is None: plaintext pools), and zero at every word of a token position
+    at or past ``lengths[b]`` (wpt words a token)."""
+    from repro_torch.kernels import ref    # deferred: ref imports this module
+    b, mb = tables.shape
+    wpb = pool_k.shape[-1]
+    pos = torch.arange(mb * wpb, device=tables.device) // wpt
+    live = pos[None, :] < lengths[:, None]                   # (B, MB*wpb)
+    zero = torch.zeros((), dtype=torch.int32, device=pool_k.device)
+    out = []
+    for pool, nonce in ((pool_k, nonce_k), (pool_v, nonce_v)):
+        w = pool[tables]
+        if key_words is not None:
+            w = w ^ ref.cache_block_otp(key_words, nonce, tables, wc[tables],
+                                        lid, wpb,
+                                        block_fn=chacha20_blocks_plain)
+        out.append(torch.where(live, w.reshape(b, mb * wpb), zero))
+    return torch.stack(out)
+
+
+def cache_view_cuda(key_words, nonce_k, nonce_v, pool_k, pool_v, lid,
+                    tables, lengths, wc, wpt: int) -> torch.Tensor:
+    """Launch ``cache_view`` of ``csrc/chacha20_cache.cu``: one launch for
+    k and v. The pools may be row-strided views of the stacked pool (no
+    copy); tables and lengths int64; lid a one-word int32 tensor on the
+    card (read by the kernel: no host sync)."""
+    dev = pool_k.device
+    _check_words("key_words", key_words, (8,))
+    for name, t in (("pool_k", pool_k), ("pool_v", pool_v)):
+        _check_words(name, t)
+        if t.ndim != 2 or t.stride(-1) != 1:
+            raise ValueError(f"{name}: expected (NB, wpb) rows of unit "
+                             f"stride, got {tuple(t.shape)} {t.stride()}")
+    if pool_v.shape != pool_k.shape:
+        raise ValueError("pool_k and pool_v differ in shape")
+    nb, wpb = pool_k.shape
+    b, mb = tables.shape
+    _check_words("wc", wc, (nb,))
+    _check_words("lid", lid)
+    if lid.numel() != 1:
+        raise ValueError("lid: expected one word")
+    for name, t in (("tables", tables), ("lengths", lengths)):
+        if t.dtype != torch.int64:
+            raise TypeError(f"{name}: expected int64, got {t.dtype}")
+    if tuple(lengths.shape) != (b,) or wpb % wpt:
+        raise ValueError(f"lengths {tuple(lengths.shape)} for {b} slots, or "
+                         f"{wpb} words a block not whole tokens of {wpt}")
+    if 2 * b * mb * -(-wpb // 16) >= 2**31:
+        raise ValueError("too many units for one launch")
+    _same_device(dev, key_words, pool_v, lid, tables, lengths, wc)
+    key_words, tables, lengths, wc, lid = (
+        t.contiguous() for t in (key_words, tables, lengths, wc, lid))
+    out = torch.empty((2, b, mb * wpb), dtype=torch.int32, device=dev)
+    vec = (wpb % 16 == 0 and pool_k.stride(0) % 4 == 0
+           and pool_v.stride(0) % 4 == 0 and _aligned(pool_k, pool_v, out))
+    fn = _build.load("chacha20_cache").cache_view
+    with torch.cuda.device(dev):
+        rc = fn(key_words.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+                pool_k.stride(0), pool_v.stride(0), lid.data_ptr(),
+                tables.data_ptr(), lengths.data_ptr(), wc.data_ptr(),
+                out.data_ptr(), b, mb, wpb, wpt, *_nonce_words(nonce_k),
+                *_nonce_words(nonce_v), int(vec), _stream(dev))
+    _build.check(rc, "cache_view")
+    cache_view_cuda.launches += 1
+    return out
+
+
+def cache_view(key_words, nonce_k, nonce_v, pool_k, pool_v, lid, tables,
+               lengths, wc, wpt: int) -> torch.Tensor:
+    """(2, B, MB*wpb) int32: one layer's k and v blocks unsealed into the
+    dense view, zero past each slot's length (see ``cache_view_plain``)."""
+    fn = cache_view_cuda if pool_k.is_cuda else cache_view_plain
+    return fn(key_words, nonce_k, nonce_v, pool_k, pool_v, lid, tables,
+              lengths, wc, wpt)
+
+
+def splice_blocks(tables, lengths, counts, bs: int, nspan: int):
+    """(pb, touched), both (B, nspan): the pool block of each span of the
+    write window that starts at block ``lengths // bs``, and whether the
+    write of ``counts`` tokens at offset ``lengths % bs`` reaches it."""
+    dev = tables.device
+    o = lengths % bs
+    s_id = torch.arange(nspan, device=dev)[None, :]
+    span = ((lengths // bs)[:, None] + s_id).clamp(max=tables.shape[1] - 1)
+    pb = torch.gather(tables, 1, span)
+    touched = ((s_id * bs < (o + counts)[:, None])
+               & ((s_id + 1) * bs > o[:, None]) & (counts > 0)[:, None])
+    return pb, touched
+
+
+def cache_splice_plain(key_words, nonce_k, nonce_v, pool_k, pool_v, lids,
+                       new_k, new_v, tables, lengths, counts, wc,
+                       bs: int) -> None:
+    """Splice each row's ``counts[b]`` new tokens (``new_*`` (n, B, C, wpt)
+    words, every layer of the stack) into its blocks at positions
+    [lengths[b], lengths[b] + counts[b]), IN PLACE on ``pool_*`` (n, NB,
+    wpb): each touched block is gathered, unsealed under ``wc``, spliced and
+    re-sealed under ``wc + 1`` (no pads when ``key_words`` is None:
+    plaintext pools). Untouched gathers are written to the scratch block
+    with its own content. ``wc`` is read only: the caller bumps it."""
+    from repro_torch.kernels import ref    # deferred: ref imports this module
+    n, b, c, wpt = new_k.shape
+    wpb = pool_k.shape[-1]
+    dev = tables.device
+    nspan = 1 + (c + bs - 2) // bs          # blocks a write can span
+    pb, touched = splice_blocks(tables, lengths, counts, bs, nspan)
+    o = lengths % bs
+    w2 = nspan * wpb
+    widx = torch.arange(w2, device=dev)
+    tok_of_w = widx // wpt
+    sel = ((tok_of_w[None, :] >= o[:, None])
+           & (tok_of_w[None, :] < (o + counts)[:, None]))    # (B, w2)
+    roll = (widx[None, :] - (o * wpt)[:, None]) % w2         # (B, w2)
+    tgt = torch.where(touched, pb, torch.full_like(pb, SCRATCH_BLOCK))
+    if key_words is not None:
+        wcb = u32.to_i64(wc[pb])
+        wc0, wc1 = u32.from_i64(wcb), u32.from_i64(wcb + 1)
+        lid3 = lids[:, None, None]
+    for pool_words, tw, nonce in ((pool_k, new_k, nonce_k),
+                                  (pool_v, new_v, nonce_v)):
+        base = torch.cat([tw.reshape(n, b, c * wpt),
+                          tw.new_zeros((n, b, w2 - c * wpt))], dim=-1)
+        rolled = torch.gather(base, -1, roll[None].expand(n, b, w2))
+        flat = pool_words[:, pb].reshape(n, b, w2)
+        if key_words is not None:
+            flat = flat ^ ref.cache_block_otp(
+                key_words, nonce, pb, wc0, lid3, wpb,
+                block_fn=chacha20_blocks_plain).reshape(n, b, w2)
+        out = torch.where(sel[None], rolled, flat)
+        if key_words is not None:
+            out = out ^ ref.cache_block_otp(
+                key_words, nonce, pb, wc1, lid3, wpb,
+                block_fn=chacha20_blocks_plain).reshape(n, b, w2)
+        out = out.reshape(n, b, nspan, wpb)
+        scratch = pool_words[:, SCRATCH_BLOCK][:, None, None, :]
+        pool_words[:, tgt] = torch.where(touched[None, :, :, None], out,
+                                         scratch)
+
+
+def cache_splice_cuda(key_words, nonce_k, nonce_v, pool_k, pool_v, lids,
+                      new_k, new_v, tables, lengths, counts, wc,
+                      bs: int) -> None:
+    """Launch ``cache_splice`` of ``csrc/chacha20_cache.cu``: one launch for
+    every layer, k and v, in place on the pools. Untouched blocks, the
+    scratch block included, are not written. Two touched (row, span) pairs
+    never name one block (each row writes its own slot's blocks), which the
+    kernel's in-place update relies on."""
+    dev = pool_k.device
+    _check_words("key_words", key_words, (8,))
+    for name, t in (("pool_k", pool_k), ("pool_v", pool_v)):
+        _check_words(name, t)
+        if t.ndim != 3 or t.stride(-1) != 1:
+            raise ValueError(f"{name}: expected (n, NB, wpb) rows of unit "
+                             f"stride, got {tuple(t.shape)} {t.stride()}")
+    if pool_v.shape != pool_k.shape:
+        raise ValueError("pool_k and pool_v differ in shape")
+    n, nb, wpb = pool_k.shape
+    b, mb = tables.shape
+    for name, t in (("new_k", new_k), ("new_v", new_v)):
+        _check_words(name, t)
+        if t.ndim != 4 or tuple(t.shape[:2]) != (n, b):
+            raise ValueError(f"{name}: expected ({n}, {b}, C, wpt), got "
+                             f"{tuple(t.shape)}")
+    if new_v.shape != new_k.shape:
+        raise ValueError("new_k and new_v differ in shape")
+    c, wpt = new_k.shape[2:]
+    _check_words("wc", wc, (nb,))
+    _check_words("lids", lids, (n,))
+    for name, t in (("tables", tables), ("lengths", lengths),
+                    ("counts", counts)):
+        if t.dtype != torch.int64:
+            raise TypeError(f"{name}: expected int64, got {t.dtype}")
+    if tuple(lengths.shape) != (b,) or tuple(counts.shape) != (b,):
+        raise ValueError(f"lengths/counts: expected ({b},)")
+    if wpb != bs * wpt:
+        raise ValueError(f"{wpb} words a block is not {bs} tokens of {wpt}")
+    nspan = 1 + (c + bs - 2) // bs
+    if 2 * n * b * nspan * -(-wpb // 16) >= 2**31:
+        raise ValueError("too many units for one launch")
+    _same_device(dev, key_words, pool_v, lids, new_k, new_v, tables, lengths,
+                 counts, wc)
+    key_words, lids, new_k, new_v, tables, lengths, counts, wc = (
+        t.contiguous() for t in (key_words, lids, new_k, new_v, tables,
+                                 lengths, counts, wc))
+    vec = (wpb % 16 == 0 and all(s % 4 == 0 for s in pool_k.stride()[:2]
+                                 + pool_v.stride()[:2])
+           and _aligned(pool_k, pool_v))
+    fn = _build.load("chacha20_cache").cache_splice
+    with torch.cuda.device(dev):
+        rc = fn(key_words.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+                pool_k.stride(0), pool_k.stride(1), pool_v.stride(0),
+                pool_v.stride(1), lids.data_ptr(), new_k.data_ptr(),
+                new_v.data_ptr(), tables.data_ptr(), lengths.data_ptr(),
+                counts.data_ptr(), wc.data_ptr(), n, b, mb, wpb, wpt, bs, c,
+                nspan, *_nonce_words(nonce_k), *_nonce_words(nonce_v),
+                int(vec), _stream(dev))
+    _build.check(rc, "cache_splice")
+    cache_splice_cuda.launches += 1
+
+
+def cache_splice(key_words, nonce_k, nonce_v, pool_k, pool_v, lids, new_k,
+                 new_v, tables, lengths, counts, wc, bs: int) -> None:
+    """The sealed write of a dispatch over every layer of a stack, in place
+    on the pools (see ``cache_splice_plain``)."""
+    fn = cache_splice_cuda if pool_k.is_cuda else cache_splice_plain
+    fn(key_words, nonce_k, nonce_v, pool_k, pool_v, lids, new_k, new_v,
+       tables, lengths, counts, wc, bs)
+
+
+# --------------------------------------------------------------------------
+# line-sealed leaves: the whole leaf, or the rows of a gather
+# --------------------------------------------------------------------------
+
+def lines_unseal_plain(key_words, payload, counters, orig_len: int,
+                       nonce2) -> torch.Tensor:
+    """(orig_len,) int32 words of a line-sealed leaf: ``_line_otp`` XORed
+    into the lines whose flag is set. ``counters`` None: ColoE records
+    (L, 34) [32 data words | wc | flags], flag bit 0; else (L, 32) data
+    lines and their (L,) counter words, flag bit 31, wc the low 31 bits."""
+    from repro_torch.core.engine import _line_otp   # deferred: engine uses ops
+    n_lines = payload.shape[0]
+    addrs = torch.arange(n_lines, dtype=torch.int32, device=payload.device)
+    if counters is None:
+        ct, wc, enc = payload[:, :32], payload[:, 32], payload[:, 33] & 1
+    else:
+        c64 = u32.to_i64(counters)
+        ct, wc, enc = payload, u32.from_i64(c64 & 0x7FFFFFFF), (c64 >> 31) & 1
+    otp = _line_otp(key_words, addrs, wc, nonce2,
+                    block_fn=chacha20_blocks_plain)
+    pt = torch.where(enc.to(torch.bool)[:, None], ct ^ otp, ct)
+    return pt.reshape(-1)[:orig_len]
+
+
+def _check_lines(key_words, payload, counters):
+    _check_words("key_words", key_words, (8,))
+    _check_words("payload", payload)
+    width = 34 if counters is None else 32
+    if payload.ndim != 2 or payload.shape[1] != width:
+        raise ValueError(f"payload: expected (L, {width}), got "
+                         f"{tuple(payload.shape)}")
+    if counters is not None:
+        _check_words("counters", counters, (payload.shape[0],))
+    _same_device(payload.device, key_words, counters)
+    payload = payload.contiguous()
+    if payload.data_ptr() % (8 if counters is None else 16):
+        raise ValueError("payload is not aligned for the line kernel")
+    return (key_words.contiguous(), payload,
+            None if counters is None else counters.contiguous())
+
+
+def lines_unseal_cuda(key_words, payload, counters, orig_len: int,
+                      nonce2) -> torch.Tensor:
+    """Launch ``lines_unseal`` of ``csrc/chacha20_lines.cu``: one launch a
+    leaf, no counter or nonce array."""
+    key_words, payload, counters = _check_lines(key_words, payload, counters)
+    n_lines = payload.shape[0]
+    if not 0 <= orig_len <= 32 * n_lines:
+        raise ValueError(f"orig_len {orig_len} for {n_lines} lines")
+    dev = payload.device
+    out = torch.empty((orig_len,), dtype=torch.int32, device=dev)
+    fn = _build.load("chacha20_lines").lines_unseal
+    with torch.cuda.device(dev):
+        rc = fn(key_words.data_ptr(), payload.data_ptr(),
+                None if counters is None else counters.data_ptr(), n_lines,
+                orig_len, *_nonce_words(nonce2), out.data_ptr(), _stream(dev))
+    _build.check(rc, "lines_unseal")
+    lines_unseal_cuda.launches += 1
+    return out
+
+
+def lines_unseal(key_words, payload, counters, orig_len: int,
+                 nonce2) -> torch.Tensor:
+    """(orig_len,) int32 plaintext words of a line-sealed leaf (see
+    ``lines_unseal_plain``)."""
+    fn = lines_unseal_cuda if payload.is_cuda else lines_unseal_plain
+    return fn(key_words, payload, counters, orig_len, nonce2)
+
+
+def _itemsize(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def lines_gather_rows_plain(key_words, payload, counters, nonce2, shape,
+                            src_dtype, tokens, out_dtype) -> torch.Tensor:
+    """Rows ``tokens`` of a line-sealed (V, D) leaf of ``src_dtype``, in
+    ``out_dtype``: the whole leaf unsealed, indexed, then converted
+    (``.to``: round to nearest even into bf16)."""
+    numel = 1
+    for d in shape:
+        numel *= d
+    words = lines_unseal_plain(key_words, payload, counters,
+                               -(-numel * _itemsize(src_dtype) // 4), nonce2)
+    w = words.view(src_dtype)[:numel].reshape(shape)
+    return w[tokens].to(out_dtype)
+
+
+def lines_gather_rows_cuda(key_words, payload, counters, nonce2, shape,
+                           src_dtype, tokens, out_dtype) -> torch.Tensor:
+    """Launch ``lines_gather_rows`` of ``csrc/chacha20_lines.cu``: only the
+    half lines of the wanted rows are read and unsealed. f32 or bf16 leaf
+    and output; tokens int64. A token outside [0, V) fails the kernel's
+    device-side assert, as PyTorch's indexing on the card does."""
+    key_words, payload, counters = _check_lines(key_words, payload, counters)
+    kinds = (torch.float32, torch.bfloat16)
+    if src_dtype not in kinds or out_dtype not in kinds:
+        raise TypeError(f"{src_dtype} -> {out_dtype}: the kernel takes "
+                        f"float32 and bfloat16")
+    if tokens.dtype != torch.int64:
+        raise TypeError(f"tokens: expected int64, got {tokens.dtype}")
+    if len(shape) != 2:
+        raise ValueError(f"expected a (V, D) leaf, got {tuple(shape)}")
+    vocab, d = shape
+    if vocab * d * _itemsize(src_dtype) > 128 * payload.shape[0]:
+        raise ValueError(f"{tuple(shape)} {src_dtype} exceeds the payload")
+    dev = payload.device
+    _same_device(dev, tokens)
+    tokens = tokens.contiguous()
+    out = torch.empty(tuple(tokens.shape) + (d,), dtype=out_dtype,
+                      device=dev)
+    fn = _build.load("chacha20_lines").lines_gather_rows
+    with torch.cuda.device(dev):
+        rc = fn(key_words.data_ptr(), payload.data_ptr(),
+                None if counters is None else counters.data_ptr(),
+                *_nonce_words(nonce2), tokens.data_ptr(), tokens.numel(),
+                vocab, d, int(src_dtype == torch.bfloat16),
+                int(out_dtype == torch.bfloat16), out.data_ptr(),
+                _stream(dev))
+    _build.check(rc, "lines_gather_rows")
+    lines_gather_rows_cuda.launches += 1
+    return out
+
+
+def lines_gather_rows(key_words, payload, counters, nonce2, shape, src_dtype,
+                      tokens, out_dtype) -> torch.Tensor:
+    """(*tokens.shape, D) rows of a line-sealed (V, D) leaf in
+    ``out_dtype`` (see ``lines_gather_rows_plain``)."""
+    fn = lines_gather_rows_cuda if payload.is_cuda else \
+        lines_gather_rows_plain
+    return fn(key_words, payload, counters, nonce2, shape, src_dtype, tokens,
+              out_dtype)
+
+
+for _fn in (cache_view_cuda, cache_splice_cuda, lines_unseal_cuda,
+            lines_gather_rows_cuda):
+    _fn.launches = 0

@@ -1,6 +1,10 @@
 """Public wrappers over the port's kernels. Port of ``repro/kernels/ops.py``
 (``keystream``, ``sealed_matmul``), plus ``flash_attention``, which the
-reference calls straight from ``repro/kernels/flash_attention.py``.
+reference calls straight from ``repro/kernels/flash_attention.py``, and the
+ChaCha routes that make their pads where the data is used (the reference
+composes these from ``chacha20_keystream``): ``cache_view`` and
+``cache_splice`` of the paged KV cache, ``lines_unseal`` and
+``lines_gather_rows`` of line-sealed leaves.
 
 A CPU tensor takes a kernel's plain version; a CUDA tensor launches the
 kernel or raises — there is no fallback. ``launch_counts`` reads the plain
@@ -18,6 +22,10 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import sealed_matmul as _sm
 
 _COUNTED = {"chacha20": _cc.chacha20_blocks,
+            "chacha20_cache_view": _cc.cache_view_cuda,
+            "chacha20_cache_splice": _cc.cache_splice_cuda,
+            "chacha20_lines_unseal": _cc.lines_unseal_cuda,
+            "chacha20_lines_gather": _cc.lines_gather_rows_cuda,
             "sealed_matmul": _sm.sealed_matmul_cuda,
             "sealed_matmul_tc": _sm.sealed_matmul_tc_cuda,
             "sealed_matmul_dec": _sm.sealed_matmul_dec_cuda,
@@ -32,6 +40,13 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in _COUNTED.values():
         fn.launches = 0
+
+
+# pads made inside the pass that consumes them (kernels/chacha20.py)
+cache_view = _cc.cache_view
+cache_splice = _cc.cache_splice
+lines_unseal = _cc.lines_unseal
+lines_gather_rows = _cc.lines_gather_rows
 
 
 def keystream(key_words, nonce_words, n_blocks: int, *,

@@ -93,13 +93,15 @@ def sealed_matmul_ref(x, wct, key_words, nonce_words, bk: int, bn: int,
 # --------------------------------------------------------------------------
 
 def cache_block_otp(key_words, nonce3, block_ids, write_counters, layer_ids,
-                    words_per_block: int) -> torch.Tensor:
+                    words_per_block: int, block_fn=None) -> torch.Tensor:
     """Keystream for paged KV-cache blocks (see the reference docstring):
     counter = block * ceil(wpb/16) + c, nonce = (n0 ^ layer, n1 ^ wc, n2).
 
     ``block_ids`` / ``write_counters`` / ``layer_ids`` (int tensors, u32 bit
     patterns for the latter two) broadcast to a common shape S; returns
-    (*S, words_per_block) int32."""
+    (*S, words_per_block) int32. The serving path makes these pads inside
+    its gather and splice (``kernels.chacha20.cache_view``/``cache_splice``);
+    this composition is their plain version's."""
     dev = key_words.device
     bid, wc, lid = torch.broadcast_tensors(
         *(torch.as_tensor(t, device=dev) for t in
@@ -115,5 +117,5 @@ def cache_block_otp(key_words, nonce3, block_ids, write_counters, layer_ids,
         (wc ^ n1).repeat_interleave(cpb),
         torch.full((ctr.shape[0],), n2, dtype=torch.int64, device=dev)],
         dim=1)
-    ks = C.chacha20_block(key_words, ctr, u32.from_i64(nonces))
+    ks = (block_fn or C.chacha20_block)(key_words, ctr, u32.from_i64(nonces))
     return ks.reshape(shape + (cpb * 16,))[..., :words_per_block]

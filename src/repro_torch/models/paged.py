@@ -5,13 +5,15 @@ the integrity slice).
 
 With a ``CacheSeal`` the pools hold ciphertext: a block is XORed with a
 ChaCha20 keystream derived from (pool block address, per-block write
-counter, layer id) (``kernels.ref.cache_block_otp``; the ChaCha kernel on
-the card). The reference's order is kept: gather -> unseal -> zero the
-entries past each slot's length -> attend, and every write decrypts the
-touched blocks, splices the new tokens in and re-seals them under
-``wc + 1`` — so pools and counters match the reference word for word after
-the same operations. The reference's ``lax.scan`` over super-blocks is a
-Python loop over layers; the pools and ``wc`` are updated in place.
+counter, layer id) (``kernels.ref.cache_block_otp``). The reference's order
+is kept: gather -> unseal -> zero the entries past each slot's length ->
+attend, and every write decrypts the touched blocks, splices the new tokens
+in and re-seals them under ``wc + 1`` — so pools and counters match the
+reference word for word after the same operations. On the card the pads are
+made inside those passes: one ``ops.cache_view`` launch a layer reads, one
+``ops.cache_splice`` launch a write. The reference's ``lax.scan`` over
+super-blocks is a Python loop over layers; the pools and ``wc`` are updated
+in place.
 """
 from __future__ import annotations
 
@@ -19,10 +21,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch import u32
 from repro_torch.config import ModelConfig
 from repro_torch.core.sealed_store import CacheSeal
-from repro_torch.kernels import ref as KR
+from repro_torch.kernels import chacha20 as _cc
+from repro_torch.kernels import ops
 from repro_torch.models import blocks as B
 from repro_torch.models import cache as MC
 from repro_torch.models import layers as L
@@ -39,29 +41,30 @@ def _dense_view(cfg: ModelConfig, seal: Optional[CacheSeal], pool_j,
     pos is INVALID_POS past ``lengths`` (or past ``pos_len`` for the chunk
     path, whose fresh keys are spliced into the zeroed tail)."""
     b, mb = tables.shape
-    wpb = pool_j["k"].shape[-1]
-    bs = wpb // MC.kv_words_per_token(cfg)
-    seq = mb * bs
-    kw = pool_j["k"][tables]                       # (B, MB, wpb)
-    vw = pool_j["v"][tables]
-    if seal is not None:
-        wcb = wc[tables]
-        kw = kw ^ KR.cache_block_otp(seal.key_words, seal.nonce_k, tables,
-                                     wcb, pool_j["lid"], wpb)
-        vw = vw ^ KR.cache_block_otp(seal.key_words, seal.nonce_v, tables,
-                                     wcb, pool_j["lid"], wpb)
+    wpt = MC.kv_words_per_token(cfg)
+    seq = mb * pool_j["k"].shape[-1] // wpt
+    # (2, B, MB*wpb) words, zero past each slot's length; sealed: one
+    # launch that unseals as it gathers
+    view = ops.cache_view if seal is not None else _cc.cache_view_plain
+    kv = view(*_seal_args(seal), pool_j["k"], pool_j["v"], pool_j["lid"],
+              tables, lengths, wc, wpt)
     dt = L.cdtype(cfg)
     shape = (b, seq, cfg.num_kv_heads, cfg.head_dim)
-    k = MC.words_to_kv(kw, dt).reshape(shape)
-    v = MC.words_to_kv(vw, dt).reshape(shape)
+    k = MC.words_to_kv(kv[0], dt).reshape(shape)
+    v = MC.words_to_kv(kv[1], dt).reshape(shape)
     pos = torch.arange(seq, device=tables.device)[None, :]
     valid = pos < lengths[:, None]                 # (B, L)
-    zero = torch.zeros((), dtype=dt, device=k.device)
-    k = torch.where(valid[..., None, None], k, zero)
-    v = torch.where(valid[..., None, None], v, zero)
     vpos = valid if pos_len is None else pos < pos_len[:, None]
     pos = torch.where(vpos, pos, torch.full_like(pos, MC.INVALID_POS))
     return {"k": k, "v": v, "pos": pos}
+
+
+def _seal_args(seal: Optional[CacheSeal]):
+    """(key words, k nonce, v nonce) of the cache seal; all None for
+    plaintext pools."""
+    if seal is None:
+        return None, None, None
+    return seal.key_words, seal.nonce_k, seal.nonce_v
 
 
 def _layer_slices(params, pools, j: int, i: int):
@@ -133,63 +136,27 @@ def append_tokens(cfg: ModelConfig, seal: Optional[CacheSeal], pools,
     and ``wc``: the unified write path for the decode append (C == 1) and the
     chunked prefill (C == chunk).
 
-    Touched blocks are gathered, unsealed under their current write counter,
-    spliced, re-sealed under ``wc + 1`` and written back; ``wc`` of each
-    touched block goes up by one. Untouched gathers (rows with counts == 0,
-    span entries past a row's write) are written to the scratch block with
-    the scratch block's own content — the reference drops them — so no
-    block is written twice with different data and untouched blocks keep
-    their words and counters."""
+    Touched blocks are unsealed under their current write counter, spliced
+    and re-sealed under ``wc + 1`` (sealed: one ``ops.cache_splice`` launch
+    for every layer of a pattern position, k and v); ``wc`` of each touched
+    block goes up by one, once, after every position has read it. Untouched
+    blocks keep their words and counters (see
+    ``kernels.chacha20.cache_splice_plain`` for the scratch-block writes of
+    the plain composition, which the reference drops)."""
     wpt = MC.kv_words_per_token(cfg)
-    b, mb = tables.shape
-    dev = tables.device
+    b = tables.shape[0]
+    splice = ops.cache_splice if seal is not None else _cc.cache_splice_plain
     for j in range(len(cfg.pattern)):
         pj, uj = pools[j], updates[j]
-        wpb = pj["k"].shape[-1]
-        bs = wpb // wpt
+        n = pj["lid"].shape[0]
         c = uj["k_new"].shape[2]
-        nspan = 1 + (c + bs - 2) // bs         # blocks a write can span
-        lid = pj["lid"]
-        n = lid.shape[0]
-        o = lengths % bs                                         # (B,)
-        s_id = torch.arange(nspan, device=dev)[None, :]
-        span = ((lengths // bs)[:, None] + s_id).clamp(max=mb - 1)
-        pb = torch.gather(tables, 1, span)                       # (B, nspan)
-        touched = ((s_id * bs < (o + counts)[:, None])
-                   & ((s_id + 1) * bs > o[:, None])
-                   & (counts > 0)[:, None])
-        w2 = nspan * wpb
-        widx = torch.arange(w2, device=dev)
-        tok_of_w = widx // wpt
-        sel = ((tok_of_w[None, :] >= o[:, None])
-               & (tok_of_w[None, :] < (o + counts)[:, None]))    # (B, w2)
-        roll = (widx[None, :] - (o * wpt)[:, None]) % w2         # (B, w2)
-        tgt = torch.where(touched, pb, torch.full_like(pb, MC.SCRATCH_BLOCK))
-        if seal is not None:
-            wcb = u32.to_i64(wc[pb])
-            wc0, wc1 = u32.from_i64(wcb), u32.from_i64(wcb + 1)
-
-        def splice(pool_words, x_new, nonce):
-            tw = MC.kv_to_words(x_new.reshape(n, b, c, -1))     # (n,B,C,wpt)
-            base = torch.cat([tw.reshape(n, b, c * wpt),
-                              tw.new_zeros((n, b, w2 - c * wpt))], dim=-1)
-            rolled = torch.gather(base, -1, roll[None].expand(n, b, w2))
-            blk = pool_words[:, pb]                              # (n,B,ns,wpb)
-            flat = blk.reshape(n, b, w2)
-            if seal is not None:
-                lids = lid[:, None, None]
-                flat = flat ^ KR.cache_block_otp(
-                    seal.key_words, nonce, pb, wc0, lids, wpb).reshape(n, b, w2)
-            out = torch.where(sel[None], rolled, flat)
-            if seal is not None:
-                out = out ^ KR.cache_block_otp(
-                    seal.key_words, nonce, pb, wc1, lids, wpb).reshape(n, b, w2)
-            out = out.reshape(n, b, nspan, wpb)
-            scratch = pool_words[:, MC.SCRATCH_BLOCK][:, None, None, :]
-            out = torch.where(touched[None, :, :, None], out, scratch)
-            pool_words[:, tgt] = out
-
-        splice(pj["k"], uj["k_new"], seal.nonce_k if seal is not None else None)
-        splice(pj["v"], uj["v_new"], seal.nonce_v if seal is not None else None)
+        words = [MC.kv_to_words(uj[key].reshape(n, b, c, -1))
+                 for key in ("k_new", "v_new")]            # (n, B, C, wpt)
+        splice(*_seal_args(seal), pj["k"], pj["v"], pj["lid"], *words,
+               tables, lengths, counts, wc, pj["k"].shape[-1] // wpt)
     # every pattern position touches the same blocks: bump their counters once
+    bs = pools[0]["k"].shape[-1] // wpt
+    c = updates[0]["k_new"].shape[2]
+    pb, touched = _cc.splice_blocks(tables, lengths, counts, bs,
+                                    1 + (c + bs - 2) // bs)
     wc.index_add_(0, pb.reshape(-1), touched.reshape(-1).to(torch.int32))

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.core.sealed_tensor import slice_layer
+from repro_torch.core.sealed_tensor import SealedTensor, slice_layer
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import cache as MC
@@ -70,7 +70,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
 
 
 def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"]["w"][tokens].to(L.cdtype(cfg))
+    w = params["embed"]["w"]
+    if isinstance(w, SealedTensor):   # the serving view keeps it line-sealed
+        return w.gather_rows(tokens, L.cdtype(cfg))
+    return w[tokens].to(L.cdtype(cfg))
 
 
 def _unembed(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:

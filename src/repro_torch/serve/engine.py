@@ -12,7 +12,9 @@ Prompts prefill in fixed-size chunks between decode ticks, and a decode
 tick copies only its sampled tokens to the host.
 
 With ``seal`` the weights are sealed (``core/sealed_store.py``) and stay
-ciphertext up to the fused decrypt-in-matmul kernel; with ``seal_cache``
+ciphertext up to the fused decrypt-in-matmul kernel, and the token
+embedding up to the gather of each dispatch's rows
+(``sealed_store.serving_params``); with ``seal_cache``
 (default: follows sealed weights) the KV pools hold ciphertext too. Without
 ``seal`` the engine keeps the matmul weights and the embedding table once in
 the compute dtype (``_plain_weights``): the roundings every use makes anyway.
@@ -160,9 +162,10 @@ class ServeEngine:
         kv_pt = 0 if seal_cache else (
             2 * cfg.n_superblocks() * len(cfg.pattern) * s * self.max_len
             * cfg.num_kv_heads * cfg.head_dim * itemsize)
-        w_pt = (self.sealed.plaintext_bytes_materialized() if self.sealed
-                else sum(t.numel() * t.element_size()
-                         for t in leaves(self._plain_params)))
+        w_pt = (self.sealed.serving_plaintext_bytes(
+                    s, getattr(torch, cfg.dtype), cfg.tie_embeddings)
+                if self.sealed else sum(t.numel() * t.element_size()
+                                        for t in leaves(self._plain_params)))
         self.stats = {
             "prefills": 0, "prefill_chunks": 0, "decode_steps": 0,
             "tokens": 0, "cow_copies": 0,
@@ -178,12 +181,14 @@ class ServeEngine:
     # -------------------------------------------------- public API
 
     def params(self):
-        """The serving view for one dispatch: line-layout leaves decrypted,
+        """The serving view for one dispatch: line-layout leaves decrypted
+        but the token embedding, which stays line-sealed to its gather;
         tile-sealed leaves still sealed (the plaintext params when the
         weights are not sealed)."""
         if self.sealed is None:
             return self._plain_params
-        return SS.fused_params(self.sealed, self.key_bytes)
+        return SS.serving_params(self.sealed, self.key_bytes,
+                                 self.cfg.tie_embeddings)
 
     def submit(self, prompt, max_tokens: int = 32, eos: int = -1,
                temperature: float = 0.0, top_k: int = 0,
@@ -399,8 +404,9 @@ class GroupServeEngine:
     Prompts of a group are right-aligned with token-0 left padding at
     positions ``arange(plen)`` and no padding mask, as in the reference.
     Sealed: the weights are sealed once and every dispatch reads them
-    through ``fused_params`` (line leaves decrypted, tile leaves decrypted
-    inside the fused matmul). The contiguous KV cache is never sealed.
+    through ``serving_params`` (norm leaves decrypted, the embedding's rows
+    decrypted inside their gather, tile leaves inside the fused matmul).
+    The contiguous KV cache is never sealed.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, batch_slots: int = 4,
@@ -427,9 +433,10 @@ class GroupServeEngine:
                                ).element_size()
         kv_pt = (2 * cfg.n_superblocks() * len(cfg.pattern) * batch_slots
                  * max_len * cfg.num_kv_heads * cfg.head_dim * itemsize)
-        w_pt = (self.sealed.plaintext_bytes_materialized() if self.sealed
-                else sum(t.numel() * t.element_size()
-                         for t in leaves(self._plain_params)))
+        w_pt = (self.sealed.serving_plaintext_bytes(
+                    batch_slots, getattr(torch, cfg.dtype), cfg.tie_embeddings)
+                if self.sealed else sum(t.numel() * t.element_size()
+                                        for t in leaves(self._plain_params)))
         self.stats = {"prefills": 0, "decode_steps": 0, "tokens": 0,
                       "fused_matmul_leaves": (len(self.sealed.fused_paths())
                                               if self.sealed else 0),
@@ -441,7 +448,8 @@ class GroupServeEngine:
         """The serving view for one dispatch (see ``ServeEngine.params``)."""
         if self.sealed is None:
             return self._plain_params
-        return SS.fused_params(self.sealed, self.key_bytes)
+        return SS.serving_params(self.sealed, self.key_bytes,
+                                 self.cfg.tie_embeddings)
 
     def submit(self, prompt, max_tokens: int = 32, eos: int = -1,
                temperature: float = 0.0, top_k: int = 0,

@@ -4,7 +4,10 @@ for the card and skips without one. On a machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerances: keystreams bitwise; each fused-matmul kernel (CUDA cores, and
+Tolerances: keystreams bitwise, and so are the kernels that make their pads
+inside the pass that uses them (the paged cache's view and splice, the line
+layout's unseal and row gather: each against its plain version, twice);
+each fused-matmul kernel (CUDA cores, and
 tensor cores at bf16 decode and prefill sizes) against the plain version at
 1e-4 of the output scale in f32 and in bf16 (both round the same operands
 and sum in f32; only the order of the sums differs), and the decode kernel
@@ -223,3 +226,146 @@ def test_group_engine_on_the_card_matches_cpu(cuda):
         eng.run()
         outs.append([h.out for h in hs])
     assert outs[0] == outs[1]
+
+
+def _launched(before, name, n):
+    after = ops.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: n if k == name else 0 for k in after}
+
+
+def _pools(gen, dev, n, nb, wpb):
+    """A stacked (n, NB, wpb) pool pair of random words, sliced from a
+    wider buffer so that rows are strided as a view of a larger pool."""
+    wide = _words(gen, (2, n, nb, wpb + 8), dev)
+    return wide[0, :, :, :wpb], wide[1, :, :, :wpb]
+
+
+# (wpb, wpt): whole 16-word units (16-byte paths) and a partial final unit
+# with a unit spanning several tokens
+CACHE_GEOMS = [(512, 32), (8192, 512), (24, 6), (40, 10)]
+
+
+@pytest.mark.parametrize("wpb,wpt", CACHE_GEOMS)
+def test_cache_view_kernel_bitwise(cuda, wpb, wpt):
+    """One layer's view: lengths 0, partial and full, write counters at and
+    near 2^32 - 1, strided pool rows; two launches equal the plain
+    version's words."""
+    gen = torch.Generator(device=cuda).manual_seed(wpb)
+    bs = wpb // wpt
+    b, mb, n = 4, 5, 2
+    nb = 1 + b * mb
+    pk, pv = _pools(gen, cuda, n, nb, wpb)
+    tables = torch.randperm(nb - 1, generator=gen, device=cuda)[:b * mb]
+    tables = (1 + tables).reshape(b, mb)
+    lengths = torch.tensor([0, 1, bs * mb, bs * 2 + 3], device=cuda)
+    wc = _words(gen, (nb,), cuda)
+    wc[1::3] = -1                                   # 2^32 - 1
+    key = _words(gen, (8,), cuda)
+    lids = torch.tensor([7, -2], dtype=torch.int32, device=cuda)
+    nk, nv = (1, 2, 3), (2**32 - 1, 5, 2**31)
+    i = 1
+    before = ops.launch_counts()
+    got = [CC.cache_view(key, nk, nv, pk[i], pv[i], lids[i], tables, lengths,
+                         wc, wpt) for _ in range(2)]
+    torch.cuda.synchronize()
+    _launched(before, "chacha20_cache_view", 2)
+    want = CC.cache_view_plain(key, nk, nv, pk[i], pv[i], lids[i], tables,
+                               lengths, wc, wpt)
+    assert torch.equal(got[0], want) and torch.equal(got[1], want)
+
+
+@pytest.mark.parametrize("wpb,wpt", CACHE_GEOMS)
+@pytest.mark.parametrize("c", [1, 5, 32])
+def test_cache_splice_kernel_bitwise(cuda, wpb, wpt, c):
+    """A write over every layer, k and v: rows with counts 0, 1 and C, at
+    offsets inside a block and at a block's end, write counters at 2^32 - 1;
+    the pools after two kernel launches (on two copies) equal the plain
+    composition's, word for word."""
+    gen = torch.Generator(device=cuda).manual_seed(wpb * c)
+    bs = wpb // wpt
+    b, n = 4, 3
+    mb = 2 + (c + bs - 1) // bs + 1
+    nb = 1 + b * mb
+    pk, pv = _pools(gen, cuda, n, nb, wpb)
+    tables = (1 + torch.arange(b * mb, device=cuda)).reshape(b, mb)
+    lengths = torch.tensor([0, bs - 1, 3, bs], device=cuda)
+    counts = torch.tensor([c, min(c, 2), 0, c], device=cuda)
+    new_k = _words(gen, (n, b, c, wpt), cuda)
+    new_v = _words(gen, (n, b, c, wpt), cuda)
+    wc = _words(gen, (nb,), cuda)
+    wc[::2] = -1
+    key = _words(gen, (8,), cuda)
+    lids = torch.tensor([0, 1, -1], dtype=torch.int32, device=cuda)
+    nk, nv = (9, 8, 7), (2**32 - 1, 0, 1)
+    args = (lids, new_k, new_v, tables, lengths, counts, wc, bs)
+    want = [pk.clone(), pv.clone()]
+    CC.cache_splice_plain(key, nk, nv, *want, *args)
+    before = ops.launch_counts()
+    for _ in range(2):
+        got = [pk.clone(), pv.clone()]
+        CC.cache_splice(key, nk, nv, *got, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _launched(before, "chacha20_cache_splice", 2)
+    assert not torch.equal(want[0], pk)             # the write landed
+
+
+def _sealed_lines(gen, dev, n_lines, scheme):
+    """Random line-sealed words: the kernels are XOR involutions, so any
+    words, write counters (some at 2^32 - 1) and flags (mixed) will do."""
+    if scheme == "coloe":
+        payload = _words(gen, (n_lines, 34), dev)
+        payload[::3, 32] = -1
+        return payload, None
+    counters = _words(gen, (n_lines,), dev)
+    counters[::3] |= 0x7FFFFFFF
+    return _words(gen, (n_lines, 32), dev), counters
+
+
+@pytest.mark.parametrize("scheme", ["coloe", "counter"])
+@pytest.mark.parametrize("orig_len", [32, 1000, 4097])
+def test_lines_unseal_kernel_bitwise(cuda, scheme, orig_len):
+    gen = torch.Generator(device=cuda).manual_seed(orig_len)
+    payload, counters = _sealed_lines(gen, cuda, -(-orig_len // 32), scheme)
+    key = _words(gen, (8,), cuda)
+    before = ops.launch_counts()
+    got = [CC.lines_unseal(key, payload, counters, orig_len, (5, 2**32 - 2))
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    _launched(before, "chacha20_lines_unseal", 2)
+    want = CC.lines_unseal_plain(key, payload, counters, orig_len,
+                                 (5, 2**32 - 2))
+    assert torch.equal(got[0], want) and torch.equal(got[1], want)
+
+
+@pytest.mark.parametrize("scheme", ["coloe", "counter"])
+@pytest.mark.parametrize("d", [2048, 64, 24, 40, 33])
+@pytest.mark.parametrize("src,out", [(torch.float32, torch.bfloat16),
+                                     (torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.bfloat16, torch.float32)],
+                         ids=str)
+def test_lines_gather_rows_kernel_bitwise(cuda, scheme, d, src, out):
+    """Rows on and off line boundaries (D*itemsize not a multiple of 64),
+    the first and last row, repeated rows; the words are real values of
+    the source type so the bf16 rounding meets every case it can."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    vocab = 300
+    n_words = -(-vocab * d * torch.empty((), dtype=src).element_size() // 4)
+    payload, counters = _sealed_lines(gen, cuda, -(-n_words // 32), scheme)
+    key = _words(gen, (8,), cuda)
+    tokens = torch.tensor([[0, vocab - 1, 7], [7, 150, 299]], device=cuda)
+    before = ops.launch_counts()
+    got = [CC.lines_gather_rows(key, payload, counters, (3, 4), (vocab, d),
+                                src, tokens, out) for _ in range(2)]
+    torch.cuda.synchronize()
+    _launched(before, "chacha20_lines_gather", 2)
+    want = CC.lines_gather_rows_plain(key, payload, counters, (3, 4),
+                                      (vocab, d), src, tokens, out)
+    assert got[0].shape == (2, 3, d) and got[0].dtype == out
+    for g in got:
+        assert torch.equal(g.view(torch.int16 if out == torch.bfloat16
+                                  else torch.int32),
+                           want.view(torch.int16 if out == torch.bfloat16
+                                     else torch.int32))

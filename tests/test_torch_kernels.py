@@ -134,8 +134,17 @@ def test_launch_counts_untouched_on_cpu():
     TO.keystream(u32.words(KEY), u32.words([1, 2, 3]), 4)
     q = torch.zeros((1, 5, 2, 8))
     TO.flash_attention(q, q, q, scale=1.0)
+    lines = torch.zeros((3, 34), dtype=torch.int32)
+    TO.lines_unseal(u32.words(KEY), lines, None, 90, (1, 2))
+    TO.lines_gather_rows(u32.words(KEY), lines, None, (1, 2), (6, 16),
+                         torch.float32, torch.tensor([[0, 5]]),
+                         torch.bfloat16)
     assert TO.launch_counts() == {"chacha20": 0, "sealed_matmul": 0,
                                   "sealed_matmul_tc": 0,
                                   "sealed_matmul_dec": 0,
                                   "flash_attention": 0,
-                                  "flash_attention_tc": 0}
+                                  "flash_attention_tc": 0,
+                                  "chacha20_cache_view": 0,
+                                  "chacha20_cache_splice": 0,
+                                  "chacha20_lines_unseal": 0,
+                                  "chacha20_lines_gather": 0}
