@@ -17,7 +17,10 @@ runs:
    edges (partial 16-word units, lengths 0 and full, counts 0, write
    counters at 2^32 - 1, ColoE and counter layouts, mixed SE flags, rows off
    line boundaries), and timed there beside their bounds and plain
-   versions;
+   versions; likewise the paged cache's copy-on-write re-key (one pair over
+   24 layers, partial units, a masked pair) and MAC tags (a view's verdict
+   over 4 slots x 16 blocks, a splice's re-tag over 24 layers, partial
+   geometries, dead and repeated entries, words with bit 31 set);
 2. the three fused decrypt-in-matmul kernels against their plain version
    at the full-width internlm2-1.8B shapes (wq/wo, wk/wv, MLP wi/wo, LM
    head): the CUDA-core kernel at decode M and at a ragged M of 1000 rows,
@@ -47,7 +50,19 @@ runs:
    prefill and first-step logits sealed vs plaintext (bf16 and f32), and
    one 1024-token prompt's one-shot prefill held against the chunked path
    of phase 4;
-6. CUDA-event timings of every kernel variant, old beside new (the fused
+6. prefix sharing and cache integrity at full width: (a) a sealed engine
+   with ``prefix_share=True`` on 8 greedy requests behind a common
+   203-token prefix (one of them a resubmitted prompt, so a tail block is
+   copied on write), gated on shared blocks, copies equal to the copy
+   kernel's launches, the mirror, registry-only refcounts after the drain,
+   ``evict_lru`` freeing every block, and teacher-forced f32 logits shared
+   against unshared at 1e-4; (b) a verified sealed cache on phase 4's
+   trace, its tokens equal to the unverified run's, no MAC failure,
+   ``mac_checks`` as the reference counts them, one tag launch per layer
+   view and per splice; (c) each tamper kind detected and recovered, the
+   other requests exact, no block leaked; (d) a verified tick beside an
+   unverified one and a copy-on-write admission, timed;
+7. CUDA-event timings of every kernel variant, old beside new (the fused
    matmul's decode kernels on every leaf at M = 4 and 32, and their sum
    over a decode tick's 169 launches; flash beside
    ``scaled_dot_product_attention`` under each backend that runs, the
@@ -96,6 +111,10 @@ BF16_FLOPS = 989e12
 CHACHA_OPS = 976          # 20 rounds x 4 quarter-rounds x 12 ops + 16 adds
 CHACHA_ALU_OPS = 640      # ... of which 320 XORs and 320 rotations
 CHACHA_XOR_OPS = 16       # XOR of one block into 16 ciphertext words
+# a MAC tag's hash, per 16-bit half of the block: its extraction (LOP3 or
+# SHF, on the ALU pipe) and one 64-bit multiply-add (IMAD.WIDE, counted twice)
+TAG_HALF_OPS = 3
+TAG_HALF_ALU_OPS = 1
 
 # SASS opcodes of 32-bit integer work that the ChaCha rounds may compile to
 INT_OPCODES = ("IADD3", "IMAD", "LOP3", "SHF", "PRMT", "IADD", "LEA")
@@ -103,6 +122,8 @@ INT_OPCODES = ("IADD3", "IMAD", "LOP3", "SHF", "PRMT", "IADD", "LEA")
 # the CUDA source of each kernel variant whose name is not its file's
 SOURCE = {"chacha20_cache_view": "chacha20_cache",
           "chacha20_cache_splice": "chacha20_cache",
+          "chacha20_cache_copy": "chacha20_cache",
+          "chacha20_cache_tags": "chacha20_cache",
           "chacha20_lines_unseal": "chacha20_lines",
           "chacha20_lines_gather": "chacha20_lines"}
 
@@ -219,6 +240,8 @@ def main(argv=None) -> int:
     report["flash"] = phase_flash(torch, dev, args.seed)
     report["serve"] = phase_serve(torch, dev, args)
     report["group"] = phase_group(torch, dev, args, report["serve"])
+    report["prefix_integrity"] = phase_prefix_integrity(torch, dev, args,
+                                                        report["serve"])
     report["timing"] = phase_timing(torch, dev, args, report)
 
     kernels = kernel_records(report)
@@ -259,6 +282,14 @@ def kernel_records(report):
         ("chacha20_cache_view", CC_REPLACES, serve["chacha20_cache_view"], 0),
         ("chacha20_cache_splice", CC_REPLACES, serve["chacha20_cache_splice"],
          0),
+        # the copy-on-write counted over the prefix-sharing run, the tags
+        # over the verified run (phase 6)
+        ("chacha20_cache_copy", CC_REPLACES,
+         report["prefix_integrity"]["shared"]["launches"][
+             "chacha20_cache_copy"], 0),
+        ("chacha20_cache_tags", CC_REPLACES,
+         report["prefix_integrity"]["verify"]["launches"][
+             "chacha20_cache_tags"], 0),
         ("chacha20_lines_unseal", CC_REPLACES, serve["chacha20_lines_unseal"],
          0),
         ("chacha20_lines_gather", CC_REPLACES, serve["chacha20_lines_gather"],
@@ -403,6 +434,66 @@ def _check_splice(torch, gen, dev, n, slots, mb, wpb, wpt, c, lengths, counts,
     if torch.equal(want[0], pk):
         raise AssertionError(f"cache_splice wrote nothing: {label}")
     return label
+
+
+def _check_copy(torch, gen, dev, n, wpb, pairs, label):
+    """The copy-on-write re-key of ``pairs`` ((src, dst, live) each) over n
+    layers, k and v, launched twice on copies of the pools."""
+    from repro_torch.kernels import chacha20 as CC
+    pk, pv, _, wc, key, lids = _cache_operands(torch, gen, dev, n, 1, 15, wpb)
+    src, dst, mask = (torch.tensor(c, device=dev) for c in zip(*pairs))
+    args = (lids, src, dst, mask, wc)
+    want = [pk.clone(), pv.clone()]
+    CC.cache_copy_plain(key, *NONCES, *want, *args)
+    for _ in range(2):
+        got = [pk.clone(), pv.clone()]
+        CC.cache_copy_cuda(key, *NONCES, *got, *args)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"cache_copy kernel != plain: {label}")
+    if torch.equal(want[0], pk):
+        raise AssertionError(f"cache_copy wrote nothing: {label}")
+    return label
+
+
+def _mac(torch, dev):
+    from repro_torch.core.mac import mac_context
+    return mac_context(bytes(range(32)), "kvcache", dev)
+
+
+def _check_tags(torch, gen, dev, n, slots, mb, wpb, layer, blocks, live,
+                label):
+    """Tags of ``blocks`` of every layer (or of one, ``layer``: a view's
+    verdict), k and v, words at 0xFFFFFFFF and with bit 31 planted; the
+    kernel launched twice against the plain version."""
+    from repro_torch.kernels import chacha20 as CC
+    pk, pv, _, wc, _, lids = _cache_operands(torch, gen, dev, n, slots, mb,
+                                             wpb)
+    pk[..., ::5] = -1
+    pv[..., 1::3] |= -2**31
+    if layer is not None:
+        pk, pv, lids = pk[layer][None], pv[layer][None], lids[layer:layer + 1]
+    ctx = _mac(torch, dev)
+    args = (ctx.key_words, ctx.hash_keys(wpb), ctx.nonce(NONCES[0]),
+            ctx.nonce(NONCES[1]), pk, pv, lids,
+            torch.as_tensor(blocks, device=dev),
+            torch.as_tensor(live, device=dev), wc)
+    got = [CC.cache_tags_cuda(*args) for _ in range(2)]
+    want = CC.cache_tags_plain(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, want) for g in got):
+        raise AssertionError(f"cache_tags kernel != plain: {label}")
+    return label
+
+
+def _tags_bound(tags, wpb):
+    """Bound of a ``cache_tags`` launch of ``tags`` live tags: each block's
+    words read once, the hash keys once, each tag written; per 16-bit half
+    an extraction and a 64-bit multiply-add, per tag one pad."""
+    halves = tags * 2 * wpb
+    return bound_ms(tags * (4 * wpb + 4 + 16) + 8 * wpb,
+                    halves * TAG_HALF_OPS + tags * CHACHA_OPS,
+                    alu_ops=halves * TAG_HALF_ALU_OPS + tags * CHACHA_ALU_OPS)
 
 
 def _line_operands(torch, gen, dev, n_lines, scheme):
@@ -554,6 +645,30 @@ def phase_chacha_fused(torch, dev, seed):
         for out in (torch.bfloat16, torch.float32):
             done.append(_check_gather(torch, dev, key, pay, ctr, (300, dd), src,
                                       tok, out, f"D={dd} {src} -> {out}"))
+    # the copy-on-write: one pair over every layer (an admission's), and
+    # partial units with a masked pair
+    done.append(_check_copy(torch, gen, dev, n, wpb, [(3, 9, True)],
+                            "COW, one pair x 24 layers"))
+    for w in (24, 40, 18):
+        done.append(_check_copy(
+            torch, gen, dev, 3, w, [(3, 9, True), (7, 10, True),
+                                    (2, 11, False)],
+            f"COW wpb {w}, a masked pair"))
+    # the tags: a view's verdict (one layer, a tick's 4 slots x 16 blocks),
+    # a tick's splice re-tag (24 layers x 4 blocks), partial geometries with
+    # dead and repeated entries
+    nb = 1 + SLOTS * CACHE_MB
+    done.append(_check_tags(torch, gen, dev, n, SLOTS, CACHE_MB, wpb, n // 2,
+                            list(range(1, nb)), [True] * (nb - 1),
+                            "view verdict, 4 slots x 16 blocks"))
+    done.append(_check_tags(torch, gen, dev, n, SLOTS, CACHE_MB, wpb, None,
+                            [5, 21, 37, 53], [True] * 4,
+                            "splice re-tag, 24 layers x 4 blocks"))
+    for w in (24, 40, 18):
+        done.append(_check_tags(torch, gen, dev, 3, 2, 4, w, None,
+                                [3, 0, 8, 3, 7], [True, False, True, True,
+                                                  True],
+                                f"tags wpb {w}, dead and repeated entries"))
     log(f"[chacha_fused] {len(done)} cases, each kernel launched twice and "
         f"bitwise equal to its plain version: " + "; ".join(done))
 
@@ -613,6 +728,40 @@ def phase_chacha_fused(torch, dev, seed):
             lambda: CC.lines_gather_rows_plain(*gargs),
             halves * 68 + tok.numel() * (8 + 2 * d), pads,
             iters=20 if tok.numel() < 100 else 10)
+    # the copy-on-write of one admission (one pair, every layer, k and v):
+    # each unit read, written and padded twice
+    cpb = -(-wpb // 16)
+    cargs = (key, *NONCES, pk, pv, lids, torch.tensor([3], device=dev),
+             torch.tensor([9], device=dev), torch.tensor([True], device=dev),
+             wc)
+    units = 2 * n * cpb
+    rec("chacha20_cache_copy", f"1 pair x {n} layers, k and v",
+        lambda: CC.cache_copy_cuda(*cargs),
+        lambda: CC.cache_copy_plain(*cargs), 128 * units + 40, 2 * units)
+    # the tags of a view's verdict (one layer, every block of a tick's
+    # slots) and of a tick's splice (every layer, one block a slot)
+    ctx = _mac(torch, dev)
+    hk = ctx.hash_keys(wpb)
+    entries = tables.reshape(-1)
+    for label, layers, blk in (
+            (f"view verdict, 1 layer x {SLOTS} slots x {CACHE_MB} blocks",
+             slice(n // 2, n // 2 + 1), entries),
+            (f"splice re-tag, {n} layers x {SLOTS} blocks", slice(0, n),
+             tables[:, 3].contiguous())):
+        live = torch.ones_like(blk, dtype=torch.bool)
+        targs = (ctx.key_words, hk, ctx.nonce(NONCES[0]),
+                 ctx.nonce(NONCES[1]), pk[layers], pv[layers], lids[layers],
+                 blk, live, wc)
+        tags = 2 * (layers.stop - layers.start) * blk.numel()
+        ms = _time_ms(torch, lambda: CC.cache_tags_cuda(*targs), 20, flush)
+        plain_ms = _time_ms(torch, lambda: CC.cache_tags_plain(*targs), 2)
+        b_ms, b_by = _tags_bound(tags, wpb)
+        times.setdefault("chacha20_cache_tags", []).append(
+            {"shape": label, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": b_ms, "bound_by": b_by, "tags": tags})
+        log(f"[time] chacha20_cache_tags {label}: {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; {tags} tags of "
+            f"{4 * wpb} bytes; {b_ms / ms:.2f} of the kernel's time)")
     del emb, pk, pv, scratch
     torch.cuda.empty_cache()
     return {"cases": done, "max_abs_err": 0, "timing": times}
@@ -849,6 +998,35 @@ def _prompts(seed, count, vocab):
             for _ in range(count)]
 
 
+def _chunked_prefill(torch, cfg, params, cache_seal, pools, wc, tables,
+                     prompts, starts, dev, chunk=32):
+    """Chunked prefill of ``prompts[i][starts[i]:]`` into the blocks of
+    ``tables`` (the first ``starts[i]`` tokens already in the cache),
+    through the paged functions the engine runs. Returns each prompt's
+    last-token logits, stacked."""
+    from repro_torch.models import paged as PG
+    b = len(prompts)
+    lengths = torch.tensor(starts, dtype=torch.int64, device=dev)
+    last = [None] * b
+    longest = max(len(p) - s0 for p, s0 in zip(prompts, starts))
+    for off in range(0, longest, chunk):
+        toks = torch.zeros((b, chunk), dtype=torch.int64)
+        cl = torch.zeros((b,), dtype=torch.int64)
+        for i, (p, s0) in enumerate(zip(prompts, starts)):
+            seg = p[s0 + off:s0 + off + chunk]
+            toks[i, :len(seg)] = torch.as_tensor(seg, dtype=torch.int64)
+            cl[i] = len(seg)
+        toks, cl = toks.to(dev), cl.to(dev)
+        logits, ups, _ = PG.chunk_logits(cfg, params, pools, tables, lengths,
+                                         wc, toks, cl, cache_seal)
+        PG.append_tokens(cfg, cache_seal, pools, ups, tables, lengths, cl, wc)
+        for i, (p, s0) in enumerate(zip(prompts, starts)):
+            if off < len(p) - s0 <= off + chunk:
+                last[i] = logits[i]
+        lengths = lengths + cl
+    return torch.stack(last)
+
+
 def first_tick_logits(torch, cfg, params, cache_seal, prompts, forced, dev,
                       block_size=16, chunk=32):
     """Chunked prefill of every prompt at once, then one teacher-forced
@@ -864,29 +1042,59 @@ def first_tick_logits(torch, cfg, params, cache_seal, prompts, forced, dev,
     tables = (1 + torch.arange(b, device=dev)[:, None] * mb
               + torch.arange(mb, device=dev)[None, :])
     wc = torch.zeros((1 + b * mb,), dtype=torch.int32, device=dev)
-    lengths = torch.zeros((b,), dtype=torch.int64, device=dev)
-    last = [None] * b
-    for off in range(0, longest, chunk):
-        toks = torch.zeros((b, chunk), dtype=torch.int64)
-        cl = torch.zeros((b,), dtype=torch.int64)
-        for i, p in enumerate(prompts):
-            seg = p[off:off + chunk]
-            toks[i, :len(seg)] = torch.as_tensor(seg, dtype=torch.int64)
-            cl[i] = len(seg)
-        toks, cl = toks.to(dev), cl.to(dev)
-        logits, ups = PG.chunk_logits(cfg, params, pools, tables, lengths, wc,
-                                      toks, cl, cache_seal)
-        PG.append_tokens(cfg, cache_seal, pools, ups, tables, lengths, cl, wc)
-        for i, p in enumerate(prompts):
-            if off < len(p) <= off + chunk:
-                last[i] = logits[i]
-        lengths = lengths + cl
-    prefill = torch.stack(last)
+    prefill = _chunked_prefill(torch, cfg, params, cache_seal, pools, wc,
+                               tables, prompts, [0] * b, dev, chunk)
     if forced is None:
         forced = prefill.argmax(dim=-1)
-    dec, _ = PG.decode_logits(cfg, params, pools, tables, lengths, wc,
-                              forced[:, None], cache_seal)
+    lengths = torch.tensor([len(p) for p in prompts], device=dev)
+    dec, _, _ = PG.decode_logits(cfg, params, pools, tables, lengths, wc,
+                                 forced[:, None], cache_seal)
     return prefill, dec, forced
+
+
+def shared_tick_logits(torch, cfg, params, cache_seal, donor, sharers,
+                       forced, dev, block_size=16, chunk=32):
+    """The same as ``first_tick_logits`` for ``sharers``, but over a cache a
+    donor filled first: the donor's prompt is prefilled and registered in a
+    ``PrefixRegistry``, each sharer takes the blocks it matches, its shared
+    tail block is copied (``paged.copy_blocks``), and only its own tokens
+    are prefilled. Returns (prefill logits, decode logits, tokens shared
+    per sharer, copies made)."""
+    from repro_torch.models import cache as MC
+    from repro_torch.models import paged as PG
+    b = len(sharers)
+    mb = -(-(max(len(p) for p in [donor] + sharers) + 1) // block_size)
+    nb = 1 + (1 + b) * mb
+    pools = MC.paged_pool_init(cfg, nb, block_size, dev)
+    wc = torch.zeros((nb,), dtype=torch.int32, device=dev)
+    alloc = MC.BlockAllocator(nb)
+    registry = MC.PrefixRegistry(alloc, block_size)
+    own = alloc.alloc(mb)
+    _chunked_prefill(torch, cfg, params, cache_seal, pools, wc,
+                     torch.tensor([own], device=dev), [donor], [0], dev,
+                     chunk)
+    registry.register(donor, own)
+    tables, starts, pairs = [], [], []
+    for p in sharers:
+        full, partial, n_shared = registry.match(p)
+        priv = alloc.alloc(mb - len(full))
+        if partial is not None:
+            pairs.append((partial[0], priv[0]))
+        tables.append(full + priv)
+        starts.append(n_shared)
+    if pairs:
+        src, dst = (torch.tensor(c, device=dev) for c in zip(*pairs))
+        ok = PG.copy_blocks(cfg, cache_seal, pools, wc, src, dst,
+                            torch.ones_like(src, dtype=torch.bool))
+        if not bool(ok):
+            raise AssertionError("a clean shared block failed its MAC")
+    tables = torch.tensor(tables, device=dev)
+    prefill = _chunked_prefill(torch, cfg, params, cache_seal, pools, wc,
+                               tables, sharers, starts, dev, chunk)
+    lengths = torch.tensor([len(p) for p in sharers], device=dev)
+    dec, _, _ = PG.decode_logits(cfg, params, pools, tables, lengths, wc,
+                                 forced[:, None], cache_seal)
+    return prefill, dec, starts, len(pairs)
 
 
 def _rel_err(torch, got, want):
@@ -1232,7 +1440,242 @@ def phase_group(torch, dev, args, serve):
 
 
 # --------------------------------------------------------------------------
-# phase 6: timings
+# phase 6: prefix sharing and cache integrity at full width
+# --------------------------------------------------------------------------
+
+# the shared-prefix trace: a common prefix of 12 full blocks and an 11-token
+# tail, then 16-120 own tokens a prompt. A sharer copies a block only when a
+# donor's prompt ENDS inside it (the registry's partial entry): request 0's
+# own tokens are cut so that its prompt, like the prefix, ends 11 tokens
+# into a block, and request 5 resubmits it, sharing every token but the
+# last and copying the tail block
+PREFIX_TOKENS, OWN_TOKENS, CLONE, TAIL = 203, (16, 120), (5, 0), 11
+# the tamper runs: two slots, three short requests
+TAMPER_LENS, TAMPER_NEW = (40, 23, 33), 10
+
+
+def _prefix_prompts(seed, vocab):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    prefix = rng.randint(0, vocab, PREFIX_TOKENS)
+    prompts = [np.concatenate([prefix, rng.randint(
+        0, vocab, rng.randint(OWN_TOKENS[0], OWN_TOKENS[1] + 1))]).astype(
+            np.int32) for _ in range(REQUESTS)]
+    donor = prompts[CLONE[1]]
+    donor = donor[:len(donor) - (len(donor) - TAIL) % 16]
+    prompts[CLONE[1]], prompts[CLONE[0]] = donor, donor.copy()
+    return prompts
+
+
+def _drain(torch, eng, prompts, new_tokens):
+    """Submit every prompt, run the engine dry; returns (handles, the
+    launch counts of the run, seconds). The counts are zeroed just before
+    and read just after the run."""
+    from repro_torch.kernels import ops
+    handles = [eng.submit(p, max_tokens=new_tokens) for p in prompts]
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    eng.run()
+    torch.cuda.synchronize()
+    return handles, ops.launch_counts(), time.time() - t0
+
+
+def phase_prefix_integrity(torch, dev, args, serve):
+    """(a) prefix sharing over sealed weights and a sealed cache, (b) the
+    verified cache, (c) the four tamper kinds, (d) the verified tick and a
+    copy-on-write admission timed; internlm2-1.8B at full width, bf16."""
+    from repro_torch.config import SealConfig
+    from repro_torch.core.security.tamper import FAULT_KINDS, TamperInjector
+    from repro_torch.serve.engine import ServeEngine
+    cfg, params = serve["engine"].cfg, serve["params"]
+    out = {}
+
+    # (a) prefix sharing: the shared run's launches are the copy kernel's
+    # main path; its streams are reported against an unshared run
+    prompts = _prefix_prompts(args.seed + 13, cfg.vocab_size)
+    max_len = PREFIX_TOKENS + OWN_TOKENS[1] + NEW_TOKENS + 16
+    kw = dict(batch_slots=SLOTS, max_len=max_len, seal=SealConfig(),
+              device=dev)
+    unshared = ServeEngine(cfg, params, **kw)
+    uh, _, _ = _drain(torch, unshared, prompts, NEW_TOKENS)
+    del unshared
+    eng = ServeEngine(cfg, params, prefix_share=True, **kw)
+    handles, launches, secs = _drain(torch, eng, prompts, NEW_TOKENS)
+    st = eng.stats
+    dispatches = st["prefills"] + st["decode_steps"]
+    out["shared"] = {"stats": dict(st), "launches": launches, "serve_s": secs,
+                     "greedy_agreement": sum(
+                         x == y for h, u in zip(handles, uh)
+                         for x, y in zip(h.out, u.out))
+                     / sum(len(h.out) for h in handles)}
+    log(f"[prefix] shared run: {secs:.2f} s, {st['prefills']} chunk + "
+        f"{st['decode_steps']} decode dispatches, shared "
+        f"{st['shared_prefix_blocks']} blocks / "
+        f"{st['shared_prefix_tokens']} tokens, {st['cow_copies']} "
+        f"copy-on-write, launches {launches}")
+    log(f"[prefix] greedy tokens equal to the unshared run's: "
+        f"{out['shared']['greedy_agreement']:.3f}")
+    if not all(h.done and len(h.out) == NEW_TOKENS for h in handles):
+        raise AssertionError("not every shared request completed")
+    if st["shared_prefix_blocks"] <= 0 or st["cow_copies"] < 1:
+        raise AssertionError("the shared run shared no block or copied none")
+    want = _chacha_launches(eng, dispatches, paged=True)
+    want.update(chacha20_cache_copy=st["cow_copies"], chacha20_cache_tags=0)
+    got = {name: launches[name] for name in want}
+    if got != want:
+        raise AssertionError(f"shared run ChaCha launches {got}, expected "
+                             f"{want}")
+    eng.check_device_mirror()
+    reg = eng._registry
+    held = [0] * eng.num_blocks
+    for b in list(reg._full.values()) + [b for b, _ in reg._partial.values()]:
+        held[b] += 1
+    if eng._alloc.refcount != held:
+        raise AssertionError("after the drain a block is held by more than "
+                             "the registry")
+    # (d) a copy-on-write admission: the clone of a registered prompt
+    clone = eng.submit(prompts[CLONE[1]], max_tokens=NEW_TOKENS)
+    cow0 = st["cow_copies"]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    eng._admit()
+    torch.cuda.synchronize()
+    out["cow_admission_ms"] = 1e3 * (time.time() - t0)
+    if st["cow_copies"] != cow0 + 1 or clone in eng.queue:
+        raise AssertionError("the clone was not admitted by copy-on-write")
+    eng.run()
+    reg.evict_lru(eng.num_blocks)
+    if eng._alloc.free_count != eng.num_blocks - 1:
+        raise AssertionError("evict_lru left blocks allocated")
+    log(f"[prefix] refcounts registry-only after the drain; evict_lru freed "
+        f"every block; a copy-on-write admission took "
+        f"{out['cow_admission_ms']:.2f} ms (host clock, synchronized)")
+    # teacher-forced, f32: the clone (shares all but its last token, its
+    # tail block copied) and a sharer of the 12 prefix blocks, each against
+    # its unshared prefill
+    cfg32 = cfg.with_(dtype="float32")
+    sharers = [prompts[CLONE[0]], prompts[1]]
+    view = eng.params()
+    pre_u, dec_u, forced = first_tick_logits(torch, cfg32, view,
+                                             eng.cache_seal, sharers, None,
+                                             dev)
+    pre_s, dec_s, starts, copies = shared_tick_logits(
+        torch, cfg32, view, eng.cache_seal, prompts[CLONE[1]], sharers,
+        forced, dev)
+    errs = (_rel_err(torch, pre_s, pre_u), _rel_err(torch, dec_s, dec_u))
+    out["shared_vs_unshared_rel_err_f32"] = errs
+    log(f"[prefix] teacher-forced f32 logits, shared ({starts} tokens "
+        f"shared, {copies} copied block) vs unshared: prefill {errs[0]:.3e},"
+        f" first decode tick {errs[1]:.3e} (tol 1e-4)")
+    if not (max(errs) <= 1e-4 and copies == 1 and min(starts) > 0):
+        raise AssertionError("shared logits disagree with unshared")
+    del eng, view
+    torch.cuda.empty_cache()
+
+    # (b) the verified cache on phase 4's trace: the tags kernel's main path
+    vprompts = serve["prompts"]
+    kw = dict(batch_slots=SLOTS, max_len=256, seal=None, seal_cache=True,
+              device=dev)
+    plain = ServeEngine(cfg, params, **kw)
+    ph, plain_launches, plain_s = _drain(torch, plain, vprompts, NEW_TOKENS)
+    ver = ServeEngine(cfg, params, verify=True, **kw)
+    vh, launches, secs = _drain(torch, ver, vprompts, NEW_TOKENS)
+    st = ver.stats
+    dispatches = st["prefills"] + st["decode_steps"]
+    checks = st["prefill_chunks"] + st["tokens"] - len(vprompts)
+    want = {"chacha20": 0, "chacha20_lines_gather": 0,
+            "chacha20_lines_unseal": 0, "chacha20_cache_copy": 0,
+            "chacha20_cache_view": dispatches * cfg.num_layers,
+            "chacha20_cache_splice": dispatches * len(cfg.pattern),
+            "chacha20_cache_tags":
+                dispatches * (cfg.num_layers + len(cfg.pattern))}
+    got = {name: launches[name] for name in want}
+    out["verify"] = {"stats": dict(st), "launches": launches,
+                     "serve_s": secs, "plain_serve_s": plain_s}
+    log(f"[verify] verified run: {secs:.2f} s (unverified {plain_s:.2f} s), "
+        f"{dispatches} dispatches, mac_checks {st['mac_checks']} (expected "
+        f"{checks}), mac_failures {st['mac_failures']}, launches {launches}")
+    if [h.out for h in vh] != [h.out for h in ph]:
+        raise AssertionError("verified tokens differ from unverified ones")
+    if st["mac_failures"] or st["retries"] or st["mac_checks"] != checks:
+        raise AssertionError("the verified run's MAC counts are wrong")
+    if got != want:
+        raise AssertionError(f"verified ChaCha launches {got}, expected "
+                             f"{want}")
+    ver.check_device_mirror()
+    # (d) a verified tick against an unverified one, every slot decoding
+    ticks = {}
+    for label, e in (("verified", ver), ("unverified", plain)):
+        for p in vprompts[:SLOTS]:
+            e.submit(p, max_tokens=64)
+        while any(r is None or e._pending[i] is not None
+                  for i, r in enumerate(e._active)):
+            e.step()
+        ms = _time_ms(torch, e._decode_tick, 5)
+        wall = []
+        for _ in range(5):
+            t0 = time.time()
+            e._decode_tick()               # ends in the tokens' d2h copy
+            wall.append(1e3 * (time.time() - t0))
+        ticks[label] = {"ms": ms, "host_ms": sorted(wall)[len(wall) // 2]}
+        log(f"[time] decode tick, {SLOTS} slots, sealed cache, {label}: "
+            f"{ms:.2f} ms (device events), {ticks[label]['host_ms']:.2f} ms "
+            f"(host clock)")
+    for label, e in (("verified", ver), ("unverified", plain)):
+        prof = _profile(torch, e._decode_tick, 3,
+                        f"{label} sealed-cache decode ticks")
+        ticks[label]["device_busy_ms"] = prof["device_busy_ms"] / 3
+        ticks[label]["idle_share"] = prof["idle_share"]
+        ticks[label]["chacha_device_ms"] = _chacha_device_ms(prof)
+    log(f"[profile] device ms per tick: verified "
+        f"{ticks['verified']['device_busy_ms']:.2f}, unverified "
+        f"{ticks['unverified']['device_busy_ms']:.2f}; ChaCha kernels per "
+        f"verified tick {ticks['verified']['chacha_device_ms']}")
+    out["ticks"] = ticks
+    del ver, plain
+    torch.cuda.empty_cache()
+
+    # (c) each tamper kind: detected, the victim re-prefilled, the others'
+    # tokens those of a clean run, no block leaked
+    import numpy as np
+    rng = np.random.RandomState(args.seed + 17)
+    tprompts = [rng.randint(1, cfg.vocab_size, n).astype(np.int32)
+                for n in TAMPER_LENS]
+    kw = dict(batch_slots=2, max_len=64, seal=None, seal_cache=True,
+              verify=True, device=dev)
+    clean, _, _ = _drain(torch, ServeEngine(cfg, params, **kw), tprompts,
+                         TAMPER_NEW)
+    out["tamper"] = {}
+    for kind in FAULT_KINDS:
+        inj = TamperInjector(kind, slot=0, start_step=3)
+        e = ServeEngine(cfg, params, fault_hooks=(inj,), **kw)
+        hs, _, _ = _drain(torch, e, tprompts, TAMPER_NEW)
+        st = e.stats
+        others = [h.out == c.out for h, c in zip(hs, clean)
+                  if h.retries == 0]
+        rec = {"fired": inj.fired, "mac_failures": st["mac_failures"],
+               "retries": st["retries"], "mac_checks": st["mac_checks"],
+               "victims": [h.rid for h in hs if h.retries],
+               "others_exact": all(others),
+               "free": e._alloc.free_count, "blocks": e.num_blocks}
+        out["tamper"][kind] = rec
+        log(f"[tamper] {kind}: {rec}")
+        if not (inj.fired and st["mac_failures"] >= 1 and st["retries"] >= 1
+                and rec["victims"] and all(others)
+                and all(h.done and h.error is None
+                        and len(h.out) == TAMPER_NEW for h in hs)
+                and rec["free"] == e.num_blocks - 1):
+            raise AssertionError(f"tamper {kind} was not detected and "
+                                 f"recovered: {rec}")
+        e.check_device_mirror()
+        del e
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 7: timings
 # --------------------------------------------------------------------------
 
 def _time_ms(torch, fn, iters, flush=None):
@@ -1609,6 +2052,8 @@ def _time_sdpa(torch, F, q, k, v, scale, flush, ref):
 CHACHA_KERNELS = {"chacha20": "chacha20_blocks_kernel",
                   "chacha20_cache_view": "cache_view_kernel",
                   "chacha20_cache_splice": "cache_splice_kernel",
+                  "chacha20_cache_copy": "cache_copy_kernel",
+                  "chacha20_cache_tags": "cache_tags_kernel",
                   "chacha20_lines_unseal": "lines_unseal_kernel",
                   "chacha20_lines_gather": "lines_gather_kernel"}
 

@@ -1,6 +1,7 @@
 """Sealed parameter store: model weights kept as ciphertext and decrypted on
-use. Port of ``repro/core/sealed_store.py`` (without MACs and
-``verify_params``, which come with the integrity slice).
+use. Port of ``repro/core/sealed_store.py``: the cache seal carries the
+reference's per-block MACs; the weight MACs and ``verify_params`` come with
+the weight-integrity slice.
 
 ``seal_params`` applies the SE plan and the engine per leaf:
 
@@ -32,6 +33,7 @@ from repro_torch.config import SealConfig
 from repro_torch.core import cipher as C
 from repro_torch.core import coloe as CL
 from repro_torch.core import engine as E
+from repro_torch.core import mac as M
 from repro_torch.core import plan as P
 from repro_torch.core.sealed_tensor import SealedTensor, SealMeta, torch_dtype
 from repro_torch.tree import flatten_with_path, map_leaves, unflatten
@@ -39,6 +41,10 @@ from repro_torch.tree import flatten_with_path, map_leaves, unflatten
 
 # the token embedding's path: ``serving_params`` keeps it line-sealed
 EMBED = "embed/w"
+
+WEIGHT_MACS = ("weight MACs (tile_tags, line_tags, verify_params and the "
+               "fail-stop weight sweep) come with the weight-integrity slice "
+               "of the port")
 
 
 def _dtype_name(dt: torch.dtype) -> str:
@@ -110,8 +116,8 @@ def _nonce3(path: str) -> Tuple[int, int, int]:
 
 
 def _line_tweak(path: str) -> Tuple[int, int, int]:
-    """Per-tensor MAC-pad tweak for line-layout leaves (used by the
-    integrity slice; kept so the nonce domains stay defined in one place)."""
+    """Per-tensor MAC-pad tweak for line-layout leaves (used by the weight
+    MACs; kept so the nonce domains stay defined in one place)."""
     return _nonce2(path) + (0,)
 
 
@@ -119,22 +125,29 @@ def _line_tweak(path: str) -> Tuple[int, int, int]:
 class CacheSeal:
     """Sealing context of the paged KV cache: key words plus one 3-word nonce
     per stream (k / v). Layer id and write counter are folded in per block
-    by ``kernels.ref.cache_block_otp``."""
+    by ``kernels.ref.cache_block_otp``. With ``mac`` every pool block
+    carries a co-located MAC word per stream (``mac_k``/``mac_v``), written
+    at every sealed write and checked at every read (``models/paged.py``)."""
     key_words: torch.Tensor           # (8,) int32 on the pools' device
     nonce_k: Tuple[int, int, int]
     nonce_v: Tuple[int, int, int]
-    mac: Optional[object] = None      # integrity slice; always None here
+    mac: Optional[M.MacContext] = None
+
+    def mac_nonces(self):
+        """The MAC pads' nonces of the k and v streams (the cache nonce is
+        each stream's tweak, as in ``MacContext.tags``)."""
+        return self.mac.nonce(self.nonce_k), self.mac.nonce(self.nonce_v)
 
 
 def cache_seal_config(key_bytes: bytes, device=None,
                       verify: bool = False) -> CacheSeal:
     """The cache-block sealing context (same key as the weight store,
-    nonce domain "kvcache/")."""
-    if verify:
-        raise NotImplementedError(
-            "cache MACs come with the verify/MAC/tamper slice of the port")
+    nonce domain "kvcache/"). ``verify`` arms the per-block Carter–Wegman
+    MACs (domain "kvcache")."""
     return CacheSeal(u32.words(C.key_to_words(key_bytes[:32]), device),
-                     _nonce3("kvcache/k"), _nonce3("kvcache/v"))
+                     _nonce3("kvcache/k"), _nonce3("kvcache/v"),
+                     M.mac_context(key_bytes, "kvcache", device)
+                     if verify else None)
 
 
 def line_flags_from_mask(mask_elems, dtype: torch.dtype,
@@ -252,8 +265,7 @@ def _seal_tiles(eng, seal, leaf, plan, path, geom) -> SealedTensor:
 def seal_params(params, seal: SealConfig, key_bytes: bytes) -> SealedParams:
     """Seal every leaf on the device the leaves live on."""
     if seal.verify:
-        raise NotImplementedError(
-            "weight MACs come with the verify/MAC/tamper slice of the port")
+        raise NotImplementedError(WEIGHT_MACS)
     flat = flatten_with_path(params)
     dev = flat[0][1].device
     plans = P.make_plan(params, seal)

@@ -3,8 +3,10 @@
 // Replaces, for the KV cache, the Pallas kernel
 // src/repro/kernels/chacha20.py::chacha20_keystream (_keystream_kernel) as
 // the reference applies it through kernels/ref.py::cache_block_otp in
-// models/paged.py::_dense_view (the read) and ::append_tokens (the write).
-// Two entry points:
+// models/paged.py::_dense_view (the read), ::append_tokens (the write) and
+// ::copy_blocks (the copy-on-write), and as src/repro/core/mac.py::
+// MacContext.tags applies it to the cache blocks' MAC pads. Four entry
+// points:
 //
 //   cache_view    one layer's k and v blocks gathered through the block
 //                 tables into dense (B, MB*wpb) words, unsealed, and zeroed
@@ -12,7 +14,14 @@
 //   cache_splice  every layer of a stack, k and v, in place on the pools:
 //                 each touched (row, span) block is unsealed under wc[pb],
 //                 the new token words spliced in where they fall, and the
-//                 block re-sealed under wc[pb] + 1: one launch per write.
+//                 block re-sealed under wc[pb] + 1: one launch per write;
+//   cache_copy    the copy-on-write of K (src, dst) pairs over every layer,
+//                 k and v, in place: each unit of src unsealed under
+//                 (src, wc[src]) and re-sealed into dst under
+//                 (dst, wc[dst] + 1), so no plaintext reaches the pool;
+//   cache_tags    one Carter-Wegman tag per (layer, stream, block) of a
+//                 list: uhash(ciphertext) XOR word 0 of ChaCha20(MAC key,
+//                 counter = block, nonce = (m0 ^ lid, m1 ^ wc[block], m2)).
 //
 // Keystream contract (cache_block_otp): 16-word unit c of pool block b in
 // layer lid, under write counter wc, XORs the ChaCha20 block with
@@ -34,6 +43,17 @@
 // keystream, counter or nonce array reaches device memory. A unit with no
 // live word writes zeros and makes no pad; an untouched splice unit writes
 // nothing; a splice unit whose words are all new skips the unseal's pad.
+// A copy thread likewise makes both pads of its unit in registers: 128
+// bytes and two pads a unit, so the pads bound it.
+//
+// The tag's hash is sum(r_i * m_i) mod (2^31 - 1) over the block's 16-bit
+// halves m_i with keys r_i < 2^31 (core/mac.py::uhash). Each product is
+// below 2^47 and a block has at most 2^16 halves, so the sum is exact in 64
+// bits and the same in any order: a block of threads a tag, each thread
+// accumulating its words' products with one wide multiply-add a half, a
+// warp-shuffle and shared-memory reduction, and one modulo and one pad at
+// the end. Per tag that is the block's bytes, read once, against about 3
+// integer operations a half and one pad: the bytes bound it.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -234,6 +254,121 @@ cache_splice_kernel(const uint32_t* __restrict__ key,
   store16<VEC>(blkp, nw, w);
 }
 
+// Thread i: unit c of pair p in layer l, for k (kv = 0) or v; masked-off
+// pairs write nothing.
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+cache_copy_kernel(const uint32_t* __restrict__ key, uint32_t* pool_k,
+                  uint32_t* pool_v, long long ls_k, long long rs_k,
+                  long long ls_v, long long rs_v,
+                  const uint32_t* __restrict__ lids,
+                  const long long* __restrict__ src,
+                  const long long* __restrict__ dst,
+                  const unsigned char* __restrict__ mask,
+                  const uint32_t* __restrict__ wc, int layers, int pairs,
+                  int wpb, Nonce nk, Nonce nv) {
+  const int cpb = (wpb + 15) / 16;
+  const long long per_kv = static_cast<long long>(layers) * pairs * cpb;
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (i >= 2 * per_kv) return;
+  const int kv = i >= per_kv;
+  long long r = i - kv * per_kv;
+  const int c = static_cast<int>(r % cpb);
+  r /= cpb;
+  const int p = static_cast<int>(r % pairs);
+  const int l = static_cast<int>(r / pairs);
+  if (!__ldg(mask + p)) return;
+  const long long sb = __ldg(src + p), db = __ldg(dst + p);
+  const int w0 = 16 * c;
+  const int nw = min(16, wpb - w0);
+  uint32_t* base = kv ? pool_v + l * ls_v : pool_k + l * ls_k;
+  const long long rs = kv ? rs_v : rs_k;
+  const Key k = load_key(key);
+  const Nonce& n = kv ? nv : nk;
+  const uint32_t lid = __ldg(lids + l);
+  uint32_t w[16], p0[16], p1[16];
+  load16<VEC>(base + sb * rs + w0, nw, w);
+  cache_pad(k, static_cast<uint32_t>(sb), cpb, c, lid, __ldg(wc + sb), n, p0);
+  cache_pad(k, static_cast<uint32_t>(db), cpb, c, lid, __ldg(wc + db) + 1u, n,
+            p1);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) w[j] ^= p0[j] ^ p1[j];
+  store16<VEC>(base + db * rs + w0, nw, w);
+}
+
+constexpr unsigned kP31 = 0x7FFFFFFFu;
+
+// The hash terms of one word: its low and high 16-bit halves times their
+// keys, summed exactly in 64 bits.
+__device__ __forceinline__ unsigned long long word_terms(uint32_t w,
+                                                         uint32_t k_lo,
+                                                         uint32_t k_hi) {
+  return static_cast<unsigned long long>(k_lo) * (w & 0xFFFFu) +
+         static_cast<unsigned long long>(k_hi) * (w >> 16);
+}
+
+// Block (e, 2*l + kv): the tag of entry e in layer l, stream kv; out is
+// (layers, 2, entries). A dead entry writes 0 and reads nothing.
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+cache_tags_kernel(const uint32_t* __restrict__ key,
+                  const uint32_t* __restrict__ hkeys,
+                  const uint32_t* __restrict__ pool_k,
+                  const uint32_t* __restrict__ pool_v, long long ls_k,
+                  long long rs_k, long long ls_v, long long rs_v,
+                  const uint32_t* __restrict__ lids,
+                  const long long* __restrict__ blocks,
+                  const unsigned char* __restrict__ live,
+                  const uint32_t* __restrict__ wc, uint32_t* __restrict__ out,
+                  int entries, int wpb, Nonce mk, Nonce mv) {
+  const int e = blockIdx.x;
+  const int kv = blockIdx.y & 1;
+  const int l = blockIdx.y >> 1;
+  uint32_t* dst = out + (2LL * l + kv) * entries + e;
+  if (!__ldg(live + e)) {
+    if (threadIdx.x == 0) *dst = 0u;
+    return;
+  }
+  const long long blk = __ldg(blocks + e);
+  const uint32_t* row =
+      kv ? pool_v + l * ls_v + blk * rs_v : pool_k + l * ls_k + blk * rs_k;
+  uint32_t pad0 = 0u;
+  if (threadIdx.x == 0) {           // the pad overlaps the other loads
+    uint32_t p[16];
+    const Nonce& n = kv ? mv : mk;
+    seal::chacha20_block(load_key(key).w, static_cast<uint32_t>(blk),
+                         n.w[0] ^ __ldg(lids + l), n.w[1] ^ __ldg(wc + blk),
+                         n.w[2], p);
+    pad0 = p[0];
+  }
+  unsigned long long acc = 0;
+  if (VEC) {
+    const uint4* row4 = reinterpret_cast<const uint4*>(row);
+    const uint4* key4 = reinterpret_cast<const uint4*>(hkeys);
+    for (int q = threadIdx.x; q < wpb / 4; q += kThreads) {
+      const uint4 w = row4[q];
+      const uint4 ka = __ldg(key4 + 2 * q), kb = __ldg(key4 + 2 * q + 1);
+      acc += word_terms(w.x, ka.x, ka.y) + word_terms(w.y, ka.z, ka.w) +
+             word_terms(w.z, kb.x, kb.y) + word_terms(w.w, kb.z, kb.w);
+    }
+  } else {
+    for (int q = threadIdx.x; q < wpb; q += kThreads)
+      acc += word_terms(row[q], __ldg(hkeys + 2 * q), __ldg(hkeys + 2 * q + 1));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xFFFFFFFFu, acc, o);
+  __shared__ unsigned long long part[kThreads / 32];
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long sum = 0;
+#pragma unroll
+    for (int j = 0; j < kThreads / 32; ++j) sum += part[j];
+    *dst = static_cast<uint32_t>(sum % kP31) ^ pad0;
+  }
+}
+
 int blocks_for(long long units) {
   return static_cast<int>((units + kThreads - 1) / kThreads);
 }
@@ -301,5 +436,64 @@ extern "C" int cache_splice(const void* key, void* pool_k, void* pool_v,
       static_cast<const long long*>(counts),
       static_cast<const uint32_t*>(wc), layers, rows, mb, wpb, wpt, bs, ctok,
       nspan, nk, nv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// key (8,) u32; pool_k, pool_v: (n, NB, wpb) u32 words with layer strides
+// ls_* and row strides rs_* (in words), updated in place; lids (n,) u32;
+// src, dst (K,) int64 block ids, disjoint among the masked pairs; mask (K,)
+// bool; wc (NB,) u32, read only (the caller bumps wc[dst] after the
+// launch). vec != 0: wpb % 16 == 0 and every row start 16-byte aligned.
+// Device pointers; launches on `stream`; returns the launch's cudaError_t.
+extern "C" int cache_copy(const void* key, void* pool_k, void* pool_v,
+                          long long ls_k, long long rs_k, long long ls_v,
+                          long long rs_v, const void* lids, const void* src,
+                          const void* dst, const void* mask, const void* wc,
+                          int layers, int pairs, int wpb, unsigned nk0,
+                          unsigned nk1, unsigned nk2, unsigned nv0,
+                          unsigned nv1, unsigned nv2, int vec, void* stream) {
+  const long long units = 2LL * layers * pairs * ((wpb + 15) / 16);
+  if (units <= 0) return 0;
+  const Nonce nk{{nk0, nk1, nk2}}, nv{{nv0, nv1, nv2}};
+  auto launch = vec ? cache_copy_kernel<true> : cache_copy_kernel<false>;
+  launch<<<blocks_for(units), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(key), static_cast<uint32_t*>(pool_k),
+      static_cast<uint32_t*>(pool_v), ls_k, rs_k, ls_v, rs_v,
+      static_cast<const uint32_t*>(lids), static_cast<const long long*>(src),
+      static_cast<const long long*>(dst),
+      static_cast<const unsigned char*>(mask),
+      static_cast<const uint32_t*>(wc), layers, pairs, wpb, nk, nv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// key (8,) u32 MAC key; hkeys (2*wpb,) u32 hash keys in [1, 2^31 - 1);
+// pool_k, pool_v: (n, NB, wpb) u32 words with layer strides ls_* and row
+// strides rs_* (in words); lids (n,) u32; blocks (E,) int64; live (E,)
+// bool; wc (NB,) u32; out (n, 2, E) u32 tags, 0 where not live. mk, mv: the
+// k and v streams' MAC nonces. vec != 0: wpb % 4 == 0 and every row start
+// and hkeys 16-byte aligned. Device pointers; launches on `stream`; returns
+// the launch's cudaError_t.
+extern "C" int cache_tags(const void* key, const void* hkeys,
+                          const void* pool_k, const void* pool_v,
+                          long long ls_k, long long rs_k, long long ls_v,
+                          long long rs_v, const void* lids,
+                          const void* blocks, const void* live,
+                          const void* wc, void* out, int layers, int entries,
+                          int wpb, unsigned mk0, unsigned mk1, unsigned mk2,
+                          unsigned mv0, unsigned mv1, unsigned mv2, int vec,
+                          void* stream) {
+  if (layers <= 0 || entries <= 0) return 0;
+  const Nonce mk{{mk0, mk1, mk2}}, mv{{mv0, mv1, mv2}};
+  auto launch = vec ? cache_tags_kernel<true> : cache_tags_kernel<false>;
+  launch<<<dim3(entries, 2 * layers), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(key), static_cast<const uint32_t*>(hkeys),
+      static_cast<const uint32_t*>(pool_k),
+      static_cast<const uint32_t*>(pool_v), ls_k, rs_k, ls_v, rs_v,
+      static_cast<const uint32_t*>(lids), static_cast<const long long*>(blocks),
+      static_cast<const unsigned char*>(live),
+      static_cast<const uint32_t*>(wc), static_cast<uint32_t*>(out), entries,
+      wpb, mk, mv);
   return static_cast<int>(cudaGetLastError());
 }

@@ -44,7 +44,11 @@ PROTOTYPES = {
         "cache_view": [_P] * 3 + [_L] * 2 + [_P] * 5 + [_I] * 4 + [_U] * 6
                       + [_I, _P],
         "cache_splice": [_P] * 3 + [_L] * 4 + [_P] * 7 + [_I] * 8 + [_U] * 6
-                        + [_I, _P]},
+                        + [_I, _P],
+        "cache_copy": [_P] * 3 + [_L] * 4 + [_P] * 5 + [_I] * 3 + [_U] * 6
+                      + [_I, _P],
+        "cache_tags": [_P] * 4 + [_L] * 4 + [_P] * 5 + [_I] * 3 + [_U] * 6
+                      + [_I, _P]},
     "chacha20_lines": {
         "lines_unseal": [_P] * 3 + [_L] * 2 + [_U] * 2 + [_P] * 2,
         "lines_gather_rows": [_P] * 3 + [_U] * 2 + [_P] + [_L] * 3

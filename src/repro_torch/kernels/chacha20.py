@@ -11,10 +11,13 @@ sealed matmul:
   block's 976 integer operations (its XORs and rotations) issue only on the
   ALU pipe, 16.7e12 a second on the H100, against 80 bytes moved with a
   per-block nonce: the arithmetic.
-* ``csrc/chacha20_cache.cu`` (``cache_view``, ``cache_splice``): the paged KV
-  cache's pads (``ref.cache_block_otp``) made in registers inside the pass
-  that consumes them: the gather of one layer's dense view (zeroed past
-  each slot's length) and the in-place splice of a write over every layer.
+* ``csrc/chacha20_cache.cu`` (``cache_view``, ``cache_splice``,
+  ``cache_copy``, ``cache_tags``): the paged KV cache's pads
+  (``ref.cache_block_otp``) made in registers inside the pass that consumes
+  them: the gather of one layer's dense view (zeroed past each slot's
+  length), the in-place splice of a write over every layer, the
+  copy-on-write re-key of shared blocks, and the blocks' Carter–Wegman tags
+  (``core.mac``: a hash of the ciphertext XOR one pad word).
 * ``csrc/chacha20_lines.cu`` (``lines_unseal``, ``lines_gather_rows``): the
   line layout's pads (``core.engine._line_otp``) made inside the unseal of a
   whole leaf, or inside the gather of the embedding rows a dispatch needs.
@@ -309,6 +312,24 @@ def cache_splice_plain(key_words, nonce_k, nonce_v, pool_k, pool_v, lids,
                                          scratch)
 
 
+def _check_stacked_pools(pool_k, pool_v):
+    for name, t in (("pool_k", pool_k), ("pool_v", pool_v)):
+        _check_words(name, t)
+        if t.ndim != 3 or t.stride(-1) != 1:
+            raise ValueError(f"{name}: expected (n, NB, wpb) rows of unit "
+                             f"stride, got {tuple(t.shape)} {t.stride()}")
+    if pool_v.shape != pool_k.shape:
+        raise ValueError("pool_k and pool_v differ in shape")
+
+
+def _vec_pools(pool_k, pool_v) -> bool:
+    """16-byte loads and stores hold for every row of both pools."""
+    return (pool_k.shape[-1] % 16 == 0
+            and all(s % 4 == 0 for s in pool_k.stride()[:2]
+                    + pool_v.stride()[:2])
+            and _aligned(pool_k, pool_v))
+
+
 def cache_splice_cuda(key_words, nonce_k, nonce_v, pool_k, pool_v, lids,
                       new_k, new_v, tables, lengths, counts, wc,
                       bs: int) -> None:
@@ -319,13 +340,7 @@ def cache_splice_cuda(key_words, nonce_k, nonce_v, pool_k, pool_v, lids,
     kernel's in-place update relies on."""
     dev = pool_k.device
     _check_words("key_words", key_words, (8,))
-    for name, t in (("pool_k", pool_k), ("pool_v", pool_v)):
-        _check_words(name, t)
-        if t.ndim != 3 or t.stride(-1) != 1:
-            raise ValueError(f"{name}: expected (n, NB, wpb) rows of unit "
-                             f"stride, got {tuple(t.shape)} {t.stride()}")
-    if pool_v.shape != pool_k.shape:
-        raise ValueError("pool_k and pool_v differ in shape")
+    _check_stacked_pools(pool_k, pool_v)
     n, nb, wpb = pool_k.shape
     b, mb = tables.shape
     for name, t in (("new_k", new_k), ("new_v", new_v)):
@@ -354,9 +369,7 @@ def cache_splice_cuda(key_words, nonce_k, nonce_v, pool_k, pool_v, lids,
     key_words, lids, new_k, new_v, tables, lengths, counts, wc = (
         t.contiguous() for t in (key_words, lids, new_k, new_v, tables,
                                  lengths, counts, wc))
-    vec = (wpb % 16 == 0 and all(s % 4 == 0 for s in pool_k.stride()[:2]
-                                 + pool_v.stride()[:2])
-           and _aligned(pool_k, pool_v))
+    vec = _vec_pools(pool_k, pool_v)
     fn = _build.load("chacha20_cache").cache_splice
     with torch.cuda.device(dev):
         rc = fn(key_words.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
@@ -377,6 +390,154 @@ def cache_splice(key_words, nonce_k, nonce_v, pool_k, pool_v, lids, new_k,
     fn = cache_splice_cuda if pool_k.is_cuda else cache_splice_plain
     fn(key_words, nonce_k, nonce_v, pool_k, pool_v, lids, new_k, new_v,
        tables, lengths, counts, wc, bs)
+
+
+def cache_copy_plain(key_words, nonce_k, nonce_v, pool_k, pool_v, lids,
+                     src, dst, mask, wc) -> None:
+    """Copy-on-write of blocks ``src -> dst`` ((K,) int64 each, ``mask``
+    (K,) bool gating the pairs) over every layer of ``pool_*`` (n, NB, wpb),
+    IN PLACE: each unit is unsealed under (src, wc[src]) and re-sealed under
+    (dst, wc[dst] + 1) (a plain copy when ``key_words`` is None: plaintext
+    pools). Masked-off pairs write the scratch block with its own content.
+    The source and destination blocks of the masked pairs must be disjoint
+    (destinations are freshly allocated). ``wc`` is read only: the caller
+    bumps it."""
+    from repro_torch.kernels import ref    # deferred: ref imports this module
+    live_src = set(src[mask].tolist())
+    if live_src & set(dst[mask].tolist()):
+        raise ValueError("copy-on-write sources and destinations overlap")
+    wpb = pool_k.shape[-1]
+    tgt = torch.where(mask, dst, torch.full_like(dst, SCRATCH_BLOCK))
+    if key_words is not None:
+        wc0 = wc[src]
+        wc1 = u32.from_i64(u32.to_i64(wc[dst]) + 1)
+        lid2 = lids[:, None]
+    for pool, nonce in ((pool_k, nonce_k), (pool_v, nonce_v)):
+        blk = pool[:, src]                                  # (n, K, wpb)
+        if key_words is not None:
+            blk = blk ^ ref.cache_block_otp(
+                key_words, nonce, src, wc0, lid2, wpb,
+                block_fn=chacha20_blocks_plain)
+            blk = blk ^ ref.cache_block_otp(
+                key_words, nonce, dst, wc1, lid2, wpb,
+                block_fn=chacha20_blocks_plain)
+        scratch = pool[:, SCRATCH_BLOCK][:, None, :]
+        pool[:, tgt] = torch.where(mask[None, :, None], blk, scratch)
+
+
+def cache_copy_cuda(key_words, nonce_k, nonce_v, pool_k, pool_v, lids, src,
+                    dst, mask, wc) -> None:
+    """Launch ``cache_copy`` of ``csrc/chacha20_cache.cu``: one launch for
+    every layer of the stack, k and v, in place on the pools; masked-off
+    pairs write nothing."""
+    dev = pool_k.device
+    _check_words("key_words", key_words, (8,))
+    _check_stacked_pools(pool_k, pool_v)
+    n, nb, wpb = pool_k.shape
+    k = src.shape[0]
+    _check_words("wc", wc, (nb,))
+    _check_words("lids", lids, (n,))
+    for name, t in (("src", src), ("dst", dst)):
+        if t.dtype != torch.int64 or tuple(t.shape) != (k,):
+            raise TypeError(f"{name}: expected ({k},) int64")
+    if mask.dtype != torch.bool or tuple(mask.shape) != (k,):
+        raise TypeError(f"mask: expected ({k},) bool")
+    if 2 * n * k * -(-wpb // 16) >= 2**31:
+        raise ValueError("too many units for one launch")
+    _same_device(dev, key_words, pool_v, lids, src, dst, mask, wc)
+    key_words, lids, src, dst, mask, wc = (
+        t.contiguous() for t in (key_words, lids, src, dst, mask, wc))
+    fn = _build.load("chacha20_cache").cache_copy
+    with torch.cuda.device(dev):
+        rc = fn(key_words.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+                pool_k.stride(0), pool_k.stride(1), pool_v.stride(0),
+                pool_v.stride(1), lids.data_ptr(), src.data_ptr(),
+                dst.data_ptr(), mask.data_ptr(), wc.data_ptr(), n, k, wpb,
+                *_nonce_words(nonce_k), *_nonce_words(nonce_v),
+                int(_vec_pools(pool_k, pool_v)), _stream(dev))
+    _build.check(rc, "cache_copy")
+    cache_copy_cuda.launches += 1
+
+
+def cache_copy(key_words, nonce_k, nonce_v, pool_k, pool_v, lids, src, dst,
+               mask, wc) -> None:
+    """The sealed copy-on-write re-key over every layer of a stack, in place
+    on the pools (see ``cache_copy_plain``)."""
+    fn = cache_copy_cuda if pool_k.is_cuda else cache_copy_plain
+    fn(key_words, nonce_k, nonce_v, pool_k, pool_v, lids, src, dst, mask, wc)
+
+
+def cache_tags_plain(key_words, hash_keys, nonce_k, nonce_v, pool_k, pool_v,
+                     lids, blocks, live, wc) -> torch.Tensor:
+    """(n, 2, E) int32 Carter–Wegman tags of blocks ``blocks`` (E,) int64
+    of every layer of ``pool_*`` (n, NB, wpb), k then v:
+    ``core.mac.uhash(hash_keys, words) ^ pad`` with the pad word 0 of
+    ChaCha20(key, counter = block, nonce = (n0 ^ lid, n1 ^ wc[block], n2))
+    and (n0, n1, n2) the stream's MAC nonce; 0 where ``live`` (E,) is
+    False."""
+    from repro_torch.core import mac    # deferred: mac imports this module
+    wcb = wc[blocks]
+    out = []
+    for pool, nonce in ((pool_k, nonce_k), (pool_v, nonce_v)):
+        tag = mac.uhash(hash_keys, pool[:, blocks]) ^ mac.mac_pads(
+            key_words, nonce, blocks, wcb, lids[:, None],
+            block_fn=chacha20_blocks_plain)
+        out.append(torch.where(live, tag, torch.zeros_like(tag)))
+    return torch.stack(out, dim=1)
+
+
+def cache_tags_cuda(key_words, hash_keys, nonce_k, nonce_v, pool_k, pool_v,
+                    lids, blocks, live, wc) -> torch.Tensor:
+    """Launch ``cache_tags`` of ``csrc/chacha20_cache.cu``: one block of
+    threads a tag, every layer, k and v, in one launch. The pools may be
+    strided views of the stacked pool (no copy)."""
+    from repro_torch.core.mac import MAX_WORDS
+    dev = pool_k.device
+    _check_words("key_words", key_words, (8,))
+    _check_stacked_pools(pool_k, pool_v)
+    n, nb, wpb = pool_k.shape
+    e = blocks.shape[0]
+    if wpb > MAX_WORDS:
+        raise ValueError(f"{wpb} words a block exceed one tag's message")
+    _check_words("hash_keys", hash_keys, (2 * wpb,))
+    _check_words("wc", wc, (nb,))
+    _check_words("lids", lids, (n,))
+    if blocks.dtype != torch.int64 or tuple(blocks.shape) != (e,):
+        raise TypeError(f"blocks: expected ({e},) int64")
+    if live.dtype != torch.bool or tuple(live.shape) != (e,):
+        raise TypeError(f"live: expected ({e},) bool")
+    if e >= 2**31 or 2 * n >= 65536:
+        raise ValueError("too many tags for one launch")
+    _same_device(dev, key_words, hash_keys, pool_v, lids, blocks, live, wc)
+    key_words, hash_keys, lids, blocks, live, wc = (
+        t.contiguous() for t in (key_words, hash_keys, lids, blocks, live,
+                                 wc))
+    out = torch.empty((n, 2, e), dtype=torch.int32, device=dev)
+    vec = (wpb % 4 == 0
+           and all(s % 4 == 0 for s in pool_k.stride()[:2]
+                   + pool_v.stride()[:2])
+           and _aligned(pool_k, pool_v, hash_keys))
+    fn = _build.load("chacha20_cache").cache_tags
+    with torch.cuda.device(dev):
+        rc = fn(key_words.data_ptr(), hash_keys.data_ptr(),
+                pool_k.data_ptr(), pool_v.data_ptr(), pool_k.stride(0),
+                pool_k.stride(1), pool_v.stride(0), pool_v.stride(1),
+                lids.data_ptr(), blocks.data_ptr(), live.data_ptr(),
+                wc.data_ptr(), out.data_ptr(), n, e, wpb,
+                *_nonce_words(nonce_k), *_nonce_words(nonce_v), int(vec),
+                _stream(dev))
+    _build.check(rc, "cache_tags")
+    cache_tags_cuda.launches += 1
+    return out
+
+
+def cache_tags(key_words, hash_keys, nonce_k, nonce_v, pool_k, pool_v, lids,
+               blocks, live, wc) -> torch.Tensor:
+    """(n, 2, E) int32 MAC tags of cache blocks, k and v of every layer
+    (see ``cache_tags_plain``)."""
+    fn = cache_tags_cuda if pool_k.is_cuda else cache_tags_plain
+    return fn(key_words, hash_keys, nonce_k, nonce_v, pool_k, pool_v, lids,
+              blocks, live, wc)
 
 
 # --------------------------------------------------------------------------
@@ -512,6 +673,6 @@ def lines_gather_rows(key_words, payload, counters, nonce2, shape, src_dtype,
               out_dtype)
 
 
-for _fn in (cache_view_cuda, cache_splice_cuda, lines_unseal_cuda,
-            lines_gather_rows_cuda):
+for _fn in (cache_view_cuda, cache_splice_cuda, cache_copy_cuda,
+            cache_tags_cuda, lines_unseal_cuda, lines_gather_rows_cuda):
     _fn.launches = 0

@@ -2,8 +2,8 @@
 (``keystream``, ``sealed_matmul``), plus ``flash_attention``, which the
 reference calls straight from ``repro/kernels/flash_attention.py``, and the
 ChaCha routes that make their pads where the data is used (the reference
-composes these from ``chacha20_keystream``): ``cache_view`` and
-``cache_splice`` of the paged KV cache, ``lines_unseal`` and
+composes these from ``chacha20_keystream``): ``cache_view``,
+``cache_splice``, ``cache_copy`` and ``cache_tags`` of the paged KV cache, ``lines_unseal`` and
 ``lines_gather_rows`` of line-sealed leaves.
 
 A CPU tensor takes a kernel's plain version; a CUDA tensor launches the
@@ -24,6 +24,8 @@ from repro_torch.kernels import sealed_matmul as _sm
 _COUNTED = {"chacha20": _cc.chacha20_blocks,
             "chacha20_cache_view": _cc.cache_view_cuda,
             "chacha20_cache_splice": _cc.cache_splice_cuda,
+            "chacha20_cache_copy": _cc.cache_copy_cuda,
+            "chacha20_cache_tags": _cc.cache_tags_cuda,
             "chacha20_lines_unseal": _cc.lines_unseal_cuda,
             "chacha20_lines_gather": _cc.lines_gather_rows_cuda,
             "sealed_matmul": _sm.sealed_matmul_cuda,
@@ -45,6 +47,8 @@ def reset_launch_counts() -> None:
 # pads made inside the pass that consumes them (kernels/chacha20.py)
 cache_view = _cc.cache_view
 cache_splice = _cc.cache_splice
+cache_copy = _cc.cache_copy
+cache_tags = _cc.cache_tags
 lines_unseal = _cc.lines_unseal
 lines_gather_rows = _cc.lines_gather_rows
 

@@ -4,6 +4,10 @@ of ``repro/launch/serve.py`` (``poisson_arrivals``, ``drive``, ``main``).
 
 ``python -m repro_torch.launch.serve --arch internlm2_1_8b --seal coloe``
 ``python -m repro_torch.launch.serve --device cpu --engine group --check``
+``python -m repro_torch.launch.serve --prefix-share --chunked-prefill \
+    --shared-prefix 32 --expect-shared --compare-sealed``
+``python -m repro_torch.launch.serve --seal none --seal-cache on --verify \
+    --inject-tamper bitflip,replay,rollback,relocate --check``
 
 Arrivals are Poisson in *scheduler-step* units: request ``i`` is submitted
 once the engine has advanced ``arrival[i]`` steps, so the trace is
@@ -11,9 +15,9 @@ deterministic under ``--seed`` and independent of host speed. ``--check``
 exits non-zero unless every request completed. ``--device`` picks the card
 (``cuda``, the default) or the CPU's plain path (``cpu``).
 
-Flags of slices the port has not reached yet (prefix sharing, MAC
-verification and tamper injection, sampling, the Direct engine) exit
-non-zero with a message that names the slice.
+Flags of slices the port has not reached yet (sampling, the Direct engine,
+``--verify`` over sealed weights) exit 2 with a message that names the
+slice.
 """
 from __future__ import annotations
 
@@ -25,12 +29,11 @@ import numpy as np
 
 from repro_torch.config import SealConfig
 from repro_torch.configs import get_config, get_reduced
+from repro_torch.core.sealed_store import WEIGHT_MACS
+from repro_torch.core.security.tamper import TamperInjector
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import GroupServeEngine, ServeEngine
-
-_PREFIX = "the prefix-sharing slice of the port"
-_INTEGRITY = "the verify/MAC/tamper slice of the port"
 
 
 def poisson_arrivals(n: int, mean_gap: float, rng) -> np.ndarray:
@@ -74,26 +77,16 @@ def drive(eng, prompts, arrivals, submit_kw) -> list:
 
 
 def _unported(args) -> list:
-    """(flag, slice) for every flag whose slice is not ported yet."""
+    """(flag, where it comes) for every flag whose slice is not ported."""
     out = []
-    if args.prefix_share:
-        out.append(("--prefix-share", _PREFIX))
-    if args.shared_prefix:
-        out.append(("--shared-prefix", _PREFIX))
-    if args.expect_shared:
-        out.append(("--expect-shared", _PREFIX))
-    if args.compare_sealed:
-        out.append(("--compare-sealed", _PREFIX))
-    if args.verify:
-        out.append(("--verify", _INTEGRITY))
-    if args.inject_tamper:
-        out.append(("--inject-tamper", _INTEGRITY))
     if args.temperature or args.top_k or args.top_p < 1.0:
         out.append(("--temperature/--top-k/--top-p",
                     "the sampling slice of the port"))
     if args.seal == "direct":
         out.append(("--seal direct",
                     "the Direct engine (AES-128) slice of the port"))
+    if (args.verify or args.inject_tamper) and args.seal != "none":
+        out.append(("--verify over sealed weights", WEIGHT_MACS))
     return out
 
 
@@ -121,14 +114,29 @@ def main(argv=None) -> int:
                     help="seal the paged KV cache (auto: follow --seal)")
     ap.add_argument("--smart-ratio", type=float, default=0.5)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--prefix-share", action="store_true")
+    ap.add_argument("--prefix-share", action="store_true",
+                    help="copy-on-write prefix sharing across requests")
+    ap.add_argument("--chunked-prefill", action="store_true",
+                    help="report chunked-prefill stats (admission always "
+                         "prefills in chunks; this just surfaces the knob)")
     ap.add_argument("--chunk-tokens", type=int, default=0,
                     help="prefill chunk width in tokens (0: 2x block size)")
-    ap.add_argument("--shared-prefix", type=int, default=0)
-    ap.add_argument("--compare-sealed", action="store_true")
-    ap.add_argument("--expect-shared", action="store_true")
-    ap.add_argument("--verify", action="store_true")
-    ap.add_argument("--inject-tamper", default="")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="give every prompt this many common prefix tokens")
+    ap.add_argument("--compare-sealed", action="store_true",
+                    help="replay the trace with the cache sealed the other "
+                         "way and require equal token streams (continuous "
+                         "only)")
+    ap.add_argument("--expect-shared", action="store_true",
+                    help="exit non-zero unless shared_prefix_blocks > 0")
+    ap.add_argument("--verify", action="store_true",
+                    help="arm the cache's co-located Carter-Wegman MACs: "
+                         "check every sealed block at every read")
+    ap.add_argument("--inject-tamper", default="",
+                    help="comma-separated fault kinds (bitflip,replay,"
+                         "rollback,relocate) to inject against the sealed "
+                         "cache; exits non-zero unless every injected fault "
+                         "fired AND was detected (continuous only)")
     ap.add_argument("--max-run-steps", type=int, default=0,
                     help="abort a drain with StragglerTimeout after this "
                          "many scheduler steps (0: unbounded)")
@@ -152,41 +160,105 @@ def main(argv=None) -> int:
     if engine == "auto":
         attn_only = all(k in ("attn", "local_attn") for k in cfg.pattern)
         engine = "continuous" if attn_only else "group"
-    max_len = args.prompt_len + args.max_tokens + 8
-    if engine == "continuous":
-        seal_cache = {"auto": None, "on": True, "off": False}[args.seal_cache]
-        eng = ServeEngine(cfg, params, batch_slots=args.slots,
-                          max_len=max_len, seal=seal, seal_cache=seal_cache,
-                          chunk_tokens=args.chunk_tokens or None,
-                          max_run_steps=args.max_run_steps or None,
-                          device=dev)
-    else:
-        eng = GroupServeEngine(cfg, params, batch_slots=args.slots,
-                               max_len=max_len, seal=seal, device=dev)
+    max_len = args.shared_prefix + args.prompt_len + args.max_tokens + 8
 
+    kinds = [k.strip() for k in args.inject_tamper.split(",") if k.strip()]
+    verify = args.verify or bool(kinds)     # injection implies verification
+    if kinds and engine != "continuous":
+        print("FAIL: --inject-tamper needs the continuous engine",
+              file=sys.stderr)
+        return 2
+    # stagger the one-shot injectors so each fault lands on a live victim
+    # instead of piling onto the same scheduler step
+    injectors = [TamperInjector(k, slot=0, start_step=3 + 6 * i)
+                 for i, k in enumerate(kinds)]
+
+    def build(seal_cache_override=None):
+        if engine != "continuous":
+            return GroupServeEngine(cfg, params, batch_slots=args.slots,
+                                    max_len=max_len, seal=seal, device=dev)
+        seal_cache = {"auto": None, "on": True, "off": False}[args.seal_cache]
+        if seal_cache_override is not None:
+            seal_cache = seal_cache_override
+        if verify and seal is None and not seal_cache:
+            print("FAIL: --verify/--inject-tamper need a sealed cache",
+                  file=sys.stderr)
+            sys.exit(2)
+        return ServeEngine(cfg, params, batch_slots=args.slots,
+                           max_len=max_len, seal=seal, seal_cache=seal_cache,
+                           prefix_share=args.prefix_share,
+                           chunk_tokens=args.chunk_tokens or None,
+                           verify=verify, fault_hooks=injectors,
+                           max_run_steps=args.max_run_steps or None,
+                           device=dev)
+
+    eng = build()
     rng = np.random.RandomState(args.seed)
-    prompts = [rng.randint(0, cfg.vocab_size,
-                           size=rng.randint(max(1, args.prompt_len // 2),
-                                            args.prompt_len + 1))
+    shared = rng.randint(0, cfg.vocab_size, size=args.shared_prefix)
+    prompts = [np.concatenate([
+                   shared,
+                   rng.randint(0, cfg.vocab_size,
+                               size=rng.randint(max(1, args.prompt_len // 2),
+                                                args.prompt_len + 1))])
                for _ in range(args.requests)]
     arrivals = poisson_arrivals(args.requests, args.stagger, rng)
+    submit_kw = dict(max_tokens=args.max_tokens)
     t0 = time.time()
-    reqs = drive(eng, prompts, arrivals, dict(max_tokens=args.max_tokens))
+    reqs = drive(eng, prompts, arrivals, submit_kw)
     dt = time.time() - t0
     n_done = sum(r.done for r in reqs)
     extra = ""
     if engine == "continuous":
-        extra = f" chunks={eng.stats['prefill_chunks']}"
+        extra = (f" chunks={eng.stats['prefill_chunks']}"
+                 f" shared_blocks={eng.stats['shared_prefix_blocks']}"
+                 f" shared_tokens={eng.stats['shared_prefix_tokens']}"
+                 f" cow={eng.stats['cow_copies']}")
+        if verify:
+            extra += (f" mac_checks={eng.stats['mac_checks']}"
+                      f" mac_failures={eng.stats['mac_failures']}"
+                      f" retries={eng.stats['retries']}")
     print(f"[{engine}] completed {n_done}/{len(reqs)} requests in {dt:.2f}s "
           f"— {eng.stats['tokens'] / max(dt, 1e-9):.1f} tok/s "
           f"(seal={args.seal}, device={dev}){extra} stats={eng.stats}")
     for r in reqs[:3]:
         print(f"  req {r.rid}: {r.out[:12]}")
+    ok = True
     if args.check and n_done != len(reqs):
         print(f"FAIL: {len(reqs) - n_done} requests did not complete",
               file=sys.stderr)
-        return 1
-    return 0
+        ok = False
+    if args.expect_shared and eng.stats.get("shared_prefix_blocks", 0) <= 0:
+        print("FAIL: no prefix blocks were shared", file=sys.stderr)
+        ok = False
+    if injectors:
+        unfired = [i.kind for i in injectors if not i.fired]
+        if unfired:
+            print(f"FAIL: injectors never fired: {unfired}", file=sys.stderr)
+            ok = False
+        if eng.stats["mac_failures"] < sum(i.fired for i in injectors):
+            print(f"FAIL: {sum(i.fired for i in injectors)} faults injected "
+                  f"but only {eng.stats['mac_failures']} MAC failures "
+                  f"detected", file=sys.stderr)
+            ok = False
+        for inj in injectors:
+            for ev in inj.events:
+                print(f"  tamper[{ev.kind}] step={ev.step} slot={ev.slot} "
+                      f"block={ev.block} {ev.detail}")
+        victims = [r for r in reqs if r.retries > 0 or r.error]
+        print(f"  detected {eng.stats['mac_failures']} tampered dispatches; "
+              f"{eng.stats['retries']} re-prefills; victims="
+              f"{[r.rid for r in victims]}")
+    if args.compare_sealed and engine == "continuous":
+        other = build(seal_cache_override=not eng.seal_cache)
+        reqs2 = drive(other, prompts, arrivals, submit_kw)
+        if [r.out for r in reqs] != [r.out for r in reqs2]:
+            print("FAIL: sealed and plaintext token streams differ",
+                  file=sys.stderr)
+            ok = False
+        else:
+            which = "sealed" if other.seal_cache else "plaintext"
+            print(f"  replay with {which} cache: token streams equal")
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

@@ -1,9 +1,9 @@
 """KV caches: the contiguous per-request caches of the one-shot prefill
 and its decode (``attn_cache_spec``/``attn_cache_init``,
 ``block_cache_init``, ``model_cache_init``), the paged block pools and the
-host-side block allocator (``kv_words_per_token``,
-``kv_to_words``/``words_to_kv``, ``paged_pool_init``, ``BlockAllocator``).
-Port of ``repro/models/cache.py``.
+host-side block accounting (``kv_words_per_token``,
+``kv_to_words``/``words_to_kv``, ``paged_pool_init``, ``BlockAllocator``,
+``PrefixRegistry``). Port of ``repro/models/cache.py``.
 
 A contiguous cache is one (batch, cache_len, kv_heads, head_dim) buffer per
 attention layer, with ``pos`` (cache_len,) the position each slot holds
@@ -12,8 +12,8 @@ attention layer, with ``pos`` (cache_len,) the position each slot holds
 Pools hold raw u32 words (int32 bit patterns), so the sealed and plaintext
 paths share every byte of layout. Block 0 is the scratch block: inactive
 slots read it, and writes that the reference drops land there carrying the
-block's own content. The per-block MAC words and ``PrefixRegistry`` come with
-later slices.
+block's own content. Each block also carries one co-located MAC word per
+stream (``mac_k``/``mac_v``), zero unless the cache seal verifies.
 """
 from __future__ import annotations
 
@@ -100,8 +100,10 @@ def words_to_kv(words: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def paged_pool_init(cfg: ModelConfig, num_blocks: int, block_size: int,
                     device=None):
     """A tuple over pattern positions of {"k", "v": (n_super, num_blocks,
-    words_per_block) int32, "lid": (n_super,) int32}. ``lid = n*npat + j`` is
-    the layer id folded into the block keystream."""
+    words_per_block) int32, "mac_k", "mac_v": (n_super, num_blocks) int32,
+    "lid": (n_super,) int32}. ``lid = n*npat + j`` is the layer id folded
+    into the block keystream; the MAC words stay zero unless the cache seal
+    carries a MAC context."""
     n, npat = cfg.n_superblocks(), len(cfg.pattern)
     wpb = block_size * kv_words_per_token(cfg)
     out = []
@@ -114,6 +116,10 @@ def paged_pool_init(cfg: ModelConfig, num_blocks: int, block_size: int,
                              device=device),
             "v": torch.zeros((n, num_blocks, wpb), dtype=torch.int32,
                              device=device),
+            "mac_k": torch.zeros((n, num_blocks), dtype=torch.int32,
+                                 device=device),
+            "mac_v": torch.zeros((n, num_blocks), dtype=torch.int32,
+                                 device=device),
             "lid": (torch.arange(n, dtype=torch.int32, device=device) * npat
                     + j),
         })
@@ -158,4 +164,136 @@ class BlockAllocator:
             if self.refcount[b] == 0:
                 self._free.append(b)
                 freed.append(b)
+        return freed
+
+
+class PrefixRegistry:
+    """Prefix-hash -> block map for copy-on-write prefix sharing.
+
+    Full blocks are keyed by a chain hash over their tokens (key i depends
+    on every token of blocks [0, i]), so a lookup walks the prompt block by
+    block and stops at the first miss. A *partial* entry records the
+    committed token tail at the start of a block that is not full (the
+    donor's prompt tail); a match against it shares those tokens too, and
+    the sharer copies the block before appending into it. The registry holds
+    one reference per registered block; ``evict_lru`` releases
+    least-recently-used chains when admission runs short of blocks."""
+
+    def __init__(self, alloc: BlockAllocator, block_size: int):
+        self.alloc = alloc
+        self.bs = block_size
+        self._full = {}       # chain_key -> block id
+        self._partial = {}    # chain_key of parent -> (block id, token tuple)
+        self._parent = {}     # chain_key -> parent chain_key (purge cascade)
+        self._lru = {}        # chain_key -> last-use tick (full entries)
+        self._tick = 0
+        self.hits = 0         # blocks served from the registry
+
+    @staticmethod
+    def chain_key(parent, block_tokens) -> int:
+        return hash((parent, tuple(int(t) for t in block_tokens)))
+
+    def match(self, prompt):
+        """(full_blocks, partial, n_shared): registered blocks covering
+        prompt[:len(full_blocks)*bs], an optional (block id, n_tokens)
+        extending the chain mid-block, and the shared token count. At least
+        one prompt token is left to recompute (its logits give the first
+        token), so n_shared <= len(prompt) - 1."""
+        bs, plen = self.bs, len(prompt)
+        self._tick += 1
+        full, key = [], None
+        while (len(full) + 1) * bs <= plen - 1:
+            i = len(full)
+            k = self.chain_key(key, prompt[i * bs:(i + 1) * bs])
+            b = self._full.get(k)
+            if b is None:
+                break
+            key = k
+            full.append(b)
+            self._lru[key] = self._tick
+        n_shared = len(full) * bs
+        partial = None
+        ent = self._partial.get(key)
+        if ent is not None:
+            b, toks = ent
+            j = 0
+            while (j < len(toks) and n_shared + j < plen - 1
+                   and int(prompt[n_shared + j]) == toks[j]):
+                j += 1
+            if j > 0:
+                partial = (b, j)
+                n_shared += j
+        self.hits += len(full) + (1 if partial else 0)
+        return full, partial, n_shared
+
+    def register(self, prompt, blocks):
+        """Record a prefilled prompt whose slot table starts with
+        ``blocks``. New chains gain a registry reference; chains already
+        present are left as they are."""
+        bs, plen = self.bs, len(prompt)
+        key = None
+        for i in range(plen // bs):
+            k = self.chain_key(key, prompt[i * bs:(i + 1) * bs])
+            if k not in self._full:
+                self._full[k] = blocks[i]
+                self.alloc.incref([blocks[i]])
+                self._parent[k] = key
+            key = k
+            self._lru[key] = self._tick
+        tail = tuple(int(t) for t in prompt[(plen // bs) * bs:])
+        if tail and key not in self._partial:
+            b = blocks[plen // bs]
+            self._partial[key] = (b, tail)
+            self.alloc.incref([b])
+
+    def purge_blocks(self, blocks) -> int:
+        """Forget every chain that touches ``blocks`` (content that failed
+        an integrity check) and every chain descending from one: a chain
+        hash commits to the tokens of blocks [0, i], so a chain through a
+        purged block would keep serving the pre-tamper tokens. Drops the
+        registry's references; returns the number of blocks freed."""
+        bad = {int(b) for b in blocks}
+        dead = {k for k, b in self._full.items() if b in bad}
+        changed = True
+        while changed:                 # cascade down the parent links
+            changed = False
+            for k, parent in self._parent.items():
+                if parent in dead and k in self._full and k not in dead:
+                    dead.add(k)
+                    changed = True
+        release = []
+        for k in dead:
+            release.append(self._full.pop(k))
+            self._lru.pop(k, None)
+            self._parent.pop(k, None)
+        for k in list(self._partial):
+            b, _ = self._partial[k]
+            if b in bad or k in dead:
+                release.append(self._partial.pop(k)[0])
+        return len(self.alloc.decref(release))
+
+    def evict_lru(self, need_free: int) -> int:
+        """Release least-recently-used chains until the allocator has
+        ``need_free`` free blocks or nothing evictable is left. Only blocks
+        whose sole reference is the registry's go; returns how many."""
+        freed = 0
+        for key in sorted(self._lru, key=self._lru.get):
+            if self.alloc.free_count >= need_free:
+                break
+            blocks = []
+            if key in self._full and self.alloc.refcount[self._full[key]] == 1:
+                blocks.append(self._full.pop(key))
+                self._lru.pop(key)
+            ent = self._partial.get(key)
+            if ent and self.alloc.refcount[ent[0]] == 1:
+                blocks.append(self._partial.pop(key)[0])
+            freed += len(self.alloc.decref(blocks))
+        # partial entries whose parent chain is gone
+        dead = [k for k in self._partial
+                if k is not None and k not in self._full]
+        for k in dead:
+            if self.alloc.free_count >= need_free:
+                break
+            if self.alloc.refcount[self._partial[k][0]] == 1:
+                freed += len(self.alloc.decref([self._partial.pop(k)[0]]))
         return freed

@@ -1,7 +1,7 @@
 """Paged KV-cache passes: batched decode and chunked prefill over block
-pools. Port of ``_dense_view``, ``decode_logits``, ``chunk_logits`` and
-``append_tokens`` from ``repro/models/paged.py`` (the MAC branches come with
-the integrity slice).
+pools, and the copy-on-write of shared blocks. Port of ``_dense_view``,
+``decode_logits``, ``chunk_logits``, ``append_tokens`` and ``copy_blocks``
+from ``repro/models/paged.py``, with their MAC branches.
 
 With a ``CacheSeal`` the pools hold ciphertext: a block is XORed with a
 ChaCha20 keystream derived from (pool block address, per-block write
@@ -11,9 +11,15 @@ attend, and every write decrypts the touched blocks, splices the new tokens
 in and re-seals them under ``wc + 1`` — so pools and counters match the
 reference word for word after the same operations. On the card the pads are
 made inside those passes: one ``ops.cache_view`` launch a layer reads, one
-``ops.cache_splice`` launch a write. The reference's ``lax.scan`` over
-super-blocks is a Python loop over layers; the pools and ``wc`` are updated
-in place.
+``ops.cache_splice`` launch a write, one ``ops.cache_copy`` launch a
+copy-on-write. The reference's ``lax.scan`` over super-blocks is a Python
+loop over layers; the pools and ``wc`` are updated in place.
+
+When the seal carries a MAC context, every sealed write re-tags the blocks
+it touched (``mac_k``/``mac_v``, under the bumped counter) and every read
+checks the tags of the slot's resident blocks over the ciphertext, before
+the unseal: one ``ops.cache_tags`` launch a layer read and a write, two a
+copy-on-write (the sources' check, the copies' tags).
 """
 from __future__ import annotations
 
@@ -29,20 +35,38 @@ from repro_torch.models import blocks as B
 from repro_torch.models import cache as MC
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.models.cache import SCRATCH_BLOCK
 
 
 def _dense_view(cfg: ModelConfig, seal: Optional[CacheSeal], pool_j,
                 tables, lengths, wc, pos_len=None):
-    """One layer's blocks gathered into the dense {"k","v","pos"} view.
+    """One layer's blocks gathered into the dense {"k","v","pos"} view, and
+    the slots' integrity verdict.
 
-    pool_j: {"k","v": (NB, wpb) int32, "lid": ()}; tables (B, MB) block ids;
-    lengths (B,); wc (NB,) int32 words. k/v come back (B, L, kv_heads,
-    head_dim) with L = MB * block_size, zero at and past each slot's length;
-    pos is INVALID_POS past ``lengths`` (or past ``pos_len`` for the chunk
-    path, whose fresh keys are spliced into the zeroed tail)."""
+    pool_j: {"k","v": (NB, wpb) int32, "mac_k","mac_v": (NB,), "lid": ()};
+    tables (B, MB) block ids; lengths (B,); wc (NB,) int32 words. k/v come
+    back (B, L, kv_heads, head_dim) with L = MB * block_size, zero at and
+    past each slot's length; pos is INVALID_POS past ``lengths`` (or past
+    ``pos_len`` for the chunk path, whose fresh keys are spliced into the
+    zeroed tail). The verdict ok (B,) bool holds where every *resident*
+    block of the slot (table entries below ceil(length / block_size)) has
+    the tags stored beside it, recomputed over the gathered ciphertext; it
+    is None when the seal carries no MAC context (nothing is checked)."""
     b, mb = tables.shape
+    wpb = pool_j["k"].shape[-1]
     wpt = MC.kv_words_per_token(cfg)
-    seq = mb * pool_j["k"].shape[-1] // wpt
+    seq = mb * wpb // wpt
+    ok = None
+    if seal is not None and seal.mac is not None:
+        bs = wpb // wpt
+        resident = (torch.arange(mb, device=tables.device)[None, :]
+                    < ((lengths + bs - 1) // bs)[:, None])        # (B, MB)
+        tags = _tags(seal, pool_j["k"][None], pool_j["v"][None],
+                     pool_j["lid"].reshape(1), tables.reshape(-1),
+                     resident.reshape(-1), wc)[0]                  # (2, B*MB)
+        okb = ((tags[0].reshape(b, mb) == pool_j["mac_k"][tables])
+               & (tags[1].reshape(b, mb) == pool_j["mac_v"][tables]))
+        ok = (okb | ~resident).all(dim=1)
     # (2, B, MB*wpb) words, zero past each slot's length; sealed: one
     # launch that unseals as it gathers
     view = ops.cache_view if seal is not None else _cc.cache_view_plain
@@ -56,7 +80,26 @@ def _dense_view(cfg: ModelConfig, seal: Optional[CacheSeal], pool_j,
     valid = pos < lengths[:, None]                 # (B, L)
     vpos = valid if pos_len is None else pos < pos_len[:, None]
     pos = torch.where(vpos, pos, torch.full_like(pos, MC.INVALID_POS))
-    return {"k": k, "v": v, "pos": pos}
+    return {"k": k, "v": v, "pos": pos}, ok
+
+
+def _tags(seal: CacheSeal, pool_k, pool_v, lids, blocks, live, wc):
+    """(n, 2, E) MAC tags of ``blocks`` under ``wc`` as it stands (one
+    ``ops.cache_tags`` launch); 0 where not ``live``."""
+    mac = seal.mac
+    return ops.cache_tags(mac.key_words, mac.hash_keys(pool_k.shape[-1]),
+                          *seal.mac_nonces(), pool_k, pool_v, lids, blocks,
+                          live, wc)
+
+
+def _store_tags(pool, blocks, live, tags) -> None:
+    """Write ``tags`` (n, 2, E) into the pool's MAC words of the live
+    ``blocks``; dead entries rewrite the scratch block's own words."""
+    tgt = torch.where(live, blocks, torch.full_like(blocks, SCRATCH_BLOCK))
+    for s, key in enumerate(("mac_k", "mac_v")):
+        words = pool[key]
+        words[:, tgt] = torch.where(live, tags[:, s],
+                                    words[:, SCRATCH_BLOCK, None])
 
 
 def _seal_args(seal: Optional[CacheSeal]):
@@ -69,24 +112,29 @@ def _seal_args(seal: Optional[CacheSeal]):
 
 def _layer_slices(params, pools, j: int, i: int):
     p = T.layer_params(params, j, i)
-    pool = {"k": pools[j]["k"][i], "v": pools[j]["v"][i],
-            "lid": pools[j]["lid"][i]}
+    pool = {key: pools[j][key][i]
+            for key in ("k", "v", "mac_k", "mac_v", "lid")}
     return p, pool
 
 
 def _run_layers(cfg, params, pools, x, positions, mode, view_fn):
-    """Layer loop; returns (x, updates): per pattern position
-    {"k_new","v_new"} stacked (n_super, B, C, kv_heads, head_dim)."""
+    """Layer loop; returns (x, updates, ok): updates per pattern position
+    {"k_new","v_new"} stacked (n_super, B, C, kv_heads, head_dim), ok (B,)
+    the AND of every layer's cache verdict (all True when nothing is
+    checked)."""
     ups = [[] for _ in cfg.pattern]
+    ok = torch.ones((x.shape[0],), dtype=torch.bool, device=x.device)
     for i in range(cfg.n_superblocks()):
         for j, kind in enumerate(cfg.pattern):
             p, pool = _layer_slices(params, pools, j, i)
-            x, up, _ = B.block_apply(cfg, kind, p, x, positions, mode,
-                                     view_fn(pool))
+            view, okj = view_fn(pool)
+            if okj is not None:
+                ok &= okj
+            x, up, _ = B.block_apply(cfg, kind, p, x, positions, mode, view)
             ups[j].append(up)
     updates = tuple({key: torch.stack([u[key] for u in uj])
                      for key in ("k_new", "v_new")} for uj in ups)
-    return x, updates
+    return x, updates, ok
 
 
 def decode_logits(cfg: ModelConfig, params, pools, tables, lengths, wc,
@@ -94,39 +142,43 @@ def decode_logits(cfg: ModelConfig, params, pools, tables, lengths, wc,
     """One decode step for every slot at its own position.
 
     tokens (B, 1) (anything for inactive slots, masked by lengths). Returns
-    (logits (B, V) f32, updates for ``append_tokens``)."""
+    (logits (B, V) f32, updates for ``append_tokens``, ok (B,) bool: the
+    AND of every layer's cache-read verdict, all True unless the seal
+    carries a MAC context)."""
     x = T._embed(cfg, params, tokens)
     positions = lengths[:, None]
 
     def view(pool):
         return _dense_view(cfg, seal, pool, tables, lengths, wc)
 
-    x, updates = _run_layers(cfg, params, pools, x, positions, "decode",
-                             view)
+    x, updates, ok = _run_layers(cfg, params, pools, x, positions, "decode",
+                                 view)
     x = L.apply_norm(cfg, params["final_norm"], x)
-    return T._unembed(cfg, params, x)[:, 0], updates
+    return T._unembed(cfg, params, x)[:, 0], updates, ok
 
 
 def chunk_logits(cfg: ModelConfig, params, pools, tables, lengths, wc,
                  tokens, chunk_len, seal: Optional[CacheSeal]):
     """One chunked-prefill pass: row i holds ``chunk_len[i]`` prompt tokens
     at positions [lengths[i], lengths[i] + chunk_len[i]). Returns (logits
-    (B, V) at each row's last chunk token, updates)."""
+    (B, V) at each row's last chunk token, updates, ok (B,) as in
+    ``decode_logits``)."""
     x = T._embed(cfg, params, tokens)
     c = tokens.shape[1]
     positions = lengths[:, None] + torch.arange(c, device=tokens.device)[None]
 
     def view(pool):
-        v = _dense_view(cfg, seal, pool, tables, lengths, wc,
-                        pos_len=lengths + chunk_len)
+        v, ok = _dense_view(cfg, seal, pool, tables, lengths, wc,
+                            pos_len=lengths + chunk_len)
         v["cl"] = chunk_len
-        return v
+        return v, ok
 
-    x, updates = _run_layers(cfg, params, pools, x, positions, "chunk", view)
+    x, updates, ok = _run_layers(cfg, params, pools, x, positions, "chunk",
+                                 view)
     x = L.apply_norm(cfg, params["final_norm"], x)
     idx = (chunk_len - 1).clamp(min=0)
     last = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
-    return T._unembed(cfg, params, last)[:, 0], updates
+    return T._unembed(cfg, params, last)[:, 0], updates, ok
 
 
 def append_tokens(cfg: ModelConfig, seal: Optional[CacheSeal], pools,
@@ -142,7 +194,9 @@ def append_tokens(cfg: ModelConfig, seal: Optional[CacheSeal], pools,
     block goes up by one, once, after every position has read it. Untouched
     blocks keep their words and counters (see
     ``kernels.chacha20.cache_splice_plain`` for the scratch-block writes of
-    the plain composition, which the reference drops)."""
+    the plain composition, which the reference drops). With a MAC context
+    the touched blocks are then re-tagged under their bumped counters: the
+    reference's tags under ``wc + 1``."""
     wpt = MC.kv_words_per_token(cfg)
     b = tables.shape[0]
     splice = ops.cache_splice if seal is not None else _cc.cache_splice_plain
@@ -159,4 +213,43 @@ def append_tokens(cfg: ModelConfig, seal: Optional[CacheSeal], pools,
     c = updates[0]["k_new"].shape[2]
     pb, touched = _cc.splice_blocks(tables, lengths, counts, bs,
                                     1 + (c + bs - 2) // bs)
-    wc.index_add_(0, pb.reshape(-1), touched.reshape(-1).to(torch.int32))
+    pb, touched = pb.reshape(-1), touched.reshape(-1)
+    wc.index_add_(0, pb, touched.to(torch.int32))
+    if seal is not None and seal.mac is not None:
+        for pj in pools:
+            _store_tags(pj, pb, touched,
+                        _tags(seal, pj["k"], pj["v"], pj["lid"], pb, touched,
+                              wc))
+
+
+def copy_blocks(cfg: ModelConfig, seal: Optional[CacheSeal], pools, wc, src,
+                dst, mask) -> torch.Tensor:
+    """Copy-on-write: duplicate blocks ``src -> dst`` ((K,) int64, ``mask``
+    (K,) bool gating padded pairs) IN PLACE on ``pools`` and ``wc``.
+
+    Sealed pools re-key in flight: the words are unsealed under (src,
+    wc[src]) and re-sealed under (dst, wc[dst] + 1), so no plaintext lands in
+    the pool (one ``ops.cache_copy`` launch a pattern position); plaintext
+    pools copy words (plain PyTorch indexing, no ChaCha). The destination
+    counters are bumped. Returns ok, a () bool: with a MAC context every
+    masked source block is checked against its stored tags *before* the
+    re-key (a copy must not launder a tampered block into a freshly tagged
+    one), and each copy is tagged under its (address, bumped counter)."""
+    mac = seal is not None and seal.mac is not None
+    copy = ops.cache_copy if seal is not None else _cc.cache_copy_plain
+    ok = torch.ones((), dtype=torch.bool, device=wc.device)
+    for pj in pools:
+        if mac:
+            ts = _tags(seal, pj["k"], pj["v"], pj["lid"], src, mask, wc)
+            good = ((ts[:, 0] == pj["mac_k"][:, src])
+                    & (ts[:, 1] == pj["mac_v"][:, src]))
+            ok &= (good | ~mask).all()
+        copy(*_seal_args(seal), pj["k"], pj["v"], pj["lid"], src, dst, mask,
+             wc)
+    wc.index_add_(0, dst, mask.to(torch.int32))
+    if mac:
+        for pj in pools:
+            _store_tags(pj, dst, mask,
+                        _tags(seal, pj["k"], pj["v"], pj["lid"], dst, mask,
+                              wc))
+    return ok

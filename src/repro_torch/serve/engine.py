@@ -25,9 +25,15 @@ over a contiguous, plaintext KV cache until every member finishes. The
 reference keeps it for benchmark comparison and for recurrent/SSD
 architectures.
 
-Not ported yet, and refused: ``prefix_share`` (copy-on-write prefix
-sharing), ``verify`` (MACs) and ``fault_hooks`` (tamper injection), and
-sampling other than greedy.
+With ``prefix_share`` identical prompt prefixes share cache blocks
+copy-on-write (``models.cache.PrefixRegistry``): a block's pad derives from
+its pool address and write counter, so several tables read one ciphertext
+block as it is, and a slot pays one re-keying copy (``ops.cache_copy``) only
+when it must append into a shared tail block. With ``verify`` the sealed
+cache carries per-block MACs: every read is checked, a failure fails only
+the owning request, which is re-prefilled once (``fault_hooks`` model the
+adversary, ``core.security.tamper``). Verified sealed *weights* and sampling
+other than greedy are refused, naming their slices.
 """
 from __future__ import annotations
 
@@ -38,11 +44,13 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch import u32
 from repro_torch.config import ModelConfig, SealConfig
 from repro_torch.core import sealed_store as SS
 from repro_torch.device import resolve_device
 from repro_torch.models import cache as MC
 from repro_torch.models import transformer as T
+from repro_torch.runtime.fault import StragglerTimeout
 from repro_torch.serve import sampling as SM
 from repro_torch.serve import step as ST
 from repro_torch.tree import flatten_with_path, leaves, map_leaves, unflatten
@@ -63,10 +71,6 @@ def _plain_weights(cfg: ModelConfig, params):
                               for p, t in flat])
 
 
-class StragglerTimeout(RuntimeError):
-    """A serve drain ran past its step budget."""
-
-
 @dataclasses.dataclass
 class Request:
     rid: int
@@ -80,16 +84,29 @@ class Request:
     done: bool = False
     t_submit: float = 0.0
     t_done: float = 0.0
+    retries: int = 0                  # integrity-failure re-prefills so far
+    error: Optional[str] = None       # "integrity" once the retry budget is
+                                      # spent; None on clean completion
+
+
+def _check_prompt(prompt: np.ndarray, vocab: int) -> None:
+    """Token ids must lie in [0, vocab): refused before anything reaches the
+    device (the reference instead embeds a NaN row or wraps the id)."""
+    if prompt.size and (int(prompt.min()) < 0 or int(prompt.max()) >= vocab):
+        raise ValueError(f"prompt token ids must lie in [0, {vocab}), got "
+                         f"[{int(prompt.min())}, {int(prompt.max())}]")
 
 
 class ServeEngine:
     """Continuous batcher over the paged, sealed KV cache.
 
-    Device side: the decode tick and the chunked-prefill step
-    (``serve/step.py``) over the resident ``SchedState`` and pools. Host
-    side: the refcounted block allocator, per-slot request bookkeeping and
-    debug mirrors (``_tables``/``_lengths``/``_wc``/``_counts``), never read
-    by the hot loop.
+    Device side: the decode tick, the chunked-prefill step and the
+    copy-on-write (``serve/step.py``) over the resident ``SchedState`` and
+    pools. Host side: the refcounted block allocator, the prefix registry,
+    per-slot request bookkeeping and debug mirrors
+    (``_tables``/``_lengths``/``_wc``/``_counts``), never read by the hot
+    loop; ``_wc`` is also the trusted copy of the write counters that an
+    integrity retry restores the device's from.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, batch_slots: int = 4,
@@ -99,42 +116,47 @@ class ServeEngine:
                  admit_batch: Optional[int] = None,
                  prefix_share: bool = False,
                  chunk_tokens: Optional[int] = None,
-                 verify: bool = False, fault_hooks=(),
-                 max_run_steps: Optional[int] = None, device=None):
-        if prefix_share:
-            raise NotImplementedError(
-                "prefix sharing (copy-on-write blocks, PrefixRegistry) comes "
-                "with the prefix-sharing slice of the port")
-        if verify or fault_hooks:
-            raise NotImplementedError(
-                "verify, MACs and fault hooks come with the "
-                "verify/MAC/tamper slice of the port")
+                 verify: bool = False, watchdog=None,
+                 max_run_steps: Optional[int] = None, fault_hooks=(),
+                 device=None):
         if cfg.frontend is not None:
             raise ValueError("serving targets token architectures")
         bad = [k for k in cfg.pattern if k not in ("attn", "local_attn")]
         if bad:
             raise ValueError(f"continuous batching needs attention-only "
                              f"patterns (got {bad})")
+        weights_sealed = seal is not None and seal.mode != "none"
+        if seal_cache is None:
+            seal_cache = weights_sealed
+        if verify and not (weights_sealed or seal_cache):
+            raise ValueError("verify=True needs sealed weights and/or a "
+                             "sealed cache: there is nothing to MAC")
+        if verify and weights_sealed:
+            raise NotImplementedError(SS.WEIGHT_MACS)
         self.device = resolve_device(device)
         params = map_leaves(lambda t: t.to(self.device), params)
         self.cfg = cfg
         self.slots = batch_slots
         self.block_size = block_size
         self.max_len = -(-max_len // block_size) * block_size
-        weights_sealed = seal is not None and seal.mode != "none"
-        if seal_cache is None:
-            seal_cache = weights_sealed
         self.seal_cache = seal_cache
         self.seal = seal
         self.key_bytes = key_bytes
+        self.verify = verify
+        self.watchdog = watchdog
         self.max_run_steps = max_run_steps
+        self.fault_hooks = tuple(fault_hooks)
         self.sealed = (SS.seal_params(params, seal, key_bytes)
                        if weights_sealed else None)
         self._plain_params = (None if weights_sealed
                               else _plain_weights(cfg, params))
 
-        self.cache_seal = (SS.cache_seal_config(key_bytes, self.device)
+        self.cache_seal = (SS.cache_seal_config(key_bytes, self.device,
+                                                verify=verify)
                            if seal_cache else None)
+        if verify:                  # the hash keys, once, on the device
+            self.cache_seal.mac.hash_keys(
+                block_size * MC.kv_words_per_token(cfg))
 
         s, mb = self.slots, self.max_len // block_size
         self.num_blocks = 1 + s * mb          # block 0 = scratch
@@ -142,6 +164,9 @@ class ServeEngine:
                                          self.device)
         self._state = ST.sched_init(s, mb, self.num_blocks, self.device)
         self._alloc = MC.BlockAllocator(self.num_blocks)
+        self.prefix_share = prefix_share
+        self._registry = (MC.PrefixRegistry(self._alloc, block_size)
+                          if prefix_share else None)
         self.chunk_tokens = int(chunk_tokens or 2 * block_size)
         self._active: List[Optional[Request]] = [None] * s
         self._slot_blocks: List[List[int]] = [[] for _ in range(s)]
@@ -198,6 +223,7 @@ class ServeEngine:
         if not 1 <= len(prompt) < self.max_len:
             raise ValueError(f"prompt length {len(prompt)} vs max_len "
                              f"{self.max_len}")
+        _check_prompt(prompt, self.cfg.vocab_size)
         r = Request(self._next_rid, prompt, max_tokens, eos,
                     temperature, top_k, top_p, t_submit=time.time())
         self._next_rid += 1
@@ -216,8 +242,12 @@ class ServeEngine:
     def step(self) -> List[Request]:
         """Admit what fits, run one prefill chunk for pending prompts,
         advance every decoding slot one token; returns the requests that
-        completed during this step."""
+        completed during this step. Registered fault hooks fire first: they
+        model an adversary changing the sealed memory image between
+        dispatches."""
         n0 = len(self._done)
+        for hook in self.fault_hooks:
+            hook.on_step(self)
         self._admit()
         if any(p is not None for p in self._pending):
             self._chunk_tick()
@@ -229,19 +259,24 @@ class ServeEngine:
     def run(self, max_steps: Optional[int] = None) -> List[Request]:
         """Drain queue and in-flight work; returns the requests completed
         by this call. ``max_steps`` (default: the engine's
-        ``max_run_steps``) bounds the scheduler steps."""
+        ``max_run_steps``) bounds the scheduler steps, and an attached
+        ``StepWatchdog`` gets each step's wall-clock duration: either one
+        raises ``StragglerTimeout`` rather than spin on a stuck drain."""
         limit = max_steps if max_steps is not None else self.max_run_steps
         n0 = len(self._done)
         steps = 0
         while self.busy:
             before = (len(self.queue), self.stats["decode_steps"],
                       self.stats["prefills"])
+            t0 = time.time()
             self.step()
             after = (len(self.queue), self.stats["decode_steps"],
                      self.stats["prefills"])
             if after == before:
                 raise RuntimeError("scheduler made no progress")
             steps += 1
+            if self.watchdog is not None:
+                self.watchdog.check(time.time() - t0)
             if limit is not None and steps >= limit and self.busy:
                 raise StragglerTimeout(
                     f"serve drain exceeded {limit} steps with work still "
@@ -274,29 +309,92 @@ class ServeEngine:
             if not free_slots:
                 return
             width = min(self._admit_n, len(free_slots))
-            batch: List[int] = []
+            batch = []
+            cow_pairs: List[tuple] = []
+            cow_slots: List[int] = []
             for r in list(self.queue):
                 if len(batch) >= width:
                     break
-                need = -(-(len(r.prompt) + self._mt_eff(r)) // bs)
-                table = self._alloc.alloc(need)
-                if table is None:
+                plen = len(r.prompt)
+                if self._registry is not None:
+                    full, partial, n_shared = self._registry.match(r.prompt)
+                else:
+                    full, partial, n_shared = [], None, 0
+                # pin matched blocks before eviction can free them
+                held = list(full) + ([partial[0]] if partial else [])
+                self._alloc.incref(held)
+                need = -(-(plen + self._mt_eff(r)) // bs) - len(full)
+                if need > self._alloc.free_count and self._registry:
+                    self._registry.evict_lru(need)
+                priv = self._alloc.alloc(need)
+                if priv is None:
+                    self._alloc.decref(held)
                     break               # strict FIFO: head of queue blocks
                 self.queue.remove(r)
+                self._alloc.incref(full)   # the slot's own references
                 slot = free_slots[len(batch)]
+                table = full + priv
                 self._active[slot] = r
                 self._slot_blocks[slot] = table
-                self._pending[slot] = np.asarray(r.prompt, np.int32)
+                self._pending[slot] = np.asarray(r.prompt[n_shared:],
+                                                 np.int32)
                 self._tables[slot] = 0
                 self._tables[slot, :len(table)] = table
-                self._lengths[slot] = 0
+                self._lengths[slot] = n_shared
                 self._counts[slot] = 0
                 self._last_tok[slot] = 0
-                batch.append(slot)
+                if partial is not None:
+                    cow_pairs.append((partial[0], priv[0]))
+                    cow_slots.append(slot)
+                    self.stats["cow_copies"] += 1
+                self.stats["shared_prefix_blocks"] += (
+                    len(full) + (1 if partial else 0))
+                self.stats["shared_prefix_tokens"] += n_shared
+                batch.append((slot, n_shared, held))
             if not batch:
                 return
-            ST.admit(self._state, self._to_dev(np.asarray(batch, np.int64)),
-                     self._to_dev(self._tables[batch]), 0)
+            slots = [b[0] for b in batch]
+            ST.admit(self._state, self._to_dev(np.asarray(slots, np.int64)),
+                     self._to_dev(self._tables[slots]),
+                     self._to_dev(np.asarray([b[1] for b in batch],
+                                             np.int64)))
+            if cow_pairs:
+                # padded to the admit width, as the reference's dispatch;
+                # the copy finishes, in stream order, before the sharers'
+                # first chunk writes into their private blocks
+                a = self._admit_n
+                src = np.zeros((a,), np.int64)
+                dst = np.zeros((a,), np.int64)
+                msk = np.zeros((a,), bool)
+                for i, (s_b, d_b) in enumerate(cow_pairs):
+                    src[i], dst[i], msk[i] = s_b, d_b, True
+                    self._wc[d_b] += 1
+                cok = ST.cow(self.cfg, self._pools, self._state,
+                             self._to_dev(src), self._to_dev(dst),
+                             self._to_dev(msk), self.cache_seal)
+                if self.verify and self.seal_cache:
+                    self.stats["mac_checks"] += len(cow_pairs)
+                    if not bool(cok):
+                        # a shared source block failed its MAC: the copy
+                        # would launder tampered words under a fresh tag, so
+                        # drop the donor chains and retry the sharers
+                        if self._registry is not None:
+                            self._registry.purge_blocks(
+                                [s_b for s_b, _ in cow_pairs])
+                        for _, _, held in batch:
+                            self._alloc.decref(held)
+                        self._integrity_retry(cow_slots)
+                        continue
+            for _, _, held in batch:
+                self._alloc.decref(held)   # slot refs live in _slot_blocks
+
+    def _fetch(self, tok, cok):
+        """The dispatch's tokens, and its cache verdicts when verifying, to
+        the host in one copy."""
+        if not self.verify:
+            return tok.cpu().numpy(), None
+        both = torch.cat([tok, cok.to(tok.dtype)]).cpu().numpy()
+        return both[:tok.shape[0]], both[tok.shape[0]:].astype(bool)
 
     def _chunk_tick(self):
         """One chunked-prefill dispatch: up to admit-width pending slots
@@ -315,25 +413,34 @@ class ServeEngine:
             toks[i, :n] = pend[:n]
             cl[i] = n
             fin[i] = n == len(pend)
-        tok, _ = ST.chunk_step(
+        tok, cok, _ = ST.chunk_step(
             self.cfg, self.params(), self._pools, self._state,
             self._to_dev(np.asarray(rows, np.int64)), self._to_dev(toks),
             self._to_dev(cl), self._to_dev(fin), self.cache_seal)
         self.stats["prefills"] += 1
         self.stats["prefill_chunks"] += len(rows)
-        tok = tok.cpu().numpy()
+        tok, cok_h = self._fetch(tok, cok)
+        self._count_checks(len(rows))
         finished: List[int] = []
+        failed: List[int] = []
         for i, slot in enumerate(rows):
             n = int(cl[i])
             r = self._active[slot]
             length = int(self._lengths[slot])
+            # mirror the device's bumps whether or not the slot failed: the
+            # mirror tracks what the dispatch did, not what is trusted
             for b in range(length // bs, (length + n - 1) // bs + 1):
                 self._wc[self._tables[slot, b]] += 1
             self._lengths[slot] += n
+            if cok_h is not None and not cok_h[slot]:
+                failed.append(slot)
+                continue
             if not fin[i]:
                 self._pending[slot] = self._pending[slot][n:]
                 continue
             self._pending[slot] = None
+            if self._registry is not None:
+                self._registry.register(r.prompt, self._slot_blocks[slot])
             nt = int(tok[i])
             self._counts[slot] = 1
             self._last_tok[slot] = nt
@@ -341,42 +448,92 @@ class ServeEngine:
             self.stats["tokens"] += 1
             if len(r.out) >= self._mt_eff(r) or nt == r.eos:
                 finished.append(slot)
+        if failed:
+            self._integrity_retry(failed)
         if finished:
             self._evict_slots(finished)
 
     def _decode_tick(self):
-        tok, _ = ST.decode_tick(
+        tok, cok, _ = ST.decode_tick(
             self.cfg, self.params(), self._pools, self._state,
             self.cache_seal)
         self.stats["decode_steps"] += 1
-        tok = tok.cpu().numpy()                # the ONLY d2h copy per tick
+        tok, cok_h = self._fetch(tok, cok)     # the ONLY d2h copy per tick
+        self._count_checks(sum(1 for i, r in enumerate(self._active)
+                               if r is not None and self._pending[i] is None))
         bs = self.block_size
         finished: List[int] = []
+        failed: List[int] = []
         for slot, r in enumerate(self._active):
             if r is None or self._pending[slot] is not None:
                 continue
+            # mirror the tail block's counter bump, for failed slots too
             pb = self._tables[slot, self._lengths[slot] // bs]
             self._wc[pb] += 1
             self._lengths[slot] += 1
             self._counts[slot] += 1
+            if cok_h is not None and not cok_h[slot]:
+                failed.append(slot)
+                continue
             nt = int(tok[slot])
             self._last_tok[slot] = nt
             r.out.append(nt)
             self.stats["tokens"] += 1
             if len(r.out) >= self._mt_eff(r) or nt == r.eos:
                 finished.append(slot)
+        if failed:
+            self._integrity_retry(failed)
         if finished:
             self._evict_slots(finished)
 
-    def _evict_slots(self, slots: List[int]):
-        """Batched slot teardown: one device evict zeroes the finished rows;
-        the host returns their blocks."""
+    # -------------------------------------------------- integrity
+
+    def _count_checks(self, n_checked: int) -> None:
+        """A verified dispatch checked the cache reads of ``n_checked``
+        slots."""
+        if self.verify:
+            self.stats["mac_checks"] += n_checked
+
+    def _integrity_retry(self, slots: List[int]):
+        """Recovery from cache MAC failures, failing ONLY the owning slots:
+        their registry chains are purged (a tampered shared block must not
+        be served again), their blocks released, the device write counters
+        restored from the trusted host mirror (a counter rollback changes
+        the device's only), and each victim re-prefilled once from the
+        front of the queue under fresh counters; a second failure ends the
+        request with ``error="integrity"``. Slots that passed their check
+        are untouched and decode exactly as they would have."""
+        self.stats["mac_failures"] += len(slots)
+        victims = [self._active[s] for s in slots]
+        if self._registry is not None:
+            self._registry.purge_blocks(
+                [b for s in slots for b in self._slot_blocks[s]])
+        self._evict_slots(slots, complete=False)
+        self._state.wc.copy_(u32.words(self._wc, self.device))
+        for r in reversed(victims):
+            if r.retries >= 1:
+                r.error = "integrity"
+                r.done = True
+                r.t_done = time.time()
+                self._done.append(r)
+                continue
+            r.retries += 1
+            r.out = []
+            self.stats["retries"] += 1
+            self.queue.insert(0, r)
+
+    def _evict_slots(self, slots: List[int], complete: bool = True):
+        """Batched slot teardown: one device evict zeroes the rows; the host
+        drops the slots' block references (shared blocks survive while the
+        registry or another slot holds them). With ``complete=False`` the
+        requests are not marked done: the caller decides their fate."""
         ST.evict(self._state, self._to_dev(np.asarray(slots, np.int64)))
         for slot in slots:
             r = self._active[slot]
-            r.done = True
-            r.t_done = time.time()
-            self._done.append(r)
+            if complete:
+                r.done = True
+                r.t_done = time.time()
+                self._done.append(r)
             self._alloc.decref(self._slot_blocks[slot])
             self._slot_blocks[slot] = []
             self._tables[slot] = 0
@@ -455,8 +612,10 @@ class GroupServeEngine:
                temperature: float = 0.0, top_k: int = 0,
                top_p: float = 1.0) -> Request:
         SM.check_greedy(temperature, top_k, top_p)
-        r = Request(self._next_rid, np.asarray(prompt, np.int32), max_tokens,
-                    eos, t_submit=time.time())
+        prompt = np.asarray(prompt, np.int32)
+        _check_prompt(prompt, self.cfg.vocab_size)
+        r = Request(self._next_rid, prompt, max_tokens, eos,
+                    t_submit=time.time())
         self._next_rid += 1
         self.queue.append(r)
         return r

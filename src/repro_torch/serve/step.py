@@ -1,11 +1,12 @@
 """Scheduler state and serve-step transitions on the device. Port of
-``SchedState``, ``admit``, ``evict``, ``chunk_step`` and ``decode_tick``
-from ``repro/serve/step.py``.
+``SchedState``, ``admit``, ``evict``, ``cow``, ``chunk_step`` and
+``decode_tick`` from ``repro/serve/step.py``.
 
 The reference's jitted, donated transitions become functions that update
 the device tensors of ``SchedState`` and the pools IN PLACE. A decode tick
-needs nothing from the host, and only its sampled tokens go back to it (the
-engine's one device-to-host copy per tick). Greedy decoding only: the
+needs nothing from the host, and only its sampled tokens (with the cache
+verdicts, when they are checked) go back to it: the engine's one
+device-to-host copy per tick. Greedy decoding only: the
 reference's per-request PRNG keys and sampling settings come with the
 sampling slice.
 """
@@ -73,16 +74,27 @@ def evict(state: SchedState, slot_ids) -> None:
     state.counts[slot_ids] = 0
 
 
+def cow(cfg: ModelConfig, pools, state: SchedState, src, dst, mask,
+        cache_seal):
+    """Copy-on-write of pool blocks ``src -> dst`` (re-keyed in flight when
+    sealed), bumping the destination write counters. Returns ok, a () bool:
+    False if a verified source block failed its MAC (always True without
+    cache verification)."""
+    return PG.copy_blocks(cfg, cache_seal, pools, state.wc, src, dst, mask)
+
+
 def chunk_step(cfg: ModelConfig, params, pools, state: SchedState, slot_ids,
                tokens, chunk_len, is_final, cache_seal):
     """One chunked-prefill step for the listed slots: run the chunk, seal
     its K/V into the slots' blocks, and on each row's final chunk sample the
-    request's first token. Returns (tok, logits); tok is 0 on rows that are
-    not final."""
+    request's first token. Returns (tok, cok, logits): tok is 0 on rows
+    that are not final; cok (S,) bool is the per-slot cache verdict, True
+    on slots not in the chunk (and everywhere without verification)."""
     tables = state.tables[slot_ids]
     lengths = state.lengths[slot_ids]
-    logits, updates = PG.chunk_logits(cfg, params, pools, tables, lengths,
-                                      state.wc, tokens, chunk_len, cache_seal)
+    logits, updates, okr = PG.chunk_logits(cfg, params, pools, tables,
+                                           lengths, state.wc, tokens,
+                                           chunk_len, cache_seal)
     PG.append_tokens(cfg, cache_seal, pools, updates, tables, lengths,
                      chunk_len, state.wc)
     zero = torch.zeros((), dtype=torch.int64, device=tokens.device)
@@ -91,23 +103,28 @@ def chunk_step(cfg: ModelConfig, params, pools, state: SchedState, slot_ids,
     state.run[slot_ids] = is_final
     state.counts[slot_ids] = is_final.to(torch.int64)
     state.last_tok[slot_ids] = tok
-    return tok, logits
+    cok = torch.ones_like(state.run)
+    cok[slot_ids] = okr
+    return tok, cok, logits
 
 
 def decode_tick(cfg: ModelConfig, params, pools, state: SchedState,
                 cache_seal):
     """Advance every running slot one token: logits over the paged view,
     sealed tail-block append, greedy sampling. Slots not running write
-    nothing and keep their state. Returns (tok, logits), both on the
-    device."""
-    logits, updates = PG.decode_logits(cfg, params, pools, state.tables,
-                                       state.lengths, state.wc,
-                                       state.last_tok[:, None], cache_seal)
+    nothing and keep their state. Returns (tok, cok, logits), all on the
+    device; cok (S,) bool is the per-slot cache verdict (only running slots
+    can fail)."""
+    logits, updates, ok = PG.decode_logits(cfg, params, pools, state.tables,
+                                           state.lengths, state.wc,
+                                           state.last_tok[:, None],
+                                           cache_seal)
     cnt = state.run.to(torch.int64)
     PG.append_tokens(cfg, cache_seal, pools, updates, state.tables,
                      state.lengths, cnt, state.wc)
     tok = torch.where(state.run, SM.sample_logits(logits), state.last_tok)
+    cok = ok | ~state.run
     state.lengths += cnt
     state.counts += cnt
     state.last_tok.copy_(tok)
-    return tok, logits
+    return tok, cok, logits

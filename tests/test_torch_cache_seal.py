@@ -136,7 +136,7 @@ def test_cache_view_matches_reference(geom, path):
             jnp.asarray(tables, jnp.int32), jnp.asarray(lengths, jnp.int32),
             jnp.asarray(wc),
             None if pos_len is None else jnp.asarray(pos_len, jnp.int32))
-        vt = TPG._dense_view(
+        vt, okt = TPG._dense_view(
             cfg_t, seal_t, {"k": u32.words(k)[i], "v": u32.words(v)[i],
                             "lid": u32.words(lid)},
             torch.from_numpy(tables), torch.from_numpy(lengths),
@@ -146,6 +146,7 @@ def test_cache_view_matches_reference(geom, path):
             np.testing.assert_array_equal(_tbits(vt[key]), _bits(vj[key]),
                                           err_msg=key)
         np.testing.assert_array_equal(vt["pos"].numpy(), np.asarray(vj["pos"]))
+        assert okt is None             # no MAC context: nothing checked
 
 
 @pytest.mark.parametrize("geom", GEOMS, ids=str)

@@ -5,8 +5,10 @@ for the card and skips without one. On a machine with a card:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: keystreams bitwise, and so are the kernels that make their pads
-inside the pass that uses them (the paged cache's view and splice, the line
-layout's unseal and row gather: each against its plain version, twice);
+inside the pass that uses them (the paged cache's view, splice,
+copy-on-write and MAC tags, the line layout's unseal and row gather: each
+against its plain version, twice), and so are the card's prefix-sharing and
+verified cache paths against the CPU's;
 each fused-matmul kernel (CUDA cores, and
 tensor cores at bf16 decode and prefill sizes) against the plain version at
 1e-4 of the output scale in f32 and in bf16 (both round the same operands
@@ -369,3 +371,170 @@ def test_lines_gather_rows_kernel_bitwise(cuda, scheme, d, src, out):
                                   else torch.int32),
                            want.view(torch.int16 if out == torch.bfloat16
                                      else torch.int32))
+
+
+# the copy-on-write and tag kernels also meet a block of a length that is
+# not a multiple of 4 words (no 16-byte path for the tags)
+COPY_GEOMS = CACHE_GEOMS + [(18, 6)]
+
+
+@pytest.mark.parametrize("wpb,wpt", COPY_GEOMS)
+@pytest.mark.parametrize("shift", [0, 1], ids=["aligned", "misaligned"])
+def test_cache_copy_kernel_bitwise(cuda, wpb, wpt, shift):
+    """The copy-on-write re-key over every layer, k and v: two pairs and a
+    masked one, write counters at 2^32 - 1, rows strided (and, shifted by
+    a word, not 16-byte aligned); the pools after two launches (on two
+    copies) equal the plain version's, word for word, and the masked pair
+    writes nothing."""
+    gen = torch.Generator(device=cuda).manual_seed(wpb + shift)
+    n, nb = 3, 12
+    wide = _words(gen, (2, n, nb, wpb + 8), cuda)
+    pk, pv = wide[0, :, :, shift:wpb + shift], wide[1, :, :, shift:wpb + shift]
+    wc = _words(gen, (nb,), cuda)
+    wc[::2] = -1
+    key = _words(gen, (8,), cuda)
+    lids = torch.tensor([0, 5, -1], dtype=torch.int32, device=cuda)
+    src = torch.tensor([3, 7, 2], device=cuda)
+    dst = torch.tensor([9, 10, 11], device=cuda)
+    mask = torch.tensor([True, True, False], device=cuda)
+    nk, nv = (9, 8, 7), (2**32 - 1, 0, 1)
+    args = (lids, src, dst, mask, wc)
+    want = [pk.clone(), pv.clone()]
+    CC.cache_copy_plain(key, nk, nv, *want, *args)
+    before = ops.launch_counts()
+    for _ in range(2):
+        got = [pk.clone(), pv.clone()]
+        CC.cache_copy(key, nk, nv, *got, *args)
+        torch.cuda.synchronize()
+        # the plain version rewrites the scratch block with its own words
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(got[0][:, 11], pk[:, 11])      # masked: untouched
+    _launched(before, "chacha20_cache_copy", 2)
+    assert not torch.equal(want[0][:, 9], pk[:, 9])      # the copy landed
+
+
+@pytest.mark.parametrize("wpb,wpt", COPY_GEOMS)
+@pytest.mark.parametrize("shift", [0, 1], ids=["aligned", "misaligned"])
+def test_cache_tags_kernel_bitwise(cuda, wpb, wpt, shift):
+    """Tags of a list of blocks (repeats and dead entries) over every layer,
+    k and v, with words at 0xFFFFFFFF and bit 31, write counters at
+    2^32 - 1 and a layer id of 2^32 - 1: two launches equal the plain
+    version's tags bitwise, 0 on dead entries."""
+    from repro_torch.core.mac import mac_context
+    gen = torch.Generator(device=cuda).manual_seed(3 * wpb + shift)
+    n, nb = 3, 12
+    wide = _words(gen, (2, n, nb, wpb + 8), cuda)
+    wide[0, :, :, ::5] = -1
+    wide[1, :, :, 1::3] |= -2**31
+    pk, pv = wide[0, :, :, shift:wpb + shift], wide[1, :, :, shift:wpb + shift]
+    wc = _words(gen, (nb,), cuda)
+    wc[::2] = -1
+    ctx = mac_context(bytes(range(32)), "kvcache", cuda)
+    lids = torch.tensor([0, 5, -1], dtype=torch.int32, device=cuda)
+    blocks = torch.tensor([3, 0, 11, 3, 7], device=cuda)
+    live = torch.tensor([True, False, True, True, True], device=cuda)
+    args = (ctx.key_words, ctx.hash_keys(wpb), ctx.nonce((9, 8, 7)),
+            ctx.nonce((2**32 - 1, 0, 1)), pk, pv, lids, blocks, live, wc)
+    want = CC.cache_tags_plain(*args)
+    before = ops.launch_counts()
+    got = [CC.cache_tags(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    _launched(before, "chacha20_cache_tags", 2)
+    assert torch.equal(got[0], want) and torch.equal(got[1], want)
+    assert not bool(want[:, :, 1].any()) and bool(want[:, :, 0].all())
+
+
+def _cow_sequence(dev, verify):
+    """A donor writes 7 tokens, a sharer copies the donor's tail block and
+    writes 6 more into the copy, through ``models/paged.py`` with a sealed
+    cache (MACs armed when ``verify``). Returns the pools, counters and
+    the sharer's verdict of its view."""
+    from repro_torch.core import sealed_store as SS
+    from repro_torch.models import cache as MC
+    from repro_torch.models import paged as PG
+    cfg = get_reduced("internlm2_1_8b")
+    rng = np.random.RandomState(3)
+    bs, nb = 4, 9
+    seal = SS.cache_seal_config(bytes(range(32)), dev, verify=verify)
+    pools = MC.paged_pool_init(cfg, nb, bs, dev)
+    wc = torch.zeros((nb,), dtype=torch.int32, device=dev)
+    n = cfg.n_superblocks()
+
+    def write(table, length, count, c):
+        shape = (n, 1, c, cfg.num_kv_heads, cfg.head_dim)
+        ups = ({key: torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                .to(torch.bfloat16).to(dev) for key in ("k_new", "v_new")},)
+        PG.append_tokens(cfg, seal, pools, ups,
+                         torch.tensor([table], device=dev),
+                         torch.tensor([length], device=dev),
+                         torch.tensor([count], device=dev), wc)
+
+    write([1, 2, 3, 4], 0, 7, 8)
+    ok = PG.copy_blocks(cfg, seal, pools, wc, torch.tensor([2, 0], device=dev),
+                        torch.tensor([5, 0], device=dev),
+                        torch.tensor([True, False], device=dev))
+    write([1, 5, 6, 7], 6, 5, 5)
+    write([1, 5, 6, 7], 11, 1, 1)
+    _, view_ok = PG._dense_view(
+        cfg, seal, {key: pools[0][key][0] for key in pools[0]},
+        torch.tensor([[1, 5, 6, 7]], device=dev), torch.tensor([12],
+                                                               device=dev),
+        wc)
+    return pools, wc, bool(ok), view_ok
+
+
+@pytest.mark.parametrize("verify", [False, True])
+def test_append_into_cowed_shared_tail_on_the_card(cuda, verify):
+    """The shared-tail append through the kernels (copy, splice, tags, view)
+    equals the CPU's plain path word for word: the copy finishes in stream
+    order before the sharer's first splice into its private block."""
+    before = ops.launch_counts()
+    got = _cow_sequence(cuda, verify)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    want = _cow_sequence("cpu", verify)
+    for key in ("k", "v", "mac_k", "mac_v"):
+        assert torch.equal(got[0][0][key].cpu(), want[0][0][key]), key
+    assert torch.equal(got[1].cpu(), want[1])
+    assert got[2] and want[2]
+    assert (got[3] is None) == (not verify)
+    if verify:
+        assert bool(got[3].all())
+    assert after["chacha20_cache_copy"] - before["chacha20_cache_copy"] == 1
+    assert after["chacha20_cache_splice"] - before["chacha20_cache_splice"] \
+        == 3
+    # three writes and the copy's check and tag, plus the view's verdict
+    assert after["chacha20_cache_tags"] - before["chacha20_cache_tags"] == \
+        (6 if verify else 0)
+
+
+def test_prefix_sharing_verified_serving_on_the_card_matches_cpu(cuda):
+    """Prefix sharing and verification together through the engine: the
+    card's streams and stats equal the CPU plain path's (f32), each
+    copy-on-write one ``cache_copy`` launch."""
+    cfg = get_reduced("internlm2_1_8b").with_(dtype="float32")
+    params = T.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.RandomState(2)
+    base = rng.randint(0, cfg.vocab_size, 27)
+    prompts = [base, base, np.concatenate([base[:20], rng.randint(
+        0, cfg.vocab_size, 9)])]
+    runs = []
+    for dev in ("cpu", cuda):
+        eng = ServeEngine(cfg, map_leaves(lambda t: t.to(dev), params),
+                          batch_slots=2, max_len=48, seal_cache=True,
+                          prefix_share=True, verify=True, device=dev)
+        before = ops.launch_counts()
+        hs = [eng.submit(prompts[0], max_tokens=5)]
+        for _ in range(3):
+            eng.step()
+        hs += [eng.submit(p, max_tokens=5) for p in prompts[1:]]
+        eng.run()
+        after = ops.launch_counts()
+        runs.append(([h.out for h in hs], dict(eng.stats), {
+            k: after[k] - before[k] for k in after}))
+        eng.check_device_mirror()
+    (cpu_out, cpu_stats, cpu_n), (gpu_out, gpu_stats, gpu_n) = runs
+    assert gpu_out == cpu_out and gpu_stats == cpu_stats
+    assert not any(cpu_n.values())
+    assert gpu_stats["cow_copies"] >= 1 and gpu_stats["mac_failures"] == 0
+    assert gpu_n["chacha20_cache_copy"] == gpu_stats["cow_copies"]

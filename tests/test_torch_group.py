@@ -10,6 +10,9 @@ positions and greedy streams exact. Inside the port, sealed and plaintext
 engines emit the same streams in bf16 exactly, as the arithmetic is the
 same by construction.
 """
+import ast
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -182,11 +185,83 @@ def test_launcher_serves_on_the_cpu(engine, capsys):
     assert f"[{engine}] completed 3/3 requests" in capsys.readouterr().out
 
 
+def _stats(out: str) -> dict:
+    """The ``stats={...}`` dict a launcher run printed."""
+    return ast.literal_eval(out.split("stats=", 1)[1].splitlines()[0])
+
+
+SMALL = ["--device", "cpu", "--requests", "3", "--slots", "2",
+         "--prompt-len", "12", "--max-tokens", "6"]
+PLAIN_CACHE = ["--seal", "none", "--seal-cache", "on"]
+
+
+@pytest.mark.parametrize("flag,rc,effect", [
+    (["--prefix-share", "--shared-prefix", "20"], 0,
+     lambda st, out: st["shared_prefix_blocks"] > 0 and st["cow_copies"] > 0),
+    (["--shared-prefix", "20"], 0,
+     lambda st, out: st["shared_prefix_blocks"] == 0
+     and st["tokens"] == 18),
+    (["--expect-shared"], 1,
+     lambda st, out: st["shared_prefix_blocks"] == 0),
+    (["--compare-sealed"], 0,
+     lambda st, out: "token streams equal" in out),
+    (["--verify"] + PLAIN_CACHE, 0,
+     lambda st, out: st["mac_checks"] > 0 and st["mac_failures"] == 0),
+    (["--inject-tamper", "bitflip"] + PLAIN_CACHE, 0,
+     lambda st, out: st["mac_failures"] == 1 and st["retries"] == 1
+     and "tamper[bitflip]" in out),
+], ids=lambda v: v[0] if isinstance(v, list) else "")
+def test_launcher_runs_ported_flags(flag, rc, effect, capsys):
+    """The flags of the prefix-sharing and integrity slices run at reduced
+    size on the CPU, each with its effect on the run's stats."""
+    assert LS.main(SMALL + flag) == rc
+    out = capsys.readouterr().out
+    assert "[continuous] completed 3/3 requests" in out
+    assert effect(_stats(out), out)
+
+
 @pytest.mark.parametrize("flag", [
-    ["--prefix-share"], ["--shared-prefix", "4"], ["--expect-shared"],
-    ["--compare-sealed"], ["--verify"], ["--inject-tamper", "bitflip"],
     ["--temperature", "0.7"], ["--top-k", "5"], ["--top-p", "0.9"],
-    ["--seal", "direct"]], ids=lambda f: f[0])
+    ["--seal", "direct"], ["--verify", "--seal", "coloe"]],
+    ids=lambda f: " ".join(f))
 def test_launcher_refuses_unported_flags(flag, capsys):
     assert LS.main(["--device", "cpu"] + flag) != 0
     assert "slice of the port" in capsys.readouterr().err
+
+
+# the reference's CI command lines (.github/workflows/ci.yml): serve-smoke's
+# prefix sharing + chunked prefill line at 8 slots and 6 requests, and
+# tamper-smoke's four fault classes
+CI_LINES = {
+    "serve-smoke": ["--arch", "internlm2_1_8b", "--requests", "6",
+                    "--slots", "8", "--prompt-len", "12", "--max-tokens",
+                    "6", "--stagger", "1", "--seal", "none", "--seal-cache",
+                    "on", "--prefix-share", "--chunked-prefill",
+                    "--shared-prefix", "24", "--expect-shared",
+                    "--compare-sealed", "--check"],
+    "tamper-smoke": ["--arch", "internlm2_1_8b", "--requests", "4",
+                     "--slots", "2", "--prompt-len", "20", "--max-tokens",
+                     "10", "--seal", "none", "--seal-cache", "on",
+                     "--verify", "--inject-tamper",
+                     "bitflip,replay,rollback,relocate", "--check"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(CI_LINES))
+def test_reference_ci_command_lines(name, capsys, monkeypatch):
+    """The reference's CI command lines run through the port's launcher
+    (``--device cpu``) and exit 0; the scheduler's stats equal the reference
+    launcher's on the same line (the prompts are the same numpy draws; the
+    weights differ, and no stat compared here depends on them)."""
+    from repro.launch import serve as JLS
+    argv = CI_LINES[name]
+    assert LS.main(["--device", "cpu"] + argv) == 0
+    got = _stats(capsys.readouterr().out)
+    monkeypatch.setattr(sys, "argv", ["serve"] + argv)
+    JLS.main()                         # exits non-zero on a failed check
+    want = _stats(capsys.readouterr().out)
+    for key in ("prefills", "prefill_chunks", "decode_steps", "tokens",
+                "cow_copies", "mac_checks", "mac_failures", "retries",
+                "shared_prefix_blocks", "shared_prefix_tokens",
+                "kv_plaintext_bytes_per_step"):
+        assert got[key] == want[key], (name, key)

@@ -139,6 +139,14 @@ def test_launch_counts_untouched_on_cpu():
     TO.lines_gather_rows(u32.words(KEY), lines, None, (1, 2), (6, 16),
                          torch.float32, torch.tensor([[0, 5]]),
                          torch.bfloat16)
+    pool = torch.zeros((2, 4, 32), dtype=torch.int32)
+    lids, wc = torch.arange(2, dtype=torch.int32), torch.zeros(
+        (4,), dtype=torch.int32)
+    blocks, live = torch.tensor([1, 2]), torch.tensor([True, False])
+    TO.cache_copy(u32.words(KEY), (1, 2, 3), (4, 5, 6), pool, pool.clone(),
+                  lids, blocks, torch.tensor([3, 0]), live, wc)
+    TO.cache_tags(u32.words(KEY), torch.ones((64,), dtype=torch.int32),
+                  (1, 2, 3), (4, 5, 6), pool, pool, lids, blocks, live, wc)
     assert TO.launch_counts() == {"chacha20": 0, "sealed_matmul": 0,
                                   "sealed_matmul_tc": 0,
                                   "sealed_matmul_dec": 0,
@@ -146,5 +154,7 @@ def test_launch_counts_untouched_on_cpu():
                                   "flash_attention_tc": 0,
                                   "chacha20_cache_view": 0,
                                   "chacha20_cache_splice": 0,
+                                  "chacha20_cache_copy": 0,
+                                  "chacha20_cache_tags": 0,
                                   "chacha20_lines_unseal": 0,
                                   "chacha20_lines_gather": 0}

@@ -73,10 +73,11 @@ def test_chunk_and_decode_logits_allclose(model, sealed):
         lj, upj, _ = JPG.chunk_logits(
             cfg_j, pj, pools_j, tj, jnp.asarray(lengths, jnp.int32), wc_j,
             jnp.asarray(chunk, jnp.int32), jnp.asarray(cl, jnp.int32), seal_j)
-        lt, upt = TPG.chunk_logits(cfg_t, pt, pools_t, tt,
-                                   torch.from_numpy(lengths), wc_t,
-                                   torch.from_numpy(chunk),
-                                   torch.from_numpy(cl), seal_t)
+        lt, upt, okt = TPG.chunk_logits(cfg_t, pt, pools_t, tt,
+                                        torch.from_numpy(lengths), wc_t,
+                                        torch.from_numpy(chunk),
+                                        torch.from_numpy(cl), seal_t)
+        assert bool(okt.all())
         np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=1e-4,
                                    atol=1e-4)
         np.testing.assert_allclose(upt[0]["k_new"].numpy(),
@@ -88,9 +89,10 @@ def test_chunk_and_decode_logits_allclose(model, sealed):
         lj, upj, _ = JPG.decode_logits(
             cfg_j, pj, pools_j, tj, jnp.asarray(lengths, jnp.int32), wc_j,
             jnp.asarray(step, jnp.int32), seal_j)
-        lt, _ = TPG.decode_logits(cfg_t, pt, pools_t, tt,
-                                  torch.from_numpy(lengths), wc_t,
-                                  torch.from_numpy(step), seal_t)
+        lt, _, okt = TPG.decode_logits(cfg_t, pt, pools_t, tt,
+                                       torch.from_numpy(lengths), wc_t,
+                                       torch.from_numpy(step), seal_t)
+        assert bool(okt.all())
         assert lt.shape == (B, cfg_t.vocab_size)
         np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=1e-4,
                                    atol=1e-4)
@@ -113,16 +115,16 @@ def test_fused_sealed_logits_equal_plaintext_exactly(dtype):
     lengths = torch.zeros((B,), dtype=torch.int64)
     chunk = torch.from_numpy(rng.randint(0, cfg_t.vocab_size, (B, 7)))
     cl = torch.tensor([7, 4])
-    lp, up = TPG.chunk_logits(cfg_t, pt, pools, tables, lengths, wc, chunk,
-                              cl, None)
-    lf, uf = TPG.chunk_logits(cfg_t, fp, pools, tables, lengths, wc, chunk,
-                              cl, None)
+    lp, up, _ = TPG.chunk_logits(cfg_t, pt, pools, tables, lengths, wc,
+                                 chunk, cl, None)
+    lf, uf, _ = TPG.chunk_logits(cfg_t, fp, pools, tables, lengths, wc,
+                                 chunk, cl, None)
     assert torch.equal(lp, lf)
     assert torch.equal(up[0]["k_new"], uf[0]["k_new"])
     TPG.append_tokens(cfg_t, None, pools, up, tables, lengths, cl, wc)
     step = torch.from_numpy(rng.randint(0, cfg_t.vocab_size, (B, 1)))
-    dp, _ = TPG.decode_logits(cfg_t, pt, pools, tables, lengths + cl, wc,
-                              step, None)
-    df, _ = TPG.decode_logits(cfg_t, fp, pools, tables, lengths + cl, wc,
-                              step, None)
+    dp, _, _ = TPG.decode_logits(cfg_t, pt, pools, tables, lengths + cl, wc,
+                                 step, None)
+    df, _, _ = TPG.decode_logits(cfg_t, fp, pools, tables, lengths + cl, wc,
+                                 step, None)
     assert torch.equal(dp, df)

@@ -58,7 +58,7 @@ def _seals(sealed):
 
 def _assert_pools_equal(pj, pt, wcj, wct):
     for j in range(len(pj)):
-        for key in ("k", "v", "lid"):
+        for key in ("k", "v", "mac_k", "mac_v", "lid"):
             np.testing.assert_array_equal(u32.to_numpy(pt[j][key]),
                                           np.asarray(pj[j][key]), err_msg=key)
     np.testing.assert_array_equal(u32.to_numpy(wct), np.asarray(wcj))
@@ -111,8 +111,10 @@ def test_pool_writes_bitwise(dtype, sealed):
             vj, _ = JPG._dense_view(cfg_j, seal_j, pj,
                                     jnp.asarray(tables, jnp.int32),
                                     jnp.asarray(lengths, jnp.int32), wc_j)
-            vt = TPG._dense_view(cfg_t, seal_t, pt, torch.from_numpy(tables),
-                                 torch.from_numpy(lengths), wc_t)
+            vt, okt = TPG._dense_view(cfg_t, seal_t, pt,
+                                      torch.from_numpy(tables),
+                                      torch.from_numpy(lengths), wc_t)
+            assert okt is None         # no MAC context: nothing checked
             for key in ("k", "v"):
                 np.testing.assert_array_equal(
                     vt[key].float().numpy(),

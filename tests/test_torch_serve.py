@@ -113,10 +113,11 @@ def test_decode_tick_reads_nothing_from_the_host(f32_model, monkeypatch):
     for name in ("item", "tolist", "numpy", "cpu", "__bool__", "__int__",
                  "__index__", "__float__"):
         monkeypatch.setattr(torch.Tensor, name, blocked)
-    tok, logits = ST.decode_tick(cfg_t, eng.params(), eng._pools, eng._state,
-                                 eng.cache_seal)
+    tok, cok, logits = ST.decode_tick(cfg_t, eng.params(), eng._pools,
+                                      eng._state, eng.cache_seal)
     monkeypatch.undo()
     assert tok.shape == (2,) and logits.shape == (2, cfg_t.vocab_size)
+    assert bool(cok.all())
 
 
 def test_unported_options_raise(f32_model):
@@ -125,10 +126,17 @@ def test_unported_options_raise(f32_model):
     for kw in (dict(temperature=0.7), dict(top_k=5), dict(top_p=0.9)):
         with pytest.raises(NotImplementedError, match="sampling slice"):
             eng.submit([1, 2, 3], **kw)
-    for kw in (dict(prefix_share=True), dict(verify=True),
-               dict(fault_hooks=(object(),))):
-        with pytest.raises(NotImplementedError):
-            ServeEngine(cfg_t, pt, device="cpu", **KW, **kw)
+    # prefix sharing, verification and fault hooks are ported: they build
+    hook = object()
+    shared = ServeEngine(cfg_t, pt, device="cpu", prefix_share=True, **KW)
+    assert shared._registry is not None and shared._registry.bs == 16
+    verified = ServeEngine(cfg_t, pt, seal_cache=True, verify=True,
+                           device="cpu", fault_hooks=(hook,), **KW)
+    assert verified.cache_seal.mac is not None
+    assert verified.fault_hooks == (hook,)
+    with pytest.raises(NotImplementedError, match="weight-integrity slice"):
+        ServeEngine(cfg_t, pt, seal=SealConfig(), verify=True, device="cpu",
+                    **KW)
     with pytest.raises(NotImplementedError):
         ServeEngine(cfg_t, pt, seal=SealConfig(mode="direct"), device="cpu",
                     **KW)
@@ -143,3 +151,21 @@ def test_entry_points_default_to_the_card():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             resolve_device(None)
     assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("engine", ["continuous", "group"])
+@pytest.mark.parametrize("bad", [-1, "vocab"])
+def test_submit_rejects_out_of_range_ids(f32_model, engine, bad):
+    """A prompt id outside [0, vocab) is refused at ``submit``, before
+    anything reaches the device (the reference embeds a NaN row or wraps
+    the id; on the card an id past the table would fault the context)."""
+    from repro_torch.serve.engine import GroupServeEngine
+    _, cfg_t, _, pt = f32_model
+    cls = ServeEngine if engine == "continuous" else GroupServeEngine
+    eng = cls(cfg_t, pt, batch_slots=2, max_len=64, device="cpu")
+    bad = cfg_t.vocab_size if bad == "vocab" else bad
+    with pytest.raises(ValueError, match="token ids"):
+        eng.submit([1, bad, 2], max_tokens=2)
+    assert not eng.queue
+    eng.submit([0, cfg_t.vocab_size - 1], max_tokens=2)   # the edges pass
+    assert len(eng.queue) == 1

@@ -226,5 +226,13 @@ def test_cache_seal_nonces_match_reference():
     assert (ct.nonce_k, ct.nonce_v) == (cj.nonce_k, cj.nonce_v)
     np.testing.assert_array_equal(u32.to_numpy(ct.key_words),
                                   np.asarray(cj.key_words))
-    with pytest.raises(NotImplementedError):
-        TSS.cache_seal_config(KEY, "cpu", verify=True)
+    # verify arms CacheSeal.mac: the reference's MAC context, its key words
+    # and its hash keys
+    mj = JSS.cache_seal_config(KEY, verify=True).mac
+    mt = TSS.cache_seal_config(KEY, "cpu", verify=True).mac
+    assert ct.mac is None and cj.mac is None
+    assert mt.nonce3 == mj.nonce3 and mt.key_bytes == mj.key_bytes
+    np.testing.assert_array_equal(u32.to_numpy(mt.key_words),
+                                  np.asarray(mj.key_words))
+    np.testing.assert_array_equal(u32.to_numpy(mt.hash_keys(24)),
+                                  np.asarray(mj.hash_keys(24)))
