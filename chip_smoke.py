@@ -73,7 +73,25 @@ runs:
    card could take for the same work, and profiler splits of sealed decode
    ticks and of a sealed and a plaintext group prefill (each ChaCha
    kernel's device time and the idle share among them). A device-side sleep before each timed launch
-   keeps the host's dispatch out of the timed window.
+   keeps the host's dispatch out of the timed window;
+8. verified sealed weights and sampling at full width: (a) the weight MAC
+   kernels ``tile_tags`` and ``line_tags`` bitwise, twice, against their
+   plain versions and the stored tags (one stack slice of every tile leaf,
+   the head, the norms and the embedding's last 65,536 lines at their own
+   addresses), and at small, misaligned and counter-layout shapes, timed
+   beside their bounds; (b) ``verify_params`` over the whole image: True,
+   one tag launch a leaf, False after a flipped encrypted tile word, head
+   word or embedding line word, True once restored and after a bypass-row
+   flip, the sweep timed against its bound; (c) phase 4's trace through a
+   verified ColoE engine with a sealed cache, its tokens phase 4's, no MAC
+   failure, ``mac_checks`` one sweep plus the cache checks, and a weight
+   tamper stopping the drain (``SealedIntegrityError("weights")``) before
+   any token; (d) phase 4's trace with mixed temperature / top-k / top-p
+   settings twice (equal streams, every request complete), the sampler's
+   bits and tokens on the card equal to the CPU plain path's on saved
+   logits and keys, an all-greedy run with phase 4's launches and no
+   device draw, and a sampled tick beside a greedy one (events, host clock,
+   profiler).
 
 Every phase raises on failure, so the script exits non-zero. The line before
 the last is a JSON ``{"kernels": [...]}`` record; the last line is
@@ -120,7 +138,9 @@ TAG_HALF_ALU_OPS = 1
 INT_OPCODES = ("IADD3", "IMAD", "LOP3", "SHF", "PRMT", "IADD", "LEA")
 
 # the CUDA source of each kernel variant whose name is not its file's
-SOURCE = {"chacha20_cache_view": "chacha20_cache",
+SOURCE = {"chacha20_weight_tile_tags": "chacha20_weights",
+          "chacha20_weight_line_tags": "chacha20_weights",
+          "chacha20_cache_view": "chacha20_cache",
           "chacha20_cache_splice": "chacha20_cache",
           "chacha20_cache_copy": "chacha20_cache",
           "chacha20_cache_tags": "chacha20_cache",
@@ -242,7 +262,16 @@ def main(argv=None) -> int:
     report["group"] = phase_group(torch, dev, args, report["serve"])
     report["prefix_integrity"] = phase_prefix_integrity(torch, dev, args,
                                                         report["serve"])
+    # phase 7 lets go of phase 4's engines; phase 8 builds its own from the
+    # same weights and trace
+    serve = {k: report["serve"][k] for k in ("engine", "params", "prompts")}
+    cfg = serve["engine"].cfg
     report["timing"] = phase_timing(torch, dev, args, report)
+    serve.pop("engine")
+    report["weights_sampling"] = phase_weights_sampling(
+        torch, dev, args, cfg, serve["params"], serve["prompts"],
+        report["serve"])
+    del serve
 
     kernels = kernel_records(report)
     if args.report:
@@ -301,8 +330,17 @@ def kernel_records(report):
          report["flash"]["max_abs_err"]),
         ("flash_attention_tc", FA_REPLACES, group["flash_attention_tc"],
          report["flash"]["max_abs_err_tc"]),
+        # the weight MACs, counted over the verified run of phase 8 (c):
+        # one sweep, one launch a leaf
+        ("chacha20_weight_tile_tags", CC_REPLACES,
+         report["weights_sampling"]["verify"]["launches"][
+             "chacha20_weight_tile_tags"], 0),
+        ("chacha20_weight_line_tags", CC_REPLACES,
+         report["weights_sampling"]["verify"]["launches"][
+             "chacha20_weight_line_tags"], 0),
     ]
-    fused = report["chacha_fused"]["timing"]
+    fused = dict(report["chacha_fused"]["timing"])
+    fused.update(report["weights_sampling"]["timing"])
     for name, recs in fused.items():    # the main path's shape: the first
         t[name] = dict(recs[0])
     kernels = []
@@ -1238,6 +1276,7 @@ def phase_serve(torch, dev, args):
         f"decode tick {err32[1]:.3e} (tol 1e-4)")
     if not max(err32) <= 1e-4:
         raise AssertionError("sealed f32 logits disagree with plaintext")
+    out["tokens"] = [h.out for h in handles]
     out["engine"] = eng
     out["plain_engine"] = plain
     out["params"] = params
@@ -1467,12 +1506,15 @@ def _prefix_prompts(seed, vocab):
     return prompts
 
 
-def _drain(torch, eng, prompts, new_tokens):
-    """Submit every prompt, run the engine dry; returns (handles, the
-    launch counts of the run, seconds). The counts are zeroed just before
-    and read just after the run."""
+def _drain(torch, eng, prompts, new_tokens, settings=()):
+    """Submit every prompt (with ``settings[i % len(settings)]`` as its
+    sampling settings when given), run the engine dry; returns (handles,
+    the launch counts of the run, seconds). The counts are zeroed just
+    before and read just after the run."""
     from repro_torch.kernels import ops
-    handles = [eng.submit(p, max_tokens=new_tokens) for p in prompts]
+    handles = [eng.submit(p, max_tokens=new_tokens,
+                          **(settings[i % len(settings)] if settings else {}))
+               for i, p in enumerate(prompts)]
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.time()
@@ -2049,13 +2091,445 @@ def _time_sdpa(torch, F, q, k, v, scale, flush, ref):
 
 
 # profiler names of the ChaCha kernels (demangled device functions)
+# --------------------------------------------------------------------------
+# phase 8: verified sealed weights and sampling at full width
+# --------------------------------------------------------------------------
+
+# the stack slice of each block leaf held tag for tag (a middle layer: SE
+# 0.5 leaves bypass rows there), and the embedding's last lines held at
+# their own addresses
+WEIGHT_SLICE, EMBED_LINES = 12, 65536
+# small and misaligned tile cases: (K, N, bk, bn, stack, words off a 16-byte
+# boundary)
+TILE_CASES = ((64, 96, 32, 32, (), 0), (40, 24, 8, 8, (3,), 0),
+              (128, 256, 128, 64, (2,), 1), (16, 128, 16, 16, (), 3))
+# counter-layout and partial cases of line tags: (lines, first address)
+LINE_CASES = ((1, 0), (127, 3), (1000, 2**32 - 5))
+# the sampled trace: phase 4's prompts, settings in turn
+SAMPLING = (dict(), dict(temperature=0.8), dict(temperature=1.0, top_k=50),
+            dict(temperature=0.7, top_p=0.9),
+            dict(temperature=1.2, top_k=20, top_p=0.95))
+
+
+def _tile_bound(enc_rows, rows, n, tiles, bk, bn):
+    """Bound of a ``tile_tags`` launch: the encrypted rows' words read once
+    (bypass rows are not read), the row flags and the hash keys once, a tag
+    written per tile; per 16-bit half an extraction and a 64-bit
+    multiply-add, per tile one pad."""
+    halves = 2 * enc_rows * n
+    return bound_ms(4 * enc_rows * n + rows + 8 * bk * bn + 4 * tiles,
+                    halves * TAG_HALF_OPS + tiles * CHACHA_OPS,
+                    alu_ops=halves * TAG_HALF_ALU_OPS + tiles * CHACHA_ALU_OPS)
+
+
+def _line_bound(lines, width):
+    """Bound of a ``line_tags`` launch of ``lines`` records of ``width``
+    words: each record read once, a tag written; per half an extraction and
+    a multiply-add, per line one pad."""
+    halves = 2 * width * lines
+    return bound_ms(lines * (4 * width + 4) + 8 * width,
+                    halves * TAG_HALF_OPS + lines * CHACHA_OPS,
+                    alu_ops=halves * TAG_HALF_ALU_OPS + lines * CHACHA_ALU_OPS)
+
+
+def _tile_operands(SS, ctx, st, i):
+    """Stack slice ``i`` (or the whole unstacked leaf) of a tile leaf as
+    ``tile_tags`` arguments, and its stored tags."""
+    m = st.meta
+    ct, mask, wc, macs = SS._tiles2d(st.payload, m), st.row_mask, st.wc, \
+        st.macs
+    if m.n_batch:
+        ct, mask, wc, macs = ct[i], mask[i], wc[i], macs[i]
+    return (ctx.key_words, ctx.hash_keys(m.bk * m.bn), ctx.nonce(m.nonce),
+            ct, mask, wc, m.bk, m.bn), macs
+
+
+def _line_operands_of(SS, ctx, path, st, first=0):
+    """Lines [first, L) of a line leaf as ``line_tags`` arguments, and
+    their stored tags."""
+    pay = st.payload[first:]
+    cnt = None if st.counters is None else st.counters[first:]
+    width = pay.shape[1] + (0 if cnt is None else 1)
+    return (ctx.key_words, ctx.hash_keys(width),
+            ctx.nonce(SS._line_tweak(path)), pay, cnt, first), \
+        st.macs[first:]
+
+
+def _twice_equal(torch, kernel, plain, args, label, stored=None):
+    got = [kernel(*args) for _ in range(2)]
+    want = plain(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, want) for g in got):
+        raise AssertionError(f"{kernel.__name__} != plain: {label}")
+    if stored is not None and not torch.equal(want, stored):
+        raise AssertionError(f"tags != the stored tags: {label}")
+    return label
+
+
+def phase_weights_sampling(torch, dev, args, cfg, params, prompts, serve):
+    """(a) the weight MAC kernels, (b) the sweep over the full image, (c) a
+    verified sealed engine on phase 4's trace and a weight tamper, (d)
+    sampling on phase 4's trace; internlm2-1.8B at full width, bf16."""
+    import numpy as np
+    from repro_torch import prng
+    from repro_torch.config import SealConfig
+    from repro_torch.core import sealed_store as SS
+    from repro_torch.core.mac import SealedIntegrityError
+    from repro_torch.kernels import chacha20 as CC
+    from repro_torch.kernels import ops
+    from repro_torch.serve import sampling as SM
+    from repro_torch.serve.engine import ServeEngine
+    key = bytes(range(32))
+    out = {}
+    scratch = torch.empty((64 * 2**20,), dtype=torch.int32, device=dev)
+    flush = lambda: scratch.zero_()           # 256 MB > the 50 MB L2
+
+    # the verified engine: sealing makes every leaf's tags
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ver = ServeEngine(cfg, params, batch_slots=SLOTS, max_len=256,
+                      seal=SealConfig(), verify=True, device=dev)
+    torch.cuda.synchronize()
+    out["seal_verify_s"] = time.time() - t0
+    sp = ver.sealed
+    ctx = sp.engine(key).mac_ctx
+    tile_paths = [p for p, st in sp.tensors.items()
+                  if st.meta.layout == "tiles"]
+    line_paths = [p for p in sp.tensors if p not in tile_paths]
+    log(f"[weights] sealed with MACs in {out['seal_verify_s']:.1f} s (phase "
+        f"4 without: {serve['seal_s']:.1f} s): {SS.n_macs(sp)} tags, "
+        f"{len(tile_paths)} tile leaves, {len(line_paths)} line leaves")
+    # the tags' cost at sealing: the image sealed without and with MACs in
+    # turns (without, with, with, without), host clock around synchronized
+    # calls
+    seal_ms = {False: [], True: []}
+    for verify in (False, True, True, False):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        img = SS.seal_params(params, SealConfig(verify=verify), key)
+        torch.cuda.synchronize()
+        seal_ms[verify].append(1e3 * (time.time() - t0))
+        del img
+        torch.cuda.empty_cache()
+    out["seal_ms"] = {"without_macs": seal_ms[False],
+                      "with_macs": seal_ms[True]}
+    log(f"[weights] sealing the image (host clock, in turns): without MACs "
+        f"{seal_ms[False]} ms, with {seal_ms[True]} ms")
+
+    # (a) each kernel bitwise against its plain version, twice, and the
+    # plain version against the tags stored at sealing
+    done = []
+    for path in tile_paths:
+        targs, stored = _tile_operands(SS, ctx, sp.tensors[path],
+                                       WEIGHT_SLICE)
+        k, n = targs[3].shape
+        done.append(_twice_equal(
+            torch, CC.tile_tags_cuda, CC.tile_tags_plain, targs,
+            f"{path} ({k}, {n}) bk {targs[6]} bn {targs[7]}, "
+            f"{int(targs[4].sum())}/{k} rows encrypted", stored))
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 23)
+    for k, n, bk, bn, lead, shift in TILE_CASES:
+        size = int(np.prod(lead + (k, n)))
+        flat = _rand_words(torch, gen, (size + 8,), dev)
+        flat[::7] = -1
+        ct = flat[shift:shift + size].view(lead + (k, n))
+        mask = torch.rand(lead + (k,), generator=gen, device=dev) < 0.5
+        mask[..., :bk] = False
+        wc = _rand_words(torch, gen, lead, dev)
+        wc.view(-1)[::2] = -1
+        done.append(_twice_equal(
+            torch, CC.tile_tags_cuda, CC.tile_tags_plain,
+            (ctx.key_words, ctx.hash_keys(bk * bn), ctx.nonce(NONCES[0]), ct,
+             mask, wc, bk, bn),
+            f"({k}, {n}) bk {bk} bn {bn} stack {lead}, {shift} words off"))
+    for path in line_paths:
+        st = sp.tensors[path]
+        first = st.payload.shape[0] - EMBED_LINES if path == SS.EMBED else 0
+        largs, stored = _line_operands_of(SS, ctx, path, st, first)
+        done.append(_twice_equal(
+            torch, CC.line_tags_cuda, CC.line_tags_plain, largs,
+            f"{path} lines [{first}, {st.payload.shape[0]})", stored))
+    for n_lines, first in LINE_CASES:
+        for scheme, width in (("coloe", 34), ("counter", 32)):
+            pay = _rand_words(torch, gen, (n_lines, width), dev)
+            pay[:, ::5] = -1
+            cnt = (None if scheme == "coloe"
+                   else _rand_words(torch, gen, (n_lines,), dev))
+            done.append(_twice_equal(
+                torch, CC.line_tags_cuda, CC.line_tags_plain,
+                (ctx.key_words, ctx.hash_keys(width + (scheme != "coloe")),
+                 ctx.nonce(NONCES[1]), pay, cnt, first),
+                f"{scheme} {n_lines} lines from {first}"))
+    log(f"[weights] {len(done)} tag cases bitwise, each launched twice: "
+        + "; ".join(done))
+    out["cases"] = done
+
+    # the kernels timed at the sweep's shapes: one slice of MLP wi (the
+    # largest block leaf) and the head; the whole embedding and a norm leaf
+    times = {}
+    for path in ("blocks/0/mlp/wi", "head/w"):
+        targs, _ = _tile_operands(SS, ctx, sp.tensors[path], WEIGHT_SLICE)
+        k, n = targs[3].shape
+        bk, bn = targs[6], targs[7]
+        enc, tiles = int(targs[4].sum()), (k // bk) * (n // bn)
+        ms = _time_ms(torch, lambda: CC.tile_tags_cuda(*targs), 10, flush)
+        plain_ms = _time_ms(torch, lambda: CC.tile_tags_plain(*targs), 1)
+        b_ms, b_by = _tile_bound(enc, k, n, tiles, bk, bn)
+        label = (f"{path} ({k}, {n}), {enc}/{k} rows encrypted, {tiles} "
+                 f"tiles of {bk}x{bn}")
+        times.setdefault("chacha20_weight_tile_tags", []).append(
+            {"shape": label, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+             "bound_by": b_by})
+        log(f"[time] chacha20_weight_tile_tags {label}: {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
+            f"{b_ms / ms:.2f} of the kernel's time)")
+    for path in (SS.EMBED, "blocks/0/norm1/scale"):
+        largs, _ = _line_operands_of(SS, ctx, path, sp.tensors[path])
+        lines, width = largs[3].shape[0], largs[1].shape[0] // 2
+        ms = _time_ms(torch, lambda: CC.line_tags_cuda(*largs), 10, flush)
+        plain_ms = _time_ms(torch, lambda: CC.line_tags_plain(*largs), 1)
+        b_ms, b_by = _line_bound(lines, width)
+        label = f"{path}: {lines} lines of {width} words"
+        times.setdefault("chacha20_weight_line_tags", []).append(
+            {"shape": label, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+             "bound_by": b_by})
+        log(f"[time] chacha20_weight_line_tags {label}: {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
+            f"{b_ms / ms:.2f} of the kernel's time)")
+    out["timing"] = times
+
+    # (b) the sweep over the whole image: one device bool, one launch a leaf
+    ops.reset_launch_counts()
+    ok = SS.verify_params(sp, key)
+    sweep_launches = ops.launch_counts()
+    if not (bool(ok) and ok.device.type == dev.type and ok.shape == ()):
+        raise AssertionError("verify_params rejects the intact image")
+    if (sweep_launches["chacha20_weight_tile_tags"] != len(tile_paths)
+            or sweep_launches["chacha20_weight_line_tags"] != len(line_paths)):
+        raise AssertionError(f"the sweep launched {sweep_launches}")
+    sweep_ms = _time_ms(torch, lambda: SS.verify_params(sp, key), 3, flush)
+    tot = [0.0, 0.0, 0.0]                     # bytes, int ops, ALU ops
+    for path, st in sp.tensors.items():
+        m = st.meta
+        if m.layout == "tiles":
+            k, n = st.k_size, st.n_size
+            rows = st.row_mask.numel()
+            enc = int(st.row_mask.sum())
+            tiles = (rows // m.bk) * (n // m.bn)
+            halves = 2 * enc * n
+            tot[0] += 4 * enc * n + rows + 8 * m.bk * m.bn + 4 * tiles
+            tot[1] += halves * TAG_HALF_OPS + tiles * CHACHA_OPS
+            tot[2] += halves * TAG_HALF_ALU_OPS + tiles * CHACHA_ALU_OPS
+        else:
+            lines = st.payload.shape[0]
+            width = st.payload.shape[1] + (st.counters is not None)
+            tot[0] += lines * (4 * width + 4) + 8 * width
+            tot[1] += 2 * width * lines * TAG_HALF_OPS + lines * CHACHA_OPS
+            tot[2] += (2 * width * lines * TAG_HALF_ALU_OPS
+                       + lines * CHACHA_ALU_OPS)
+    b_ms, b_by = bound_ms(tot[0], tot[1], alu_ops=tot[2])
+    out["sweep"] = {"ms": sweep_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "bytes": tot[0], "launches": sweep_launches}
+    log(f"[weights] verify_params over the image: True, {sweep_launches} "
+        f"launches; {sweep_ms:.3f} ms (device events) against a {b_ms:.3f} "
+        f"ms bound ({b_by}; {tot[0] / 1e9:.3f} GB; {b_ms / sweep_ms:.2f})")
+    wi = sp.tensors["blocks/0/mlp/wi"]
+    mask = wi.row_mask[WEIGHT_SLICE]
+    k, n = mask.shape[0], wi.n_size
+    enc_row, by_row = int(torch.nonzero(mask)[-1]), int(
+        torch.nonzero(~mask)[0])
+    sites = [("an encrypted tile word", "blocks/0/mlp/wi",
+              (WEIGHT_SLICE * k + enc_row) * n + 3, False),
+             ("a head word", "head/w", 7 * sp.tensors["head/w"].n_size + 11,
+              False),
+             ("an embedding line word", SS.EMBED,
+              2 * sp.tensors[SS.EMBED].payload.shape[1] + 9, False),
+             ("a bypass-row word", "blocks/0/mlp/wi",
+              (WEIGHT_SLICE * k + by_row) * n + 5, True)]
+    verdicts = {}
+    for what, path, idx, want in sites:
+        words = sp.tensors[path].payload.view(-1)
+        words[idx] ^= 1 << 4
+        got = bool(SS.verify_params(sp, key))
+        words[idx] ^= 1 << 4
+        again = bool(SS.verify_params(sp, key))
+        verdicts[what] = got
+        if got != want or not again:
+            raise AssertionError(f"verify_params after a flip of {what}: "
+                                 f"{got}, restored: {again}")
+    out["flips"] = verdicts
+    log(f"[weights] verify_params after one flipped bit: {verdicts}; True "
+        f"again after each restore")
+
+    # (c) the verified engine on phase 4's trace
+    handles, launches, secs = _drain(torch, ver, prompts, NEW_TOKENS)
+    st = ver.stats
+    dispatches = st["prefills"] + st["decode_steps"]
+    checks = 1 + st["prefill_chunks"] + st["tokens"] - len(prompts)
+    want = _chacha_launches(ver, dispatches, paged=True)
+    want.update(chacha20_cache_copy=0, chacha20_cache_tags=dispatches * (
+        cfg.num_layers + len(cfg.pattern)),
+        chacha20_weight_tile_tags=len(tile_paths),
+        chacha20_weight_line_tags=len(line_paths))
+    got = {name: launches[name] for name in want}
+    same = [h.out for h in handles] == serve["tokens"]
+    out["verify"] = {"stats": dict(st), "launches": launches, "serve_s": secs,
+                     "tokens_equal_phase4": same}
+    log(f"[weights] verified sealed run: {secs:.2f} s, {dispatches} "
+        f"dispatches, mac_checks {st['mac_checks']} (expected {checks}: one "
+        f"sweep + the cache's), mac_failures {st['mac_failures']}, tokens "
+        f"equal to phase 4's: {same}, launches {launches}")
+    if not same:
+        raise AssertionError("verified tokens differ from phase 4's")
+    if st["mac_failures"] or st["retries"] or st["mac_checks"] != checks:
+        raise AssertionError("the verified run's MAC counts are wrong")
+    if got != want:
+        raise AssertionError(f"verified launches {got}, expected {want}")
+    ver.check_device_mirror()
+    # a weight tamper: the drain stops at the sweep, before any token
+    words = wi.payload.view(-1)
+    words[sites[0][2]] ^= 1 << 4
+    hs = [ver.submit(p, max_tokens=NEW_TOKENS) for p in prompts[:2]]
+    tokens0, fails0 = st["tokens"], st["mac_failures"]
+    try:
+        ver.run()
+        raise AssertionError("a tampered weight image was served")
+    except SealedIntegrityError as e:
+        scope = e.scope
+    words[sites[0][2]] ^= 1 << 4
+    out["tamper"] = {"scope": scope, "tokens": st["tokens"] - tokens0,
+                     "mac_failures": st["mac_failures"] - fails0}
+    log(f"[weights] weight tamper: SealedIntegrityError({scope!r}), "
+        f"{out['tamper']}")
+    if scope != "weights" or any(h.out for h in hs) or \
+            out["tamper"] != {"scope": "weights", "tokens": 0,
+                              "mac_failures": 1}:
+        raise AssertionError("the weight tamper was not fail-stop")
+    del ver, sp, wi, words
+    torch.cuda.empty_cache()
+
+    # (d) sampling: phase 4's trace, mixed settings, twice; the draws on the
+    # card counted by the threefry calls on its tensors, one sampled
+    # call's logits and keys saved for the card-vs-CPU check
+    real_threefry, real_sample = prng.threefry2x32, SM.sample_logits
+    draws = [0]
+    saved = {}
+
+    def counted(k1, *a):
+        draws[0] += int(k1.device.type == dev.type)
+        return real_threefry(k1, *a)
+
+    def saving(logits, keys=None, temperature=None, top_k=None, top_p=None,
+               *, greedy=True):
+        if not greedy and not saved:
+            saved.update(logits=logits.clone(), keys=keys.clone(),
+                         temperature=temperature.clone(),
+                         top_k=top_k.clone(), top_p=top_p.clone())
+        return real_sample(logits, keys, temperature, top_k, top_p,
+                           greedy=greedy)
+
+    prng.threefry2x32, SM.sample_logits = counted, saving
+    try:
+        runs, eng = [], None
+        for _ in range(2):                # two engines: the same request ids
+            del eng
+            torch.cuda.empty_cache()
+            eng = ServeEngine(cfg, params, batch_slots=SLOTS, max_len=256,
+                              seal=SealConfig(), sample_seed=args.seed,
+                              device=dev)
+            draws[0] = 0
+            hs, _, secs = _drain(torch, eng, prompts, NEW_TOKENS, SAMPLING)
+            runs.append({"tokens": [h.out for h in hs], "draws": draws[0],
+                         "serve_s": secs,
+                         "complete": all(h.done and len(h.out) == NEW_TOKENS
+                                         for h in hs)})
+        # an all-greedy run of phase 4's trace on the second engine
+        draws[0] = 0
+        gh, greedy_launches, _ = _drain(torch, eng, prompts, NEW_TOKENS)
+        greedy_draws = draws[0]
+    finally:
+        prng.threefry2x32, SM.sample_logits = real_threefry, real_sample
+    out["sampled"] = {"runs": [{k: v for k, v in r.items() if k != "tokens"}
+                               for r in runs],
+                      "equal": runs[0]["tokens"] == runs[1]["tokens"],
+                      "greedy_draws": greedy_draws,
+                      "greedy_launches_equal_phase4":
+                          greedy_launches == serve["launches"],
+                      "greedy_tokens_equal_phase4":
+                          [h.out for h in gh] == serve["tokens"]}
+    log(f"[sample] two sampled runs of phase 4's trace: "
+        f"{out['sampled']['runs']}, streams equal: "
+        f"{out['sampled']['equal']}; an all-greedy run: {greedy_draws} "
+        f"device draws, launches equal to phase 4's: "
+        f"{out['sampled']['greedy_launches_equal_phase4']}, tokens equal: "
+        f"{out['sampled']['greedy_tokens_equal_phase4']}")
+    if not all(r["complete"] and r["draws"] > 0 for r in runs):
+        raise AssertionError("a sampled request did not complete, or drew "
+                             "nothing on the card")
+    if not out["sampled"]["equal"]:
+        raise AssertionError("two sampled runs of one trace differ")
+    if greedy_draws or greedy_launches != serve["launches"]:
+        raise AssertionError(f"the all-greedy run drew {greedy_draws} times "
+                             f"or launched {greedy_launches}, phase 4 "
+                             f"{serve['launches']}")
+    # the sampler on saved logits and keys: the card against the CPU
+    v = saved["logits"].shape[1]
+    bits = [prng.random_bits(saved["keys"].to(d), v).cpu()
+            for d in (dev, "cpu")]
+    toks = [real_sample(*(saved[n].to(d) for n in (
+        "logits", "keys", "temperature", "top_k", "top_p")),
+        greedy=False).cpu() for d in (dev, "cpu")]
+    noise = [prng.gumbel(saved["keys"].to(d), v).cpu() for d in (dev, "cpu")]
+    gap = float((noise[0] - noise[1]).abs().max())
+    out["sampler_vs_cpu"] = {"bits_equal": torch.equal(*bits),
+                             "tokens_equal": torch.equal(*toks),
+                             "gumbel_max_abs_diff": gap,
+                             "rows": int(saved["logits"].shape[0])}
+    log(f"[sample] the sampler on the card vs the CPU on a saved tick's "
+        f"logits and keys: {out['sampler_vs_cpu']}")
+    if not (torch.equal(*bits) and torch.equal(*toks)):
+        raise AssertionError("the sampler on the card differs from the CPU")
+
+    # a sampled tick beside a greedy one, every slot decoding, one engine
+    ticks = {}
+    for label, kw in (("greedy", {}), ("sampled", SAMPLING[-1])):
+        for p in prompts[:SLOTS]:
+            eng.submit(p, max_tokens=64, **kw)
+        while any(r is None or eng._pending[i] is not None
+                  for i, r in enumerate(eng._active)):
+            eng.step()
+        ms = _time_ms(torch, eng._decode_tick, 5)
+        wall = []
+        for _ in range(5):
+            t0 = time.time()
+            eng._decode_tick()               # ends in the tokens' d2h copy
+            wall.append(1e3 * (time.time() - t0))
+        prof = _profile(torch, eng._decode_tick, 3,
+                        f"{label} sealed decode ticks")
+        ticks[label] = {"ms": ms, "host_ms": sorted(wall)[len(wall) // 2],
+                        "device_busy_ms": prof["device_busy_ms"] / 3,
+                        "idle_share": prof["idle_share"],
+                        "kernel_launches": prof["kernel_launches"] / 3}
+        log(f"[time] decode tick, {SLOTS} slots, sealed, {label}: {ms:.2f} "
+            f"ms (device events), {ticks[label]['host_ms']:.2f} ms (host "
+            f"clock), device busy {ticks[label]['device_busy_ms']:.2f} ms, "
+            f"{ticks[label]['kernel_launches']:.0f} kernel launches a tick")
+        eng.run()
+    out["ticks"] = ticks
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
 CHACHA_KERNELS = {"chacha20": "chacha20_blocks_kernel",
                   "chacha20_cache_view": "cache_view_kernel",
                   "chacha20_cache_splice": "cache_splice_kernel",
                   "chacha20_cache_copy": "cache_copy_kernel",
                   "chacha20_cache_tags": "cache_tags_kernel",
                   "chacha20_lines_unseal": "lines_unseal_kernel",
-                  "chacha20_lines_gather": "lines_gather_kernel"}
+                  "chacha20_lines_gather": "lines_gather_kernel",
+                  "chacha20_weight_tile_tags": "tile_tags_kernel",
+                  "chacha20_weight_line_tags": "line_tags_kernel"}
 
 
 def _chacha_device_ms(prof):
@@ -2091,6 +2565,7 @@ def _profile(torch, fn, reps, label, top=12):
     busy_ms = sum(r[0] for r in rows) / 1e3
     out = {"reps": reps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "idle_share": max(0.0, 1 - busy_ms / wall_ms),
+           "kernel_launches": sum(r[2] for r in rows),
            "device_ms": {k: us / 1e3 for us, k, _ in rows},
            "top": [{"kernel": k[:90], "calls": c, "device_ms": us / 1e3}
                    for us, k, c in rows[:top]]}

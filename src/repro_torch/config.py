@@ -81,7 +81,8 @@ class SealConfig:
       direct/AES comes with a later slice).
     smart_ratio: fraction of weight rows encrypted (paper's SE default 0.5).
     fuse_decrypt: decrypt inside the consumer matmul kernel.
-    verify: co-located MACs (a later slice of the port).
+    verify: co-located Carter–Wegman MACs on every leaf (one a weight
+      tile, one a 128-byte line), checked by ``sealed_store.verify_params``.
     """
     mode: str = "coloe"
     smart_ratio: float = 0.5

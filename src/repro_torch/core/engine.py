@@ -11,8 +11,10 @@ half of ``repro/core/engine.py``: ``tensor_to_words``/``words_to_tensor``,
 Words are int32 bit patterns of u32 (``repro_torch.u32``). On the card a
 decrypt makes its pads inside one kernel a leaf (``ops.lines_unseal``), and
 sealing takes its keystream from the ChaCha kernel
-(``core.cipher.chacha20_block``).
-``DirectEngine`` (AES-128) and the MAC hooks come with later slices.
+(``core.cipher.chacha20_block``). Both engines carry the weight MAC
+context (domain "weights") and the line layout's tags (``line_macs``:
+``kernels.chacha20.line_tags`` on the card). ``DirectEngine`` (AES-128)
+comes with a later slice.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch
 from repro_torch import u32
 from repro_torch.core import cipher as C
 from repro_torch.core import coloe as CL
+from repro_torch.core import mac as M
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as _ref
 
@@ -112,6 +115,7 @@ class _CtrBase:
 
     def __init__(self, key_bytes: bytes, device=None):
         self.key_words = u32.words(C.key_to_words(key_bytes[:32]), device)
+        self.mac_ctx = M.mac_context(key_bytes, "weights", device)
 
     def _otp(self, n_lines, write_counters, nonce2):
         addrs = torch.arange(n_lines, dtype=torch.int32,
@@ -128,6 +132,27 @@ class _CtrBase:
         words = ops.lines_unseal(self.key_words, s.payload, s.counters,
                                  s.orig_len, s.nonce2)
         return words_to_tensor(words, s.shape, s.dtype)
+
+    def line_record(self, s: SealedBuffer) -> torch.Tensor:
+        """The full at-rest record of each line, the MAC message: ColoE's
+        packed 34 words, or the counter scheme's 32 data words with their
+        counter word appended."""
+        if s.scheme == "coloe":
+            return s.payload
+        return torch.cat([s.payload, s.counters[:, None]], dim=1)
+
+    def line_macs(self, s: SealedBuffer, tweak=(0, 0, 0)) -> torch.Tensor:
+        """(L,) int32 tags of the line records (``core.mac.line_tags``; the
+        kernel reads the counter table where it lies, so ``line_record`` is
+        never built on this path)."""
+        return M.line_tags(self.mac_ctx, s.payload, tweak,
+                           counters=None if s.scheme == "coloe"
+                           else s.counters)
+
+    def verify_lines(self, s: SealedBuffer, macs,
+                     tweak=(0, 0, 0)) -> torch.Tensor:
+        """(L,) bool: each line's tag against the stored MACs."""
+        return self.line_macs(s, tweak) == macs
 
     def encrypt_tiles(self, w2d, nonce3, row_mask, write_counter,
                       bk: int, bn: int):

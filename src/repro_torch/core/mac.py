@@ -1,8 +1,8 @@
-"""Truncated Carter–Wegman MACs over the sealed KV cache. Port of
-``repro/core/mac.py`` up to ``mac_context`` (the weight layouts' ``tile_tags``
-and ``line_tags`` come with the weight-integrity slice).
+"""Truncated Carter–Wegman MACs over the sealed memory image. Port of
+``repro/core/mac.py``.
 
-One u32 tag per protected unit (here: a paged cache block, per stream):
+One u32 tag per protected unit (a paged cache block per stream, a weight
+tile, a 128-byte weight line):
 
   tag = uhash(ciphertext words)  XOR  pad(key, address, write counter, layer)
 
@@ -20,9 +20,10 @@ The reference works in u32 arithmetic (the TPU has no 64-bit integers);
 torch has no uint32 arithmetic on the CPU, so ``_fold``, ``_mul_mod`` and
 ``uhash`` run in int64 masked to the same 32-bit values. Every tag is the
 exact value sum(r_i * m_i) mod p XOR pad, whatever the order of the sums, so
-the card's kernel (``kernels.chacha20.cache_tags``) matches it bitwise. The
-hash keys and pads come from ``core.cipher.chacha20_block``: the ChaCha
-kernel on the card.
+the card's kernels (``kernels.chacha20.cache_tags``, ``tile_tags``,
+``line_tags``) match it bitwise. The hash keys and pads come from
+``core.cipher.chacha20_block``: the ChaCha kernel on the card; the weight
+layouts' tags make their pads inside their own kernels.
 """
 from __future__ import annotations
 
@@ -194,3 +195,39 @@ def mac_context(key_bytes: bytes, domain: str, device=None) -> MacContext:
                       tuple(int.from_bytes(h[i:i + 4], "little")
                             for i in (20, 24, 28)),
                       u32.words(C.key_to_words(key_bytes[:32]), device))
+
+
+# --------------------------------------------------------------------------
+# layout-shaped tag helpers
+# --------------------------------------------------------------------------
+
+def tile_tags(ctx: MacContext, ct, row_mask, wc, bk: int, bn: int,
+              tweak=(0, 0, 0)) -> torch.Tensor:
+    """Per-(bk, bn)-tile tags of a tile-sealed weight.
+
+    ct (..., K, N) int32 ciphertext words; row_mask (..., K) bool SE row
+    flags; wc (...,) int32 write counter per stacked slice. The message of
+    a tile is its words row-major with the SE bypass rows zeroed (out of MAC
+    scope by construction); the pad binds (tile address, wc, tweak).
+    Returns (..., K//bk, N//bn) int32. One kernel launch on the card
+    (``ops.tile_tags``)."""
+    from repro_torch.kernels import ops      # deferred: ops imports cipher
+    return ops.tile_tags(ctx.key_words, ctx.hash_keys(bk * bn),
+                         ctx.nonce(tweak), ct, row_mask, wc, bk, bn)
+
+
+def line_tags(ctx: MacContext, payload, tweak=(0, 0, 0),
+              counters=None) -> torch.Tensor:
+    """Per-128 B-line tags of the at-rest line layout: (L,) int32.
+
+    The message is the FULL stored record of each line: ColoE's 34 words
+    (``payload`` (L, 34), counters None), or the counter scheme's 32 data
+    words (``payload`` (L, 32)) with its counter word (``counters`` (L,))
+    appended, so counter and flag tampering change the hash; the pad binds
+    the line address (wc 0, id 0) and the per-tensor tweak. The reference
+    takes the records concatenated; the kernel reads the counter table
+    where it lies (``ops.line_tags``)."""
+    from repro_torch.kernels import ops
+    width = payload.shape[1] + (0 if counters is None else 1)
+    return ops.line_tags(ctx.key_words, ctx.hash_keys(width),
+                         ctx.nonce(tweak), payload, counters)

@@ -1,7 +1,5 @@
 """Sealed parameter store: model weights kept as ciphertext and decrypted on
-use. Port of ``repro/core/sealed_store.py``: the cache seal carries the
-reference's per-block MACs; the weight MACs and ``verify_params`` come with
-the weight-integrity slice.
+use. Port of ``repro/core/sealed_store.py``.
 
 ``seal_params`` applies the SE plan and the engine per leaf:
 
@@ -11,6 +9,11 @@ the weight-integrity slice.
   registers under their SE row masks;
 * every other leaf (norms, the embedding) takes the line-packed layout and is
   decrypted before use.
+
+With ``seal.verify`` every leaf also carries Carter–Wegman tags (``macs``:
+one a tile, or one a 128-byte line record), and ``verify_params`` recomputes
+them all from the at-rest image into one device bool: one kernel launch a
+leaf on the card (``kernels.chacha20.tile_tags`` / ``line_tags``).
 
 ``fused_params`` is the reference's serving view (line leaves decrypted,
 tile leaves passed through sealed); ``serving_params``, what the port's
@@ -41,10 +44,6 @@ from repro_torch.tree import flatten_with_path, map_leaves, unflatten
 
 # the token embedding's path: ``serving_params`` keeps it line-sealed
 EMBED = "embed/w"
-
-WEIGHT_MACS = ("weight MACs (tile_tags, line_tags, verify_params and the "
-               "fail-stop weight sweep) come with the weight-integrity slice "
-               "of the port")
 
 
 def _dtype_name(dt: torch.dtype) -> str:
@@ -116,8 +115,9 @@ def _nonce3(path: str) -> Tuple[int, int, int]:
 
 
 def _line_tweak(path: str) -> Tuple[int, int, int]:
-    """Per-tensor MAC-pad tweak for line-layout leaves (used by the weight
-    MACs; kept so the nonce domains stay defined in one place)."""
+    """Per-tensor MAC-pad tweak for line-layout leaves. Word 2 stays 0 while
+    every tile nonce word is odd, so line and tile tag domains never
+    collide, even across tensors."""
     return _nonce2(path) + (0,)
 
 
@@ -230,8 +230,9 @@ def _seal_lines(eng, seal, leaf, plan, path) -> SealedTensor:
                     dtype=_dtype_name(leaf.dtype),
                     nonce=tuple(int(v) for v in sealed.nonce2),
                     shape=tuple(leaf.shape), orig_len=sealed.orig_len)
+    macs = eng.line_macs(sealed, _line_tweak(path)) if seal.verify else None
     return SealedTensor(sealed.payload, sealed.counters, None, None, None,
-                        meta)
+                        meta, macs=macs)
 
 
 def _seal_tiles(eng, seal, leaf, plan, path, geom) -> SealedTensor:
@@ -259,13 +260,23 @@ def _seal_tiles(eng, seal, leaf, plan, path, geom) -> SealedTensor:
     meta = SealMeta(scheme=eng.name, layout="tiles",
                     dtype=_dtype_name(leaf.dtype), nonce=nonce3, shape=shape,
                     n_batch=nb, k_ndim=nk, n_out=n_out, bk=bk, bn=bn)
-    return SealedTensor(payload, None, mask, key_c, wc, meta)
+    macs = (M.tile_tags(eng.mac_ctx, _tiles2d(payload, meta), mask, wc, bk,
+                        bn, tweak=nonce3) if seal.verify else None)
+    return SealedTensor(payload, None, mask, key_c, wc, meta, macs=macs)
+
+
+def _tiles2d(payload, m: SealMeta) -> torch.Tensor:
+    """A tile leaf's words as (K, N), or (n, K, N) when stacked (a view)."""
+    k = n = 1
+    for d in m.shape[m.n_batch:m.n_batch + m.k_ndim]:
+        k *= d
+    for d in m.shape[m.n_batch + m.k_ndim:]:
+        n *= d
+    return payload.reshape(tuple(m.shape[:m.n_batch]) + (k, n))
 
 
 def seal_params(params, seal: SealConfig, key_bytes: bytes) -> SealedParams:
     """Seal every leaf on the device the leaves live on."""
-    if seal.verify:
-        raise NotImplementedError(WEIGHT_MACS)
     flat = flatten_with_path(params)
     dev = flat[0][1].device
     plans = P.make_plan(params, seal)
@@ -335,6 +346,39 @@ def _view(sp: SealedParams, key_bytes: bytes, keep=()):
         return _unseal_tensor(eng, st)
 
     return unflatten(sp.skeleton, [leaf(p) for p in sp.plans])
+
+
+def verify_params(sp: SealedParams, key_bytes: bytes) -> torch.Tensor:
+    """Integrity check of the whole sealed weight image: every stored tag
+    recomputed from the at-rest words, reduced to one () bool on the
+    image's device (True = intact), with no read back to the host. Leaves
+    sealed without MACs are skipped (True when there are none)."""
+    eng = sp.engine(key_bytes)
+    oks = []
+    for path in sp.plans:
+        st = sp.tensors[path]
+        if st.macs is None:
+            continue
+        m = st.meta
+        if m.layout == "tiles":
+            tags = M.tile_tags(eng.mac_ctx, _tiles2d(st.payload, m),
+                               st.row_mask, st.wc, m.bk, m.bn, tweak=m.nonce)
+        else:
+            buf = E.SealedBuffer(m.scheme, st.payload, st.counters,
+                                 m.orig_len, m.shape, torch_dtype(m.dtype),
+                                 m.nonce)
+            tags = eng.line_macs(buf, _line_tweak(path))
+        oks.append((tags == st.macs).all())
+    if not oks:
+        return torch.ones((), dtype=torch.bool,
+                          device=eng.key_words.device)
+    return torch.stack(oks).all()
+
+
+def n_macs(sp: SealedParams) -> int:
+    """Number of stored weight tags (for stats and overhead reports)."""
+    return sum(t.macs.numel() for t in sp.tensors.values()
+               if t.macs is not None)
 
 
 def fused_params(sp: SealedParams, key_bytes: bytes):

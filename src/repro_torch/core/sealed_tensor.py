@@ -58,13 +58,16 @@ class SealedTensor:
     wc:          (batch...,) int32 per-slice write counter — tiles only
     nonce_words: (3,) int32 on the payload's device — tiles only; kept as a
                  tensor so a matmul launches without a host-to-device copy
+    macs:        int32 Carter–Wegman tags beside the counter metadata
+                 (lines: (L,) one a 128 B line; tiles: (batch..., K//bk,
+                 N//bn) one a tile); None when sealed without integrity
     """
 
     __slots__ = ("payload", "counters", "row_mask", "key_words", "wc",
-                 "meta", "nonce_words")
+                 "meta", "nonce_words", "macs")
 
     def __init__(self, payload, counters, row_mask, key_words, wc,
-                 meta: SealMeta, nonce_words=None):
+                 meta: SealMeta, nonce_words=None, macs=None):
         self.payload = payload
         self.counters = counters
         self.row_mask = row_mask
@@ -74,6 +77,7 @@ class SealedTensor:
         if nonce_words is None and meta.layout == "tiles":
             nonce_words = u32.words(meta.nonce, payload.device)
         self.nonce_words = nonce_words
+        self.macs = macs
 
     def __repr__(self):
         return (f"SealedTensor({self.meta.scheme}/{self.meta.layout}, "
@@ -114,18 +118,19 @@ class SealedTensor:
                                ).element_size()
 
     def stored_bytes(self) -> int:
-        """Bytes of the at-rest image (counters and flags included)."""
+        """Bytes of the at-rest image (counters, flags and MACs included)."""
+        mac_b = self.macs.numel() * 4 if self.macs is not None else 0
         if self.meta.layout == "tiles":
             b = self.payload.numel() * 4
             if self.row_mask is not None:
                 b += self.row_mask.numel()          # 1 B/row SE flag
             if self.wc is not None:
                 b += max(self.wc.numel(), 1) * 4    # write counters
-            return b
+            return b + mac_b
         n_lines = self.payload.shape[0]
         if self.meta.scheme == "coloe":
-            return n_lines * self.payload.shape[1] * 4
-        return n_lines * 32 * 4 + n_lines * 8
+            return n_lines * self.payload.shape[1] * 4 + mac_b
+        return n_lines * 32 * 4 + n_lines * 8 + mac_b
 
     def extra_streams(self) -> int:
         """Independent memory streams a reader must fetch (1 = colocated)."""

@@ -46,14 +46,12 @@
 // A copy thread likewise makes both pads of its unit in registers: 128
 // bytes and two pads a unit, so the pads bound it.
 //
-// The tag's hash is sum(r_i * m_i) mod (2^31 - 1) over the block's 16-bit
-// halves m_i with keys r_i < 2^31 (core/mac.py::uhash). Each product is
-// below 2^47 and a block has at most 2^16 halves, so the sum is exact in 64
-// bits and the same in any order: a block of threads a tag, each thread
-// accumulating its words' products with one wide multiply-add a half, a
-// warp-shuffle and shared-memory reduction, and one modulo and one pad at
-// the end. Per tag that is the block's bytes, read once, against about 3
-// integer operations a half and one pad: the bytes bound it.
+// The tag's hash (chacha20.cuh, mac_*) is exact in 64 bits: a block of
+// threads a tag, each thread accumulating its words' products with one wide
+// multiply-add a half, a warp-shuffle and shared-memory reduction, and one
+// modulo and one pad at the end. Per tag that is the block's bytes, read
+// once, against about 3 integer operations a half and one pad: the bytes
+// bound it.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -297,17 +295,6 @@ cache_copy_kernel(const uint32_t* __restrict__ key, uint32_t* pool_k,
   store16<VEC>(base + db * rs + w0, nw, w);
 }
 
-constexpr unsigned kP31 = 0x7FFFFFFFu;
-
-// The hash terms of one word: its low and high 16-bit halves times their
-// keys, summed exactly in 64 bits.
-__device__ __forceinline__ unsigned long long word_terms(uint32_t w,
-                                                         uint32_t k_lo,
-                                                         uint32_t k_hi) {
-  return static_cast<unsigned long long>(k_lo) * (w & 0xFFFFu) +
-         static_cast<unsigned long long>(k_hi) * (w >> 16);
-}
-
 // Block (e, 2*l + kv): the tag of entry e in layer l, stream kv; out is
 // (layers, 2, entries). A dead entry writes 0 and reads nothing.
 template <bool VEC>
@@ -335,38 +322,23 @@ cache_tags_kernel(const uint32_t* __restrict__ key,
       kv ? pool_v + l * ls_v + blk * rs_v : pool_k + l * ls_k + blk * rs_k;
   uint32_t pad0 = 0u;
   if (threadIdx.x == 0) {           // the pad overlaps the other loads
-    uint32_t p[16];
     const Nonce& n = kv ? mv : mk;
-    seal::chacha20_block(load_key(key).w, static_cast<uint32_t>(blk),
+    pad0 = seal::mac_pad(load_key(key).w, static_cast<uint32_t>(blk),
                          n.w[0] ^ __ldg(lids + l), n.w[1] ^ __ldg(wc + blk),
-                         n.w[2], p);
-    pad0 = p[0];
+                         n.w[2]);
   }
   unsigned long long acc = 0;
   if (VEC) {
     const uint4* row4 = reinterpret_cast<const uint4*>(row);
-    const uint4* key4 = reinterpret_cast<const uint4*>(hkeys);
-    for (int q = threadIdx.x; q < wpb / 4; q += kThreads) {
-      const uint4 w = row4[q];
-      const uint4 ka = __ldg(key4 + 2 * q), kb = __ldg(key4 + 2 * q + 1);
-      acc += word_terms(w.x, ka.x, ka.y) + word_terms(w.y, ka.z, ka.w) +
-             word_terms(w.z, kb.x, kb.y) + word_terms(w.w, kb.z, kb.w);
-    }
+    for (int q = threadIdx.x; q < wpb / 4; q += kThreads)
+      acc += seal::mac_quad_terms(row4[q], hkeys, q);
   } else {
     for (int q = threadIdx.x; q < wpb; q += kThreads)
-      acc += word_terms(row[q], __ldg(hkeys + 2 * q), __ldg(hkeys + 2 * q + 1));
+      acc += seal::mac_word_terms(row[q], __ldg(hkeys + 2 * q),
+                                  __ldg(hkeys + 2 * q + 1));
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xFFFFFFFFu, acc, o);
-  __shared__ unsigned long long part[kThreads / 32];
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = acc;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned long long sum = 0;
-#pragma unroll
-    for (int j = 0; j < kThreads / 32; ++j) sum += part[j];
-    *dst = static_cast<uint32_t>(sum % kP31) ^ pad0;
-  }
+  acc = seal::mac_block_sum<kThreads>(acc);
+  if (threadIdx.x == 0) *dst = seal::mac_tag(acc, pad0);
 }
 
 int blocks_for(long long units) {

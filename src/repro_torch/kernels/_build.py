@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("chacha20", "sealed_matmul", "flash_attention",
            "sealed_matmul_tc", "flash_attention_tc", "sealed_matmul_dec",
-           "chacha20_cache", "chacha20_lines")
+           "chacha20_cache", "chacha20_lines", "chacha20_weights")
 
 _P, _I, _L, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_float, ctypes.c_uint)
@@ -53,6 +53,9 @@ PROTOTYPES = {
         "lines_unseal": [_P] * 3 + [_L] * 2 + [_U] * 2 + [_P] * 2,
         "lines_gather_rows": [_P] * 3 + [_U] * 2 + [_P] + [_L] * 3
                              + [_I] * 2 + [_P] * 2},
+    "chacha20_weights": {
+        "tile_tags": [_P] * 6 + [_I] * 5 + [_U] * 3 + [_I, _P],
+        "line_tags": [_P] * 4 + [_L] + [_U] * 4 + [_P] * 2},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -21,6 +21,10 @@ sealed matmul:
 * ``csrc/chacha20_lines.cu`` (``lines_unseal``, ``lines_gather_rows``): the
   line layout's pads (``core.engine._line_otp``) made inside the unseal of a
   whole leaf, or inside the gather of the embedding rows a dispatch needs.
+* ``csrc/chacha20_weights.cu`` (``tile_tags``, ``line_tags``): the sealed
+  weight image's Carter–Wegman tags (``core.mac.tile_tags`` and
+  ``line_tags``), hash and pad in one pass over a leaf, at sealing and in
+  ``sealed_store.verify_params``.
 
 The last two replace the composition around ``chacha20_blocks`` that the
 serving path ran before them: the
@@ -673,6 +677,144 @@ def lines_gather_rows(key_words, payload, counters, nonce2, shape, src_dtype,
               out_dtype)
 
 
+# --------------------------------------------------------------------------
+# the sealed weight image's MAC tags
+# --------------------------------------------------------------------------
+
+def tile_tags_plain(key_words, hash_keys, nonce3, ct, row_mask, wc,
+                    bk: int, bn: int) -> torch.Tensor:
+    """(..., K//bk, N//bn) int32 tags of the (bk, bn) tiles of ``ct``
+    (..., K, N) words: ``core.mac.uhash`` of each tile's words row-major,
+    the rows where ``row_mask`` (..., K) is False zeroed, XOR word 0 of
+    ChaCha20(key, counter = tile address, nonce = (n0, n1 ^ wc, n2)) with
+    ``wc`` (...,) the slice's write counter. One row of tiles at a time, so
+    the int64 temporaries stay a few times that row's size."""
+    from repro_torch.core import mac    # deferred: mac imports this module
+    lead = tuple(ct.shape[:-2])
+    k, n = ct.shape[-2:]
+    nn = n // bn
+    wcs = wc.reshape(lead + (1,))
+    out = []
+    for ti in range(k // bk):
+        rows = slice(ti * bk, (ti + 1) * bk)
+        blk = torch.where(row_mask[..., rows, None], ct[..., rows, :],
+                          torch.zeros((), dtype=ct.dtype, device=ct.device))
+        tiles = blk.reshape(lead + (bk, nn, bn)).movedim(-3, -2)
+        addr = ti * nn + torch.arange(nn, device=ct.device)
+        out.append(mac.uhash(hash_keys, tiles.reshape(lead + (nn, bk * bn)))
+                   ^ mac.mac_pads(key_words, nonce3, addr, wcs, 0,
+                                  block_fn=chacha20_blocks_plain))
+    return torch.stack(out, dim=-2)
+
+
+def tile_tags_cuda(key_words, hash_keys, nonce3, ct, row_mask, wc,
+                   bk: int, bn: int) -> torch.Tensor:
+    """Launch ``tile_tags`` of ``csrc/chacha20_weights.cu``: one block of
+    threads a tile, every stack slice in one launch."""
+    from repro_torch.core.mac import MAX_WORDS
+    dev = ct.device
+    _check_words("key_words", key_words, (8,))
+    _check_words("ct", ct)
+    if ct.ndim < 2:
+        raise ValueError(f"ct: expected (..., K, N), got {tuple(ct.shape)}")
+    lead = tuple(ct.shape[:-2])
+    k, n = ct.shape[-2:]
+    for name, b, dim in (("bk", bk, k), ("bn", bn, n)):
+        if b <= 0 or b & (b - 1) or dim % b:
+            raise ValueError(f"{name} {b} is not a power of two dividing "
+                             f"{dim}")
+    if bk * bn > MAX_WORDS:
+        raise ValueError(f"a {bk}x{bn} tile exceeds one tag's message")
+    _check_words("hash_keys", hash_keys, (2 * bk * bn,))
+    if row_mask.dtype != torch.bool or tuple(row_mask.shape) != lead + (k,):
+        raise TypeError(f"row_mask: expected {lead + (k,)} bool")
+    _check_words("wc", wc)
+    if tuple(wc.shape) != lead:
+        raise ValueError(f"wc: expected shape {lead}, got {tuple(wc.shape)}")
+    slices = 1
+    for d in lead:
+        slices *= d
+    tiles = (k // bk) * (n // bn)
+    if slices >= 65536 or tiles >= 2**31:
+        raise ValueError("too many tiles for one launch")
+    _same_device(dev, key_words, hash_keys, row_mask, wc)
+    key_words, hash_keys, ct, row_mask, wc = (
+        t.contiguous() for t in (key_words, hash_keys, ct, row_mask, wc))
+    out = torch.empty(lead + (k // bk, n // bn), dtype=torch.int32,
+                      device=dev)
+    vec = bn % 4 == 0 and _aligned(ct, hash_keys)
+    fn = _build.load("chacha20_weights").tile_tags
+    with torch.cuda.device(dev):
+        rc = fn(key_words.data_ptr(), hash_keys.data_ptr(), ct.data_ptr(),
+                row_mask.data_ptr(), wc.data_ptr(), out.data_ptr(), slices,
+                k, n, bk, bn, *_nonce_words(nonce3), int(vec), _stream(dev))
+    _build.check(rc, "tile_tags")
+    tile_tags_cuda.launches += 1
+    return out
+
+
+def tile_tags(key_words, hash_keys, nonce3, ct, row_mask, wc, bk: int,
+              bn: int) -> torch.Tensor:
+    """(..., K//bk, N//bn) int32 MAC tags of a tile-sealed weight's tiles
+    (see ``tile_tags_plain``)."""
+    fn = tile_tags_cuda if ct.is_cuda else tile_tags_plain
+    return fn(key_words, hash_keys, nonce3, ct, row_mask, wc, bk, bn)
+
+
+def line_tags_plain(key_words, hash_keys, nonce3, payload, counters,
+                    line0: int = 0) -> torch.Tensor:
+    """(L,) int32 tags of a line-sealed leaf's records: ``core.mac.uhash``
+    of each full stored record (ColoE ``payload`` (L, 34); counter layout
+    ``payload`` (L, 32) with ``counters`` (L,) appended) XOR word 0 of
+    ChaCha20(key, counter = line0 + row, nonce = nonce3). 2^20 lines at a
+    time, so the int64 temporaries stay bounded at the embedding's size."""
+    from repro_torch.core import mac    # deferred: mac imports this module
+    out = []
+    for a in range(0, payload.shape[0], 1 << 20):
+        rows = slice(a, a + (1 << 20))
+        rec = payload[rows] if counters is None else torch.cat(
+            [payload[rows], counters[rows, None]], dim=1)
+        addrs = line0 + a + torch.arange(rec.shape[0], device=payload.device)
+        out.append(mac.uhash(hash_keys, rec) ^ mac.mac_pads(
+            key_words, nonce3, addrs, 0, 0, block_fn=chacha20_blocks_plain))
+    return torch.cat(out) if out else payload.new_zeros((0,))
+
+
+def line_tags_cuda(key_words, hash_keys, nonce3, payload, counters,
+                   line0: int = 0) -> torch.Tensor:
+    """Launch ``line_tags`` of ``csrc/chacha20_weights.cu``: one thread a
+    line, the counter table read where it lies."""
+    key_words, payload, counters = _check_lines(key_words, payload, counters)
+    width = payload.shape[1] + (0 if counters is None else 1)
+    _check_words("hash_keys", hash_keys, (2 * width,))
+    n_lines = payload.shape[0]
+    if n_lines >= 2**32 or not 0 <= line0 < 2**32:
+        raise ValueError(f"lines [{line0}, {line0} + {n_lines}) exceed u32 "
+                         f"addresses")
+    dev = payload.device
+    _same_device(dev, hash_keys)
+    hash_keys = hash_keys.contiguous()
+    out = torch.empty((n_lines,), dtype=torch.int32, device=dev)
+    fn = _build.load("chacha20_weights").line_tags
+    with torch.cuda.device(dev):
+        rc = fn(key_words.data_ptr(), hash_keys.data_ptr(),
+                payload.data_ptr(),
+                None if counters is None else counters.data_ptr(), n_lines,
+                line0, *_nonce_words(nonce3), out.data_ptr(), _stream(dev))
+    _build.check(rc, "line_tags")
+    line_tags_cuda.launches += 1
+    return out
+
+
+def line_tags(key_words, hash_keys, nonce3, payload, counters,
+              line0: int = 0) -> torch.Tensor:
+    """(L,) int32 MAC tags of a line-sealed leaf's records (see
+    ``line_tags_plain``)."""
+    fn = line_tags_cuda if payload.is_cuda else line_tags_plain
+    return fn(key_words, hash_keys, nonce3, payload, counters, line0)
+
+
 for _fn in (cache_view_cuda, cache_splice_cuda, cache_copy_cuda,
-            cache_tags_cuda, lines_unseal_cuda, lines_gather_rows_cuda):
+            cache_tags_cuda, lines_unseal_cuda, lines_gather_rows_cuda,
+            tile_tags_cuda, line_tags_cuda):
     _fn.launches = 0

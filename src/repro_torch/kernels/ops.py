@@ -3,8 +3,9 @@
 reference calls straight from ``repro/kernels/flash_attention.py``, and the
 ChaCha routes that make their pads where the data is used (the reference
 composes these from ``chacha20_keystream``): ``cache_view``,
-``cache_splice``, ``cache_copy`` and ``cache_tags`` of the paged KV cache, ``lines_unseal`` and
-``lines_gather_rows`` of line-sealed leaves.
+``cache_splice``, ``cache_copy`` and ``cache_tags`` of the paged KV cache,
+``lines_unseal`` and ``lines_gather_rows`` of line-sealed leaves, and
+``tile_tags`` and ``line_tags`` of the sealed weight image's MACs.
 
 A CPU tensor takes a kernel's plain version; a CUDA tensor launches the
 kernel or raises — there is no fallback. ``launch_counts`` reads the plain
@@ -28,6 +29,8 @@ _COUNTED = {"chacha20": _cc.chacha20_blocks,
             "chacha20_cache_tags": _cc.cache_tags_cuda,
             "chacha20_lines_unseal": _cc.lines_unseal_cuda,
             "chacha20_lines_gather": _cc.lines_gather_rows_cuda,
+            "chacha20_weight_tile_tags": _cc.tile_tags_cuda,
+            "chacha20_weight_line_tags": _cc.line_tags_cuda,
             "sealed_matmul": _sm.sealed_matmul_cuda,
             "sealed_matmul_tc": _sm.sealed_matmul_tc_cuda,
             "sealed_matmul_dec": _sm.sealed_matmul_dec_cuda,
@@ -51,6 +54,8 @@ cache_copy = _cc.cache_copy
 cache_tags = _cc.cache_tags
 lines_unseal = _cc.lines_unseal
 lines_gather_rows = _cc.lines_gather_rows
+tile_tags = _cc.tile_tags
+line_tags = _cc.line_tags
 
 
 def keystream(key_words, nonce_words, n_blocks: int, *,

@@ -8,6 +8,8 @@ of ``repro/launch/serve.py`` (``poisson_arrivals``, ``drive``, ``main``).
     --shared-prefix 32 --expect-shared --compare-sealed``
 ``python -m repro_torch.launch.serve --seal none --seal-cache on --verify \
     --inject-tamper bitflip,replay,rollback,relocate --check``
+``python -m repro_torch.launch.serve --seal coloe --verify --temperature 0.7 \
+    --top-k 5 --top-p 0.9 --check``
 
 Arrivals are Poisson in *scheduler-step* units: request ``i`` is submitted
 once the engine has advanced ``arrival[i]`` steps, so the trace is
@@ -15,9 +17,10 @@ deterministic under ``--seed`` and independent of host speed. ``--check``
 exits non-zero unless every request completed. ``--device`` picks the card
 (``cuda``, the default) or the CPU's plain path (``cpu``).
 
-Flags of slices the port has not reached yet (sampling, the Direct engine,
-``--verify`` over sealed weights) exit 2 with a message that names the
-slice.
+``--verify`` over sealed weights also seals them with MACs and sweeps them
+once per drain (fail-stop); ``--seed`` seeds the requests' sampling streams
+too. ``--seal direct`` (the Direct engine, not ported yet) exits 2 with a
+message that names its slice.
 """
 from __future__ import annotations
 
@@ -29,7 +32,6 @@ import numpy as np
 
 from repro_torch.config import SealConfig
 from repro_torch.configs import get_config, get_reduced
-from repro_torch.core.sealed_store import WEIGHT_MACS
 from repro_torch.core.security.tamper import TamperInjector
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
@@ -79,14 +81,9 @@ def drive(eng, prompts, arrivals, submit_kw) -> list:
 def _unported(args) -> list:
     """(flag, where it comes) for every flag whose slice is not ported."""
     out = []
-    if args.temperature or args.top_k or args.top_p < 1.0:
-        out.append(("--temperature/--top-k/--top-p",
-                    "the sampling slice of the port"))
     if args.seal == "direct":
         out.append(("--seal direct",
                     "the Direct engine (AES-128) slice of the port"))
-    if (args.verify or args.inject_tamper) and args.seal != "none":
-        out.append(("--verify over sealed weights", WEIGHT_MACS))
     return out
 
 
@@ -130,8 +127,9 @@ def main(argv=None) -> int:
     ap.add_argument("--expect-shared", action="store_true",
                     help="exit non-zero unless shared_prefix_blocks > 0")
     ap.add_argument("--verify", action="store_true",
-                    help="arm the cache's co-located Carter-Wegman MACs: "
-                         "check every sealed block at every read")
+                    help="arm the co-located Carter-Wegman MACs: sweep "
+                         "sealed weights once per drain (fail-stop) and "
+                         "check every sealed cache block at every read")
     ap.add_argument("--inject-tamper", default="",
                     help="comma-separated fault kinds (bitflip,replay,"
                          "rollback,relocate) to inject against the sealed "
@@ -181,11 +179,12 @@ def main(argv=None) -> int:
         if seal_cache_override is not None:
             seal_cache = seal_cache_override
         if verify and seal is None and not seal_cache:
-            print("FAIL: --verify/--inject-tamper need a sealed cache",
-                  file=sys.stderr)
+            print("FAIL: --verify/--inject-tamper need sealed weights "
+                  "and/or a sealed cache", file=sys.stderr)
             sys.exit(2)
         return ServeEngine(cfg, params, batch_slots=args.slots,
                            max_len=max_len, seal=seal, seal_cache=seal_cache,
+                           sample_seed=args.seed,
                            prefix_share=args.prefix_share,
                            chunk_tokens=args.chunk_tokens or None,
                            verify=verify, fault_hooks=injectors,
@@ -193,6 +192,10 @@ def main(argv=None) -> int:
                            device=dev)
 
     eng = build()
+    submit_kw = dict(max_tokens=args.max_tokens)
+    if engine == "continuous":      # the group engine stays greedy
+        submit_kw.update(temperature=args.temperature, top_k=args.top_k,
+                         top_p=args.top_p)
     rng = np.random.RandomState(args.seed)
     shared = rng.randint(0, cfg.vocab_size, size=args.shared_prefix)
     prompts = [np.concatenate([
@@ -202,7 +205,6 @@ def main(argv=None) -> int:
                                                 args.prompt_len + 1))])
                for _ in range(args.requests)]
     arrivals = poisson_arrivals(args.requests, args.stagger, rng)
-    submit_kw = dict(max_tokens=args.max_tokens)
     t0 = time.time()
     reqs = drive(eng, prompts, arrivals, submit_kw)
     dt = time.time() - t0

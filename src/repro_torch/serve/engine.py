@@ -32,8 +32,11 @@ block as it is, and a slot pays one re-keying copy (``ops.cache_copy``) only
 when it must append into a shared tail block. With ``verify`` the sealed
 cache carries per-block MACs: every read is checked, a failure fails only
 the owning request, which is re-prefilled once (``fault_hooks`` model the
-adversary, ``core.security.tamper``). Verified sealed *weights* and sampling
-other than greedy are refused, naming their slices.
+adversary, ``core.security.tamper``); over sealed weights ``verify`` also
+seals the weights with per-tile and per-line MACs and sweeps them once per
+drain (``_verify_weights``), fail-stop. Requests sample with their own
+temperature / top-k / top-p from the reference's PRNG streams
+(``serve/sampling.py``).
 """
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ import torch
 from repro_torch import u32
 from repro_torch.config import ModelConfig, SealConfig
 from repro_torch.core import sealed_store as SS
+from repro_torch.core.mac import SealedIntegrityError
 from repro_torch.device import resolve_device
 from repro_torch.models import cache as MC
 from repro_torch.models import transformer as T
@@ -113,7 +117,7 @@ class ServeEngine:
                  max_len: int = 256, seal: Optional[SealConfig] = None,
                  key_bytes: bytes = bytes(range(32)), block_size: int = 16,
                  seal_cache: Optional[bool] = None,
-                 admit_batch: Optional[int] = None,
+                 admit_batch: Optional[int] = None, sample_seed: int = 0,
                  prefix_share: bool = False,
                  chunk_tokens: Optional[int] = None,
                  verify: bool = False, watchdog=None,
@@ -131,8 +135,8 @@ class ServeEngine:
         if verify and not (weights_sealed or seal_cache):
             raise ValueError("verify=True needs sealed weights and/or a "
                              "sealed cache: there is nothing to MAC")
-        if verify and weights_sealed:
-            raise NotImplementedError(SS.WEIGHT_MACS)
+        if weights_sealed and verify and not seal.verify:
+            seal = dataclasses.replace(seal, verify=True)
         self.device = resolve_device(device)
         params = map_leaves(lambda t: t.to(self.device), params)
         self.cfg = cfg
@@ -148,13 +152,16 @@ class ServeEngine:
         self.fault_hooks = tuple(fault_hooks)
         self.sealed = (SS.seal_params(params, seal, key_bytes)
                        if weights_sealed else None)
+        # the weight image is immutable while serving: it is swept by its
+        # own MAC pass at drain entry, not re-hashed inside every dispatch
+        self._wswept = False
         self._plain_params = (None if weights_sealed
                               else _plain_weights(cfg, params))
 
         self.cache_seal = (SS.cache_seal_config(key_bytes, self.device,
                                                 verify=verify)
                            if seal_cache else None)
-        if verify:                  # the hash keys, once, on the device
+        if verify and seal_cache:   # the hash keys, once, on the device
             self.cache_seal.mac.hash_keys(
                 block_size * MC.kv_words_per_token(cfg))
 
@@ -176,8 +183,10 @@ class ServeEngine:
         self._wc = np.zeros((self.num_blocks,), np.uint32)
         self._last_tok = np.zeros((s,), np.int64)
         self._counts = np.zeros((s,), np.int64)
+        self._temp = np.zeros((s,), np.float32)    # decides greedy dispatches
         self._admit_n = min(admit_batch or max(1, batch_slots // 4),
                             batch_slots)
+        self._sample_seed = sample_seed
         self._next_rid = 0
         self.queue: List[Request] = []
         self._done: List[Request] = []
@@ -218,7 +227,6 @@ class ServeEngine:
     def submit(self, prompt, max_tokens: int = 32, eos: int = -1,
                temperature: float = 0.0, top_k: int = 0,
                top_p: float = 1.0) -> Request:
-        SM.check_greedy(temperature, top_k, top_p)
         prompt = np.asarray(prompt, np.int32)
         if not 1 <= len(prompt) < self.max_len:
             raise ValueError(f"prompt length {len(prompt)} vs max_len "
@@ -248,6 +256,8 @@ class ServeEngine:
         n0 = len(self._done)
         for hook in self.fault_hooks:
             hook.on_step(self)
+        if not self._wswept:
+            self._verify_weights()
         self._admit()
         if any(p is not None for p in self._pending):
             self._chunk_tick()
@@ -264,6 +274,7 @@ class ServeEngine:
         raises ``StragglerTimeout`` rather than spin on a stuck drain."""
         limit = max_steps if max_steps is not None else self.max_run_steps
         n0 = len(self._done)
+        self._verify_weights()          # the fail-stop sweep at drain entry
         steps = 0
         while self.busy:
             before = (len(self.queue), self.stats["decode_steps"],
@@ -343,6 +354,7 @@ class ServeEngine:
                 self._lengths[slot] = n_shared
                 self._counts[slot] = 0
                 self._last_tok[slot] = 0
+                self._temp[slot] = r.temperature
                 if partial is not None:
                     cow_pairs.append((partial[0], priv[0]))
                     cow_slots.append(slot)
@@ -350,14 +362,24 @@ class ServeEngine:
                 self.stats["shared_prefix_blocks"] += (
                     len(full) + (1 if partial else 0))
                 self.stats["shared_prefix_tokens"] += n_shared
-                batch.append((slot, n_shared, held))
+                batch.append((slot, n_shared, held, r))
             if not batch:
                 return
             slots = [b[0] for b in batch]
+            reqs = [b[3] for b in batch]
+            keys = torch.stack([SM.request_key_data(self._sample_seed, r.rid)
+                                for r in reqs])
             ST.admit(self._state, self._to_dev(np.asarray(slots, np.int64)),
                      self._to_dev(self._tables[slots]),
                      self._to_dev(np.asarray([b[1] for b in batch],
-                                             np.int64)))
+                                             np.int64)),
+                     keys.to(self.device),
+                     self._to_dev(np.asarray([r.temperature for r in reqs],
+                                             np.float32)),
+                     self._to_dev(np.asarray([r.top_k for r in reqs],
+                                             np.int64)),
+                     self._to_dev(np.asarray([r.top_p for r in reqs],
+                                             np.float32)))
             if cow_pairs:
                 # padded to the admit width, as the reference's dispatch;
                 # the copy finishes, in stream order, before the sharers'
@@ -381,11 +403,11 @@ class ServeEngine:
                         if self._registry is not None:
                             self._registry.purge_blocks(
                                 [s_b for s_b, _ in cow_pairs])
-                        for _, _, held in batch:
+                        for _, _, held, _ in batch:
                             self._alloc.decref(held)
                         self._integrity_retry(cow_slots)
                         continue
-            for _, _, held in batch:
+            for _, _, held, _ in batch:
                 self._alloc.decref(held)   # slot refs live in _slot_blocks
 
     def _fetch(self, tok, cok):
@@ -416,7 +438,8 @@ class ServeEngine:
         tok, cok, _ = ST.chunk_step(
             self.cfg, self.params(), self._pools, self._state,
             self._to_dev(np.asarray(rows, np.int64)), self._to_dev(toks),
-            self._to_dev(cl), self._to_dev(fin), self.cache_seal)
+            self._to_dev(cl), self._to_dev(fin), self.cache_seal,
+            greedy=bool((self._temp[rows] <= 0).all()))
         self.stats["prefills"] += 1
         self.stats["prefill_chunks"] += len(rows)
         tok, cok_h = self._fetch(tok, cok)
@@ -456,7 +479,7 @@ class ServeEngine:
     def _decode_tick(self):
         tok, cok, _ = ST.decode_tick(
             self.cfg, self.params(), self._pools, self._state,
-            self.cache_seal)
+            self.cache_seal, greedy=bool((self._temp <= 0).all()))
         self.stats["decode_steps"] += 1
         tok, cok_h = self._fetch(tok, cok)     # the ONLY d2h copy per tick
         self._count_checks(sum(1 for i, r in enumerate(self._active)
@@ -487,6 +510,22 @@ class ServeEngine:
             self._evict_slots(finished)
 
     # -------------------------------------------------- integrity
+
+    def _verify_weights(self):
+        """The MAC sweep over the sealed weight image
+        (``sealed_store.verify_params``: one kernel launch a leaf, one
+        device bool), a dispatch of its own at ``run()`` entry and once
+        lazily from ``step()``. A failure is fail-stop: the model is not
+        trustworthy and no request can be recovered."""
+        self._wswept = True
+        if not (self.verify and self.sealed is not None):
+            return
+        self.stats["mac_checks"] += 1
+        if not bool(SS.verify_params(self.sealed, self.key_bytes)):
+            self.stats["mac_failures"] += 1
+            raise SealedIntegrityError(
+                "weights", "sealed weight image failed its MAC sweep: "
+                "fail-stop, the model is not trustworthy")
 
     def _count_checks(self, n_checked: int) -> None:
         """A verified dispatch checked the cache reads of ``n_checked``
@@ -540,6 +579,7 @@ class ServeEngine:
             self._lengths[slot] = 0
             self._counts[slot] = 0
             self._last_tok[slot] = 0
+            self._temp[slot] = 0.0
             self._active[slot] = None
             self._pending[slot] = None
 
@@ -608,10 +648,9 @@ class GroupServeEngine:
         return SS.serving_params(self.sealed, self.key_bytes,
                                  self.cfg.tie_embeddings)
 
-    def submit(self, prompt, max_tokens: int = 32, eos: int = -1,
-               temperature: float = 0.0, top_k: int = 0,
-               top_p: float = 1.0) -> Request:
-        SM.check_greedy(temperature, top_k, top_p)
+    def submit(self, prompt, max_tokens: int = 32, eos: int = -1) -> Request:
+        """Queue a greedy request (the group engine takes no sampling
+        settings, as the reference's)."""
         prompt = np.asarray(prompt, np.int32)
         _check_prompt(prompt, self.cfg.vocab_size)
         r = Request(self._next_rid, prompt, max_tokens, eos,

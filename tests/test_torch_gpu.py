@@ -538,3 +538,126 @@ def test_prefix_sharing_verified_serving_on_the_card_matches_cpu(cuda):
     assert not any(cpu_n.values())
     assert gpu_stats["cow_copies"] >= 1 and gpu_stats["mac_failures"] == 0
     assert gpu_n["chacha20_cache_copy"] == gpu_stats["cow_copies"]
+
+
+@pytest.mark.parametrize("k,n,bk,bn,lead,shift", [
+    (256, 512, 128, 128, (2,), 0), (64, 96, 32, 32, (), 0),
+    (40, 24, 8, 8, (3,), 0), (128, 256, 128, 64, (1,), 1),
+    (16, 128, 16, 16, (), 3)], ids=str)
+def test_tile_tags_kernel_bitwise(cuda, k, n, bk, bn, lead, shift):
+    """Weight tile tags, stacked and not, over random SE masks (bypass
+    tiles too), write counters at 2^32 - 1, words at 0xFFFFFFFF and bit 31,
+    and a payload that starts off a 16-byte boundary (shift words in): two
+    launches equal the plain version's tags bitwise."""
+    from repro_torch.core.mac import mac_context
+    gen = torch.Generator(device=cuda).manual_seed(k * n + shift)
+    size = 1
+    for d in lead + (k, n):
+        size *= d
+    flat = _words(gen, (size + 8,), cuda)
+    flat[::7] = -1
+    flat[1::3] |= -2**31
+    ct = flat[shift:shift + size].view(lead + (k, n))
+    mask = torch.rand(lead + (k,), generator=gen, device=cuda) < 0.5
+    mask[..., :bk] = False
+    wc = _words(gen, lead, cuda)
+    wc.view(-1)[::2] = -1
+    ctx = mac_context(bytes(range(32)), "weights", cuda)
+    args = (ctx.key_words, ctx.hash_keys(bk * bn), ctx.nonce((5, 2**32 - 1, 9)),
+            ct, mask, wc, bk, bn)
+    want = CC.tile_tags_plain(*args)
+    before = ops.launch_counts()
+    got = [CC.tile_tags(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    _launched(before, "chacha20_weight_tile_tags", 2)
+    assert torch.equal(got[0], want) and torch.equal(got[1], want)
+
+
+@pytest.mark.parametrize("scheme", ["coloe", "counter"])
+@pytest.mark.parametrize("n_lines,line0", [(1, 0), (127, 3), (1000, 2**32 - 5)])
+def test_line_tags_kernel_bitwise(cuda, scheme, n_lines, line0):
+    """Weight line tags for ColoE records and the counter layout (its
+    counter word read where it lies), partial blocks of lines and line
+    addresses that wrap: two launches equal the plain version bitwise."""
+    from repro_torch.core.mac import mac_context
+    gen = torch.Generator(device=cuda).manual_seed(n_lines)
+    width = 34 if scheme == "coloe" else 32
+    payload = _words(gen, (n_lines, width), cuda)
+    payload[:, ::5] = -1
+    counters = None if scheme == "coloe" else _words(gen, (n_lines,), cuda)
+    ctx = mac_context(bytes(range(32)), "weights", cuda)
+    args = (ctx.key_words, ctx.hash_keys(34 if scheme == "coloe" else 33),
+            ctx.nonce((7, 8, 0)), payload, counters, line0)
+    want = CC.line_tags_plain(*args)
+    before = ops.launch_counts()
+    got = [CC.line_tags(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    _launched(before, "chacha20_weight_line_tags", 2)
+    assert torch.equal(got[0], want) and torch.equal(got[1], want)
+
+
+@pytest.mark.parametrize("mode", ["coloe", "counter"])
+def test_verified_sealed_weights_on_the_card_match_cpu(cuda, mode):
+    """Sealing with MACs and the weight sweep on the card: every leaf's
+    tags equal the CPU's, ``verify_params`` is True with one tag launch a
+    leaf, False after a flipped word; a verified sampled engine's streams
+    and stats equal the CPU plain path's (f32)."""
+    from repro_torch.core import sealed_store as SS
+    cfg = get_reduced("internlm2_1_8b").with_(dtype="float32", num_layers=4)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    seal = SealConfig(mode=mode, verify=True)
+    key = bytes(range(32))
+    sp_cpu = SS.seal_params(params, seal, key)
+    sp_gpu = SS.seal_params(map_leaves(lambda t: t.to(cuda), params), seal,
+                            key)
+    for path, st in sp_cpu.tensors.items():
+        assert torch.equal(sp_gpu.tensors[path].macs.cpu(), st.macs), path
+    before = ops.launch_counts()
+    ok = SS.verify_params(sp_gpu, key)
+    after = ops.launch_counts()
+    tiles = sum(t.meta.layout == "tiles" for t in sp_gpu.tensors.values())
+    assert bool(ok) and ok.is_cuda
+    assert after["chacha20_weight_tile_tags"] - \
+        before["chacha20_weight_tile_tags"] == tiles
+    assert after["chacha20_weight_line_tags"] - \
+        before["chacha20_weight_line_tags"] == len(sp_gpu.tensors) - tiles
+    sp_gpu.tensors["head/w"].payload[3, 4] ^= 1
+    assert not bool(SS.verify_params(sp_gpu, key))
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (9, 21, 14)]
+    settings = [dict(temperature=0.8), dict(temperature=1.0, top_k=5),
+                dict(temperature=0.7, top_p=0.9)]
+    runs = []
+    for dev in ("cpu", cuda):
+        eng = ServeEngine(cfg, map_leaves(lambda t: t.to(dev), params),
+                          batch_slots=2, max_len=48, seal=SealConfig(mode=mode),
+                          verify=True, sample_seed=3, device=dev)
+        hs = [eng.submit(p, max_tokens=6, **kw)
+              for p, kw in zip(prompts, settings)]
+        eng.run()
+        runs.append(([h.out for h in hs], dict(eng.stats)))
+    assert runs[1] == runs[0]
+    assert runs[0][1]["mac_failures"] == 0 and runs[0][1]["mac_checks"] > 1
+
+
+def test_sampler_on_the_card_matches_cpu(cuda):
+    """The sampler's bits bitwise and its tokens exactly, card against CPU,
+    on the same logits and keys at the full vocabulary."""
+    from repro_torch import prng
+    from repro_torch.serve import sampling as SM
+    rng = np.random.RandomState(0)
+    logits = torch.from_numpy((rng.randn(6, 92544) * 2).astype(np.float32))
+    kd = torch.stack([SM.request_key_data(9, r) for r in range(6)])
+    counts = torch.tensor([0, 1, 2, 7, 100, 3])
+    temp = torch.tensor([0.0, 0.7, 1.0, 1.3, 0.9, 1.0])
+    topk = torch.tensor([0, 0, 50, 0, 5, 0])
+    topp = torch.tensor([1.0, 0.9, 1.0, 0.5, 1.0, 0.95])
+    out = []
+    for dev in ("cpu", cuda):
+        keys = SM.fold_token_keys(kd.to(dev), counts.to(dev))
+        out.append((keys.cpu(), prng.random_bits(keys, 92544).cpu(),
+                    SM.sample_logits(logits.to(dev), keys, temp.to(dev),
+                                     topk.to(dev), topp.to(dev),
+                                     greedy=False).cpu()))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)

@@ -434,12 +434,17 @@ def test_verify_requires_something_sealed(model):
 
 
 def test_verify_over_sealed_weights_names_its_slice(model):
+    """Verification over sealed weights is ported: the engine seals the
+    weights with MACs (``seal.verify`` turned on, as the reference does)
+    and the store tags every leaf; ``tests/test_torch_weight_integrity.py``
+    holds both to the reference."""
     _, cfg_t, _, pt = model
-    with pytest.raises(NotImplementedError, match="weight-integrity slice"):
-        ServeEngine(cfg_t, pt, batch_slots=2, max_len=48, seal=SealConfig(),
-                    verify=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="weight-integrity slice"):
-        TSS.seal_params(pt, SealConfig(verify=True), KEY)
+    eng = ServeEngine(cfg_t, pt, batch_slots=2, max_len=48, seal=SealConfig(),
+                      verify=True, device="cpu")
+    assert eng.seal.verify and eng.cache_seal.mac is not None
+    assert all(t.macs is not None for t in eng.sealed.tensors.values())
+    sp = TSS.seal_params(pt, SealConfig(verify=True), KEY)
+    assert TSS.n_macs(sp) == TSS.n_macs(eng.sealed) > 0
 
 
 def test_make_injectors_csv():

@@ -147,6 +147,12 @@ def test_launch_counts_untouched_on_cpu():
                   lids, blocks, torch.tensor([3, 0]), live, wc)
     TO.cache_tags(u32.words(KEY), torch.ones((64,), dtype=torch.int32),
                   (1, 2, 3), (4, 5, 6), pool, pool, lids, blocks, live, wc)
+    ct = torch.zeros((2, 16, 8), dtype=torch.int32)
+    TO.tile_tags(u32.words(KEY), torch.ones((128,), dtype=torch.int32),
+                 (1, 2, 3), ct, torch.ones((2, 16), dtype=torch.bool),
+                 lids, 8, 8)
+    TO.line_tags(u32.words(KEY), torch.ones((68,), dtype=torch.int32),
+                 (1, 2, 3), lines, None)
     assert TO.launch_counts() == {"chacha20": 0, "sealed_matmul": 0,
                                   "sealed_matmul_tc": 0,
                                   "sealed_matmul_dec": 0,
@@ -157,4 +163,6 @@ def test_launch_counts_untouched_on_cpu():
                                   "chacha20_cache_copy": 0,
                                   "chacha20_cache_tags": 0,
                                   "chacha20_lines_unseal": 0,
-                                  "chacha20_lines_gather": 0}
+                                  "chacha20_lines_gather": 0,
+                                  "chacha20_weight_tile_tags": 0,
+                                  "chacha20_weight_line_tags": 0}

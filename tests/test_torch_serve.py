@@ -121,12 +121,16 @@ def test_decode_tick_reads_nothing_from_the_host(f32_model, monkeypatch):
 
 
 def test_unported_options_raise(f32_model):
+    """Only the Direct engine is still refused. Sampling settings, prefix
+    sharing, verification (over the cache and over sealed weights) and
+    fault hooks build and run."""
     _, cfg_t, _, pt = f32_model
     eng = ServeEngine(cfg_t, pt, device="cpu", **KW)
-    for kw in (dict(temperature=0.7), dict(top_k=5), dict(top_p=0.9)):
-        with pytest.raises(NotImplementedError, match="sampling slice"):
-            eng.submit([1, 2, 3], **kw)
-    # prefix sharing, verification and fault hooks are ported: they build
+    reqs = [eng.submit([1, 2, 3], max_tokens=2, **kw)
+            for kw in (dict(temperature=0.7), dict(top_k=5),
+                       dict(top_p=0.9))]
+    eng.run()
+    assert all(len(r.out) == 2 for r in reqs)
     hook = object()
     shared = ServeEngine(cfg_t, pt, device="cpu", prefix_share=True, **KW)
     assert shared._registry is not None and shared._registry.bs == 16
@@ -134,9 +138,9 @@ def test_unported_options_raise(f32_model):
                            device="cpu", fault_hooks=(hook,), **KW)
     assert verified.cache_seal.mac is not None
     assert verified.fault_hooks == (hook,)
-    with pytest.raises(NotImplementedError, match="weight-integrity slice"):
-        ServeEngine(cfg_t, pt, seal=SealConfig(), verify=True, device="cpu",
-                    **KW)
+    sealed = ServeEngine(cfg_t, pt, seal=SealConfig(), verify=True,
+                         device="cpu", **KW)
+    assert sealed.seal.verify and sealed.cache_seal.mac is not None
     with pytest.raises(NotImplementedError):
         ServeEngine(cfg_t, pt, seal=SealConfig(mode="direct"), device="cpu",
                     **KW)
