@@ -91,7 +91,25 @@ runs:
    bits and tokens on the card equal to the CPU plain path's on saved
    logits and keys, an all-greedy run with phase 4's launches and no
    device draw, and a sampled tick beside a greedy one (events, host clock,
-   profiler).
+   profiler);
+9. the Direct engine (AES-128-ECB, the paper's baseline) at full width:
+   (a) the AES kernel (``csrc/aes128.cu``) bitwise against its plain
+   version, each case launched twice: the FIPS-197 C.1 vector both ways,
+   runs of blocks, the CTR keystream at two tweaks, line encrypt and
+   decrypt at lengths off whole lines and blocks with every kind of flag,
+   an odd bf16 leaf, one stack slice of MLP wi and the embedding's last
+   65,536 lines at their own offsets in the sealed image (and equal to
+   it), timed beside their bounds; (b) the image sealed (one encrypt launch
+   a leaf, timed) and unsealed bit for bit; (c) phase 4's trace through a
+   Direct engine with a sealed cache: every request complete, tokens equal
+   to a plaintext engine's, one decrypt launch a leaf a dispatch and no
+   fused matmul or embedding gather, the whole image as plaintext bytes a
+   step, teacher-forced prefill and first-tick logits bitwise equal to
+   plaintext in bf16 and in f32; (d) the same verified (one line-tag sweep,
+   tokens equal) and a flipped enciphered or bypass line word stopping the
+   drain with ``SealedIntegrityError("weights")`` before any token; (e) one
+   dispatch's decrypt of the whole image against its bound, and a Direct
+   tick beside a ColoE and a plaintext tick (events, host clock, profiler).
 
 Every phase raises on failure, so the script exits non-zero. The line before
 the last is a JSON ``{"kernels": [...]}`` record; the last line is
@@ -125,6 +143,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 128 * 1.98e9
 ALU_OPS_PER_S = 132 * 64 * 1.98e9
+# shared memory serves 32 banks x 4 bytes a clock in each SM: at most
+# 132 x 32 x 1.98e9 = 8.36e12 table lookups (32-bit words) a second, the
+# ceiling of AES's T-table rounds
+LDS_WORDS_PER_S = 132 * 32 * 1.98e9
 BF16_FLOPS = 989e12
 CHACHA_OPS = 976          # 20 rounds x 4 quarter-rounds x 12 ops + 16 adds
 CHACHA_ALU_OPS = 640      # ... of which 320 XORs and 320 rotations
@@ -145,7 +167,9 @@ SOURCE = {"chacha20_weight_tile_tags": "chacha20_weights",
           "chacha20_cache_copy": "chacha20_cache",
           "chacha20_cache_tags": "chacha20_cache",
           "chacha20_lines_unseal": "chacha20_lines",
-          "chacha20_lines_gather": "chacha20_lines"}
+          "chacha20_lines_gather": "chacha20_lines",
+          "aes128_lines_encrypt": "aes128",
+          "aes128_lines_decrypt": "aes128"}
 
 SM_REPLACES = "src/repro/kernels/sealed_matmul.py:94"
 CC_REPLACES = "src/repro/kernels/chacha20.py:91"
@@ -187,13 +211,14 @@ def log(*a):
     print(*a, flush=True)
 
 
-def bound_ms(nbytes, int_ops=0.0, bf16_flops=0.0, alu_ops=0.0):
+def bound_ms(nbytes, int_ops=0.0, bf16_flops=0.0, alu_ops=0.0, lookups=0.0):
     """Least time for the work: the larger of bytes over the memory rate and
     each kind of operation over its peak rate (``alu_ops``: the integer
-    operations that only the ALU pipe issues). Returns (ms, bound_by)."""
+    operations that only the ALU pipe issues; ``lookups``: 32-bit
+    shared-memory table reads). Returns (ms, bound_by)."""
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = max(int_ops / INT32_OPS_PER_S, alu_ops / ALU_OPS_PER_S,
-                bf16_flops / BF16_FLOPS)
+                bf16_flops / BF16_FLOPS, lookups / LDS_WORDS_PER_S)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -237,10 +262,10 @@ def main(argv=None) -> int:
     # library that makes pads (static counts; the rounds are unrolled)
     int_ops = {}
     for name in ("chacha20", "sealed_matmul_dec", "chacha20_cache",
-                 "chacha20_lines"):
+                 "chacha20_lines", "aes128"):
         mix = _build.sass_opcodes(name)
         int_ops[name] = {op: n for op, n in sorted(mix.items())
-                         if op.split(".")[0] in INT_OPCODES}
+                         if op.split(".")[0] in INT_OPCODES + ("LDS",)}
         log(f"[build:{name}] SASS integer mix: " + ", ".join(
             f"{op} {n}" for op, n in int_ops[name].items()))
     smi = subprocess.run(
@@ -271,6 +296,10 @@ def main(argv=None) -> int:
     report["weights_sampling"] = phase_weights_sampling(
         torch, dev, args, cfg, serve["params"], serve["prompts"],
         report["serve"])
+    # phase 8 lets go of its engines; phase 9 seals the same weights with
+    # the Direct engine and serves the same trace
+    report["direct"] = phase_direct(torch, dev, args, cfg, serve["params"],
+                                    serve["prompts"])
     del serve
 
     kernels = kernel_records(report)
@@ -338,9 +367,17 @@ def kernel_records(report):
         ("chacha20_weight_line_tags", CC_REPLACES,
          report["weights_sampling"]["verify"]["launches"][
              "chacha20_weight_line_tags"], 0),
+        # AES for the Direct engine (phase 9), in place of the reference's
+        # jnp AES: the encrypt counted over the sealing of the Direct
+        # engine, the decrypt over the Direct run of phase 4's trace
+        ("aes128_lines_encrypt", AES_ENC_REPLACES,
+         report["direct"]["seal_launches"]["aes128_lines_encrypt"], 0),
+        ("aes128_lines_decrypt", AES_DEC_REPLACES,
+         report["direct"]["launches"]["aes128_lines_decrypt"], 0),
     ]
     fused = dict(report["chacha_fused"]["timing"])
     fused.update(report["weights_sampling"]["timing"])
+    fused.update(report["direct"]["timing"])
     for name, recs in fused.items():    # the main path's shape: the first
         t[name] = dict(recs[0])
     kernels = []
@@ -2519,6 +2556,357 @@ def phase_weights_sampling(torch, dev, args, cfg, params, prompts, serve):
     del eng
     torch.cuda.empty_cache()
     return out
+
+
+# --------------------------------------------------------------------------
+# phase 9: the Direct engine (AES-128-ECB) at full width
+# --------------------------------------------------------------------------
+
+# the reference's AES, plain jnp (no Pallas kernel stands behind it)
+AES_ENC_REPLACES = "src/repro/core/cipher.py:107"
+AES_DEC_REPLACES = "src/repro/core/cipher.py:158"
+# table lookups of one enciphered 16-byte block: 16 a round, 10 rounds
+AES_LOOKUPS = 160
+# FIPS-197 appendix C.1
+FIPS_KEY = bytes(range(16))
+FIPS_PT = bytes.fromhex("00112233445566778899aabbccddeeff")
+FIPS_CT = bytes.fromhex("69c4e0d86a7b0430d8cdb78070b4c55a")
+# line edge cases: (words, flags pattern), flags by line
+AES_EDGES = ((5, "enc"), (1001, "mixed"), (4097, "bypass"), (32, "enc"),
+             (33, "mixed"), (96 * 32 + 7, "mixed"))
+
+
+def _aes_bound(lines, out_words, enc_lines):
+    """Bound of one pass over ``lines`` 128-byte lines: each line and its
+    flag word read once, ``out_words`` words written once; 160 shared-memory
+    table lookups for each enciphered 16-byte block (8 a line)."""
+    return bound_ms(lines * (128 + 4) + 4 * out_words,
+                    lookups=AES_LOOKUPS * 8 * enc_lines)
+
+
+def _aes_twice(torch, kernel, plain, args, label):
+    got = [kernel(*args) for _ in range(2)]
+    want = plain(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g.reshape(-1), want.reshape(-1)) for g in got):
+        raise AssertionError(f"{kernel.__name__} != plain: {label}")
+    return label
+
+
+def _int_view(t):
+    import torch
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def phase_direct(torch, dev, args, cfg, params, prompts):
+    """(a) the AES kernel against its plain version, (b) sealing the full
+    image and unsealing it exactly, (c) phase 4's trace through a Direct
+    engine with a sealed cache, bitwise to plaintext, (d) the same verified
+    and a weight tamper, (e) timings; internlm2-1.8B at full width, bf16."""
+    import numpy as np
+    from repro_torch.config import SealConfig
+    from repro_torch.core import cipher as C
+    from repro_torch.core import engine as E
+    from repro_torch.core import sealed_store as SS
+    from repro_torch.core.mac import SealedIntegrityError
+    from repro_torch.kernels import aes128 as AES
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import ServeEngine
+    key = bytes(range(32))
+    out = {}
+    torch.cuda.empty_cache()
+    log(f"[direct] device memory at the start: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    scratch = torch.empty((64 * 2**20,), dtype=torch.int32, device=dev)
+    flush = lambda: scratch.zero_()           # 256 MB > the 50 MB L2
+
+    # (a) the kernel against its plain version, bitwise, each case twice
+    done = []
+    rk = C.round_keys_tensor(C.aes128_key_schedule(
+        np.frombuffer(FIPS_KEY, np.uint8)), dev)
+    pt = torch.tensor(list(FIPS_PT), dtype=torch.uint8, device=dev)[None]
+    ct = AES.encrypt_blocks(pt, rk)
+    back = AES.decrypt_blocks(ct, rk)
+    if bytes(ct.cpu().reshape(-1).tolist()) != FIPS_CT or \
+            bytes(back.cpu().reshape(-1).tolist()) != FIPS_PT:
+        raise AssertionError("AES kernel fails the FIPS-197 C.1 vector")
+    done.append("FIPS-197 C.1 forward and inverse")
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 31)
+    blocks = torch.randint(0, 256, (1000, 16), generator=gen, device=dev,
+                           dtype=torch.uint8)
+    done.append(_aes_twice(torch, AES.encrypt_blocks,
+                           AES.encrypt_blocks_plain, (blocks, rk),
+                           "1000 blocks forward"))
+    done.append(_aes_twice(torch, AES.decrypt_blocks,
+                           AES.decrypt_blocks_plain, (blocks, rk),
+                           "1000 blocks inverse"))
+    ids = _rand_words(torch, gen, (4099,), dev)
+    for tweak in (0, 0x0123456789ABCDEF):
+        ks = C.aes128_ctr_keystream(rk, ids, tweak)
+        want = C.aes128_ctr_keystream(rk, ids.cpu(), tweak)
+        if not torch.equal(ks.cpu(), want):
+            raise AssertionError(f"CTR keystream tweak {tweak:#x} != plain")
+        done.append(f"CTR keystream, 4099 blocks, tweak {tweak:#x}")
+    eng = E.DirectEngine(key, dev)
+    rk = eng.round_keys
+    for n, pattern in AES_EDGES:
+        words = _rand_words(torch, gen, (n,), dev)
+        lines = -(-n // 32)
+        flags = {"enc": torch.ones((lines,), dtype=torch.int32, device=dev),
+                 "bypass": torch.zeros((lines,), dtype=torch.int32,
+                                       device=dev),
+                 "mixed": torch.randint(0, 4, (lines,), generator=gen,
+                                        device=dev,
+                                        dtype=torch.int32)}[pattern]
+        done.append(_aes_twice(torch, AES.lines_encrypt_cuda,
+                               AES.lines_encrypt_plain, (rk, words, flags),
+                               f"encrypt {n} words, {pattern} flags"))
+        payload = AES.lines_encrypt_plain(rk, words, flags)
+        done.append(_aes_twice(torch, AES.lines_decrypt_cuda,
+                               AES.lines_decrypt_plain,
+                               (rk, payload, flags, n),
+                               f"decrypt {n} words, {pattern} flags"))
+    x = torch.randn((3, 7), generator=gen, device=dev).to(torch.bfloat16)
+    sb = eng.encrypt(x, enc_flags=torch.ones((1,), dtype=torch.int32,
+                                             device=dev))
+    if not torch.equal(_int_view(eng.decrypt(sb)), _int_view(x)):
+        raise AssertionError("a bf16 leaf of 21 elements did not round trip")
+    done.append(_aes_twice(torch, AES.lines_decrypt_cuda,
+                           AES.lines_decrypt_plain,
+                           (rk, sb.payload, sb.counters, sb.orig_len),
+                           "bf16 leaf (3, 7), 11 words"))
+
+    # (b) the full image sealed (the engine's construction seals it)
+    plain_engine = ServeEngine(cfg, params, batch_slots=SLOTS, max_len=256,
+                               seal=None, device=dev)
+    seal = SealConfig(mode="direct")            # SE 0.5
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.time()
+    direct = ServeEngine(cfg, params, batch_slots=SLOTS, max_len=256,
+                         seal=seal, device=dev)
+    torch.cuda.synchronize()
+    out["seal_s"] = time.time() - t0
+    out["seal_launches"] = ops.launch_counts()
+    sp = direct.sealed
+    n_leaves = len(sp.tensors)
+    image = sum(t.numel() * t.element_size() for t in _leaves(params))
+    lines = sum(st.payload.shape[0] for st in sp.tensors.values())
+    enc_lines = sum(int((st.counters & 1).sum()) for st in sp.tensors.values())
+    out_words = sum(st.meta.orig_len for st in sp.tensors.values())
+    out["image"] = {"bytes": image, "lines": lines, "enc_lines": enc_lines,
+                    "stored_bytes": sp.stored_bytes(), "leaves": n_leaves}
+    log(f"[direct] sealed {image / 1e9:.3f} GB in {out['seal_s']:.2f} s "
+        f"(host clock): {n_leaves} leaves, {lines} lines, {enc_lines} "
+        f"enciphered ({enc_lines / lines:.3f}), stored "
+        f"{sp.stored_bytes() / 1e9:.3f} GB, launches "
+        f"{out['seal_launches']['aes128_lines_encrypt']} aes128_lines_encrypt")
+    if out["seal_launches"]["aes128_lines_encrypt"] != n_leaves or \
+            sp.fused_paths() or any(st.meta.scheme != "direct"
+                                    for st in sp.tensors.values()):
+        raise AssertionError(f"sealing launched {out['seal_launches']}")
+    back = SS.unseal_params(sp, key)
+    for (p, a), b in zip(flatten_paths(back), _leaves(params)):
+        if not torch.equal(_int_view(a), _int_view(b)):
+            raise AssertionError(f"unseal_params differs at {p}")
+    del back
+    torch.cuda.empty_cache()
+    log("[direct] unseal_params equals the params bitwise, leaf for leaf")
+
+    # the kernel at the main path's shapes: one stack slice of MLP wi and
+    # the embedding's last lines, at their own offsets in the sealed image
+    wi = sp.tensors["blocks/0/mlp/wi"]
+    per = wi.payload.shape[0] // wi.meta.shape[0]
+    emb = sp.tensors[SS.EMBED]
+    cases = (("blocks/0/mlp/wi", wi, WEIGHT_SLICE * per, per),
+             (SS.EMBED, emb, emb.payload.shape[0] - EMBED_LINES, EMBED_LINES))
+    by_path = dict(flatten_paths(params))
+    plain_words = {p: by_path[p].reshape(-1).view(torch.int32)
+                   for p, *_ in cases}
+    times = {}
+    for path, st, first, n_lines in cases:
+        pay = st.payload[first:first + n_lines]
+        fl = st.counters[first:first + n_lines]
+        n_words = min(32 * n_lines, st.meta.orig_len - 32 * first)
+        words = plain_words[path][32 * first:32 * first + n_words]
+        label = (f"{path} lines [{first}, {first + n_lines}), "
+                 f"{int((fl & 1).sum())} enciphered")
+        done.append(_aes_twice(torch, AES.lines_decrypt_cuda,
+                               AES.lines_decrypt_plain,
+                               (rk, pay, fl, n_words), "decrypt " + label))
+        done.append(_aes_twice(torch, AES.lines_encrypt_cuda,
+                               AES.lines_encrypt_plain, (rk, words, fl),
+                               "encrypt " + label))
+        if not torch.equal(AES.lines_decrypt_cuda(rk, pay, fl, n_words),
+                           words) or not torch.equal(
+                AES.lines_encrypt_cuda(rk, words, fl).reshape(pay.shape),
+                pay):
+            raise AssertionError(f"kernel != the sealed image: {label}")
+        enc = int((fl & 1).sum())
+        for name, kern, plain, a in (
+                ("aes128_lines_decrypt", AES.lines_decrypt_cuda,
+                 AES.lines_decrypt_plain, (rk, pay, fl, n_words)),
+                ("aes128_lines_encrypt", AES.lines_encrypt_cuda,
+                 AES.lines_encrypt_plain, (rk, words, fl))):
+            ms = _time_ms(torch, lambda: kern(*a), 10, flush)
+            plain_ms = _time_ms(torch, lambda: plain(*a), 1)
+            b_ms, b_by = _aes_bound(n_lines, n_words if "decrypt" in name
+                                    else 32 * n_lines, enc)
+            times.setdefault(name, []).append(
+                {"shape": label, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+            log(f"[time] {name} {label}: {ms:.4f} ms, plain {plain_ms:.3f} "
+                f"ms, bound {b_ms:.4f} ms ({b_by}; {b_ms / ms:.2f} of the "
+                f"kernel's time)")
+    log(f"[direct] {len(done)} AES cases bitwise, each kernel launched "
+        f"twice: " + "; ".join(done))
+    out["cases"] = done
+    out["timing"] = times
+
+    # (c) phase 4's trace: Direct with a sealed cache, beside plaintext
+    handles, launches, secs = _drain(torch, direct, prompts, NEW_TOKENS)
+    ph, _, plain_s = _drain(torch, plain_engine, prompts, NEW_TOKENS)
+    st = direct.stats
+    dispatches = st["prefills"] + st["decode_steps"]
+    want = {"aes128_lines_decrypt": dispatches * n_leaves,
+            "aes128_lines_encrypt": 0, "chacha20": 0,
+            "chacha20_lines_unseal": 0, "chacha20_lines_gather": 0,
+            "chacha20_cache_view": dispatches * cfg.num_layers,
+            "chacha20_cache_splice": dispatches * len(cfg.pattern),
+            "sealed_matmul": 0, "sealed_matmul_dec": 0,
+            "sealed_matmul_tc": 0}
+    got = {name: launches[name] for name in want}
+    same = [h.out for h in handles] == [h.out for h in ph]
+    out["launches"] = launches
+    out["serve"] = {"stats": dict(st), "serve_s": secs, "plain_s": plain_s,
+                    "tokens_equal_plaintext": same}
+    log(f"[direct] sealed run: {secs:.2f} s (plaintext {plain_s:.2f} s), "
+        f"{dispatches} dispatches, tokens equal to the plaintext engine's: "
+        f"{same}, plaintext per step "
+        f"{st['weights_plaintext_bytes_per_step'] / 1e9:.3f} GB, launches "
+        f"{launches}")
+    if not all(h.done and len(h.out) == NEW_TOKENS for h in handles):
+        raise AssertionError("not every Direct request completed")
+    if not same:
+        raise AssertionError("Direct tokens differ from plaintext")
+    if got != want:
+        raise AssertionError(f"Direct launches {got}, expected {want}")
+    if st["weights_plaintext_bytes_per_step"] != image or \
+            st["fused_matmul_leaves"]:
+        raise AssertionError("Direct should materialize the whole image")
+    direct.check_device_mirror()
+    first = prompts[:SLOTS]
+    for dtype in ("bfloat16", "float32"):
+        c = cfg.with_(dtype=dtype)
+        pre_p, dec_p, forced = first_tick_logits(torch, c, params, None,
+                                                 first, None, dev)
+        pre_d, dec_d, _ = first_tick_logits(torch, c, direct.params(),
+                                            direct.cache_seal, first, forced,
+                                            dev)
+        equal = torch.equal(pre_d, pre_p) and torch.equal(dec_d, dec_p)
+        out[f"first_tick_equal_{dtype}"] = equal
+        log(f"[direct] teacher-forced prefill and first decode tick logits, "
+            f"Direct vs plaintext, {dtype}: bitwise equal {equal}")
+        if not equal:
+            raise AssertionError(f"Direct {dtype} logits differ from "
+                                 f"plaintext")
+
+    # (d) verified: the sweep over the Direct image, and weight tampers
+    ver = ServeEngine(cfg, params, batch_slots=SLOTS, max_len=256,
+                      seal=seal, verify=True, device=dev)
+    vh, vl, vsecs = _drain(torch, ver, prompts, NEW_TOKENS)
+    vst = ver.stats
+    checks = 1 + vst["prefill_chunks"] + vst["tokens"] - len(prompts)
+    vsame = [h.out for h in vh] == [h.out for h in handles]
+    vwant = dict(want, aes128_lines_decrypt=dispatches * n_leaves,
+                 chacha20_weight_line_tags=n_leaves,
+                 chacha20_weight_tile_tags=0,
+                 chacha20_cache_tags=dispatches * (cfg.num_layers
+                                                   + len(cfg.pattern)))
+    vgot = {name: vl[name] for name in vwant}
+    out["verify"] = {"stats": dict(vst), "launches": vl, "serve_s": vsecs,
+                     "tokens_equal": vsame}
+    log(f"[direct] verified run: {vsecs:.2f} s, mac_checks "
+        f"{vst['mac_checks']} (expected {checks}), mac_failures "
+        f"{vst['mac_failures']}, tokens equal to (c): {vsame}, launches {vl}")
+    if not vsame or vst["mac_failures"] or vst["mac_checks"] != checks:
+        raise AssertionError("the verified Direct run is wrong")
+    if vgot != vwant:
+        raise AssertionError(f"verified launches {vgot}, expected {vwant}")
+    vwi = ver.sealed.tensors["blocks/0/mlp/wi"]
+    fl = vwi.counters
+    sites = (("an enciphered line word", 32 * int(torch.nonzero(
+                 fl == 1)[0]) + 3),
+             ("a bypass line word", 32 * int(torch.nonzero(fl == 0)[0]) + 5))
+    verdicts = {}
+    for what, idx in sites:
+        vwi.payload.view(-1)[idx] ^= 1 << 4
+        hs = [ver.submit(p, max_tokens=NEW_TOKENS) for p in prompts[:2]]
+        tokens0 = vst["tokens"]
+        try:
+            ver.run()
+            raise AssertionError(f"a flipped {what} was served")
+        except SealedIntegrityError as err:
+            verdicts[what] = err.scope
+        vwi.payload.view(-1)[idx] ^= 1 << 4
+        if verdicts[what] != "weights" or any(h.out for h in hs) or \
+                vst["tokens"] != tokens0:
+            raise AssertionError(f"a flipped {what} was not fail-stop")
+        ver.queue.clear()
+    if not bool(SS.verify_params(ver.sealed, key)):
+        raise AssertionError("the restored Direct image fails its sweep")
+    out["tamper"] = verdicts
+    log(f"[direct] weight tamper: SealedIntegrityError scopes {verdicts}, "
+        f"no token served; True again once restored")
+    del ver, vwi, fl
+    torch.cuda.empty_cache()
+
+    # (e) one dispatch's decrypt of the whole image, and three ticks
+    view_ms = _time_ms(torch, lambda: SS.serving_params(sp, key), 3, flush)
+    b_ms, b_by = _aes_bound(lines, out_words, enc_lines)
+    out["dispatch_decrypt"] = {"ms": view_ms, "bound_ms": b_ms,
+                               "bound_by": b_by}
+    log(f"[time] one Direct dispatch's decrypt of the image ({n_leaves} "
+        f"launches, {image / 1e9:.3f} GB): {view_ms:.3f} ms against a "
+        f"{b_ms:.3f} ms bound ({b_by}; {b_ms / view_ms:.2f})")
+    coloe = ServeEngine(cfg, params, batch_slots=SLOTS, max_len=256,
+                        seal=SealConfig(), device=dev)
+    ticks = {}
+    for label, e in (("direct", direct), ("coloe", coloe),
+                     ("plaintext", plain_engine)):
+        for p in prompts[:SLOTS]:
+            e.submit(p, max_tokens=64)
+        while any(r is None or e._pending[i] is not None
+                  for i, r in enumerate(e._active)):
+            e.step()
+        ms = _time_ms(torch, e._decode_tick, 5)
+        wall = []
+        for _ in range(5):
+            t0 = time.time()
+            e._decode_tick()                 # ends in the tokens' d2h copy
+            wall.append(1e3 * (time.time() - t0))
+        prof = _profile(torch, e._decode_tick, 3, f"{label} decode ticks")
+        aes_ms = sum(v for k, v in prof["device_ms"].items()
+                     if "aes128_kernel" in k) / 3
+        ticks[label] = {"ms": ms, "host_ms": sorted(wall)[len(wall) // 2],
+                        "device_busy_ms": prof["device_busy_ms"] / 3,
+                        "idle_share": prof["idle_share"],
+                        "aes_device_ms": aes_ms,
+                        "kernel_launches": prof["kernel_launches"] / 3}
+        log(f"[time] decode tick, {SLOTS} slots, {label}: {ms:.2f} ms "
+            f"(device events), {ticks[label]['host_ms']:.2f} ms (host "
+            f"clock), device busy {ticks[label]['device_busy_ms']:.2f} ms "
+            f"(AES {aes_ms:.2f} ms), idle share {prof['idle_share']:.3f}")
+        e.queue.clear()
+    out["ticks"] = ticks
+    del direct, coloe, plain_engine, sp, wi, emb
+    torch.cuda.empty_cache()
+    return out
+
+
+def flatten_paths(tree):
+    from repro_torch.tree import flatten_with_path
+    return [("/".join(p), t) for p, t in flatten_with_path(tree)]
 
 
 CHACHA_KERNELS = {"chacha20": "chacha20_blocks_kernel",

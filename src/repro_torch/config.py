@@ -77,8 +77,9 @@ class ModelConfig:
 class SealConfig:
     """The paper's technique.
 
-    mode: none | direct | counter | coloe (the port covers counter and coloe;
-      direct/AES comes with a later slice).
+    mode: none | direct | counter | coloe (direct: AES-128-ECB lines, the
+      paper's baseline, decrypted whole every dispatch; counter/coloe:
+      ChaCha20 counter mode, fused into the matmuls).
     smart_ratio: fraction of weight rows encrypted (paper's SE default 0.5).
     fuse_decrypt: decrypt inside the consumer matmul kernel.
     verify: co-located Carter–Wegman MACs on every leaf (one a weight

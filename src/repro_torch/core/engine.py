@@ -1,26 +1,31 @@
-"""Memory-encryption engines — paper §2.3 / §3.2. Port of the counter-mode
-half of ``repro/core/engine.py``: ``tensor_to_words``/``words_to_tensor``,
-``_line_otp``, ``SealedBuffer``, ``CounterEngine``, ``ColoEEngine`` and
-``make_engine``.
+"""Memory-encryption engines — paper §2.3 / §3.2. Port of
+``repro/core/engine.py``: ``tensor_to_words``/``words_to_tensor``,
+``_line_otp``, ``SealedBuffer``, ``EngineProtocol``, ``DirectEngine``,
+``CounterEngine``, ``ColoEEngine`` and ``make_engine``.
 
+* ``DirectEngine``  — AES-128-ECB on each 16 B block, one global key: the
+  paper's "traditional memory encryption" baseline. Equal plaintext lines
+  give equal ciphertext lines, and the line layout is all it has.
 * ``CounterEngine`` — OTP = ChaCha20(key, line_addr, write_counter) XOR data;
   counters in a separate table (the paper's extra memory stream).
 * ``ColoEEngine``   — the same OTP, counters co-located per line in a packed
   34-word record (the paper's contribution).
 
-Words are int32 bit patterns of u32 (``repro_torch.u32``). On the card a
-decrypt makes its pads inside one kernel a leaf (``ops.lines_unseal``), and
-sealing takes its keystream from the ChaCha kernel
-(``core.cipher.chacha20_block``). Both engines carry the weight MAC
-context (domain "weights") and the line layout's tags (``line_macs``:
-``kernels.chacha20.line_tags`` on the card). ``DirectEngine`` (AES-128)
-comes with a later slice.
+Words are int32 bit patterns of u32 (``repro_torch.u32``). On the card the
+Direct engine's lines go through the AES kernel
+(``ops.aes128_lines_encrypt`` / ``aes128_lines_decrypt``, one launch a
+leaf); a counter-mode decrypt makes its pads inside one kernel a leaf
+(``ops.lines_unseal``), and sealing takes its keystream from the ChaCha
+kernel (``core.cipher.chacha20_block``). Every engine carries the weight
+MAC context (domain "weights") and the line layout's tags
+(``EngineProtocol.line_macs``: ``kernels.chacha20.line_tags`` on the card).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import u32
@@ -81,9 +86,9 @@ def _line_otp(key_words, line_addrs, write_counters, nonce2, block_fn=None):
 @dataclasses.dataclass
 class SealedBuffer:
     """Ciphertext + metadata for one tensor."""
-    scheme: str                        # counter | coloe
-    payload: torch.Tensor              # counter: (L,32); coloe: (L,34)
-    counters: Optional[torch.Tensor]   # counter scheme: separate (L,) table
+    scheme: str                        # direct | counter | coloe
+    payload: torch.Tensor              # direct/counter: (L,32); coloe: (L,34)
+    counters: Optional[torch.Tensor]   # counter: (L,) table; direct: flags
     orig_len: int                      # valid words
     shape: tuple
     dtype: torch.dtype
@@ -99,19 +104,97 @@ class SealedBuffer:
     def stored_bytes(self) -> int:
         if self.scheme == "coloe":
             return self.n_lines * CL.COLOE_LINE_WORDS * 4
-        return self.data_bytes() + self.n_lines * 8
+        extra = self.n_lines * 8 if self.scheme == "counter" else 0
+        return self.data_bytes() + extra
 
     def extra_streams(self) -> int:
         """Independent memory streams a reader must fetch (1 = colocated)."""
         return 2 if self.scheme == "counter" else 1
 
 
-class _CtrBase:
+class EngineProtocol:
+    """What every memory-encryption engine emits (see the reference's
+    docstring): the line-packed at-rest layout (``encrypt``/``decrypt``),
+    its Carter–Wegman tags over the full stored record of each line
+    (``line_record``, ``line_macs``, ``verify_lines``), and, for the
+    counter-mode engines only (``supports_fused``), the tile-sealed matmul
+    layout and the KV-cache block layout. AES-ECB has no counter structure
+    to exploit, so Direct stays on the eager line layout."""
+    supports_fused = False
+    name = ""
+
+    def line_record(self, s: SealedBuffer) -> torch.Tensor:
+        """The full at-rest record of each line, the MAC message: ColoE's
+        packed 34 words, or the 32 data words of the counter and Direct
+        layouts with their counter or flag word appended."""
+        if s.scheme == "coloe":
+            return s.payload
+        return torch.cat([s.payload, s.counters[:, None]], dim=1)
+
+    def line_macs(self, s: SealedBuffer, tweak=(0, 0, 0)) -> torch.Tensor:
+        """(L,) int32 tags of the line records (``core.mac.line_tags``; the
+        kernel reads the counter or flag word where it lies, so
+        ``line_record`` is never built on this path)."""
+        return M.line_tags(self.mac_ctx, s.payload, tweak,
+                           counters=None if s.scheme == "coloe"
+                           else s.counters)
+
+    def verify_lines(self, s: SealedBuffer, macs,
+                     tweak=(0, 0, 0)) -> torch.Tensor:
+        """(L,) bool: each line's tag against the stored MACs."""
+        return self.line_macs(s, tweak) == macs
+
+    def seal_cache_blocks(self, words, nonce3, block_ids, write_counters,
+                          layer_ids):
+        raise NotImplementedError(f"{self.name}: no cache-block layout")
+
+    def encrypt_tiles(self, w2d, nonce3, row_mask, write_counter,
+                      bk: int, bn: int):
+        raise NotImplementedError(f"{self.name}: no tile-sealed layout")
+
+    def decrypt_tiles(self, ct2d, nonce3, row_mask, write_counter,
+                      bk: int, bn: int):
+        raise NotImplementedError(f"{self.name}: no tile-sealed layout")
+
+
+class DirectEngine(EngineProtocol):
+    """AES-128-ECB — the paper's 'Direct' baseline. The flags (bit 0: the
+    line is enciphered) ride in the ``counters`` slot; the nonce is (0, 0),
+    since ECB takes none."""
+    name = "direct"
+
+    def __init__(self, key_bytes: bytes, device=None):
+        self.round_keys = C.round_keys_tensor(C.aes128_key_schedule(
+            np.frombuffer(key_bytes[:16], np.uint8)), device)
+        self.mac_ctx = M.mac_context(key_bytes, "weights", device)
+
+    def encrypt(self, x, nonce2=(0, 0), enc_flags=None) -> SealedBuffer:
+        """Lines of ``x``'s words, zero-padded, each enciphered block by
+        block where its flag is set and stored verbatim where it is not.
+        ``nonce2`` is taken for the engines' common signature and unused."""
+        words, shape, dt = tensor_to_words(x)
+        n_lines = -(-words.shape[0] // CL.WORDS_PER_LINE)
+        flags = (torch.ones((n_lines,), dtype=torch.int32,
+                            device=words.device)
+                 if enc_flags is None else enc_flags.to(torch.int32))
+        ct = ops.aes128_lines_encrypt(self.round_keys, words, flags)
+        return SealedBuffer("direct", ct, flags, words.shape[0], shape, dt,
+                            (0, 0))
+
+    def decrypt(self, s: SealedBuffer):
+        """The tensor back from its lines: one kernel launch on the card,
+        which deciphers the flagged lines, copies the others and writes only
+        the first ``orig_len`` words."""
+        words = ops.aes128_lines_decrypt(self.round_keys, s.payload,
+                                         s.counters, s.orig_len)
+        return words_to_tensor(words, s.shape, s.dtype)
+
+
+class _CtrBase(EngineProtocol):
     """What the counter-mode engines share: the line OTP, the tile-sealed
     matmul layout and the KV-cache block layout (see the reference's
     ``EngineProtocol`` docstring)."""
     supports_fused = True
-    name = ""
 
     def __init__(self, key_bytes: bytes, device=None):
         self.key_words = u32.words(C.key_to_words(key_bytes[:32]), device)
@@ -132,27 +215,6 @@ class _CtrBase:
         words = ops.lines_unseal(self.key_words, s.payload, s.counters,
                                  s.orig_len, s.nonce2)
         return words_to_tensor(words, s.shape, s.dtype)
-
-    def line_record(self, s: SealedBuffer) -> torch.Tensor:
-        """The full at-rest record of each line, the MAC message: ColoE's
-        packed 34 words, or the counter scheme's 32 data words with their
-        counter word appended."""
-        if s.scheme == "coloe":
-            return s.payload
-        return torch.cat([s.payload, s.counters[:, None]], dim=1)
-
-    def line_macs(self, s: SealedBuffer, tweak=(0, 0, 0)) -> torch.Tensor:
-        """(L,) int32 tags of the line records (``core.mac.line_tags``; the
-        kernel reads the counter table where it lies, so ``line_record`` is
-        never built on this path)."""
-        return M.line_tags(self.mac_ctx, s.payload, tweak,
-                           counters=None if s.scheme == "coloe"
-                           else s.counters)
-
-    def verify_lines(self, s: SealedBuffer, macs,
-                     tweak=(0, 0, 0)) -> torch.Tensor:
-        """(L,) bool: each line's tag against the stored MACs."""
-        return self.line_macs(s, tweak) == macs
 
     def encrypt_tiles(self, w2d, nonce3, row_mask, write_counter,
                       bk: int, bn: int):
@@ -248,10 +310,9 @@ class ColoEEngine(_CtrBase):
                             orig, shape, dt, s.nonce2)
 
 
+ENGINES = {"direct": DirectEngine, "counter": CounterEngine,
+           "coloe": ColoEEngine}
+
+
 def make_engine(mode: str, key_bytes: bytes, device=None):
-    engines = {"counter": CounterEngine, "coloe": ColoEEngine}
-    if mode == "direct":
-        raise NotImplementedError(
-            "the Direct (AES-128) engine is not ported yet; it comes with the "
-            "Direct/AES slice of the port")
-    return engines[mode](key_bytes, device)
+    return ENGINES[mode](key_bytes, device)

@@ -371,7 +371,7 @@ def verify_params(sp: SealedParams, key_bytes: bytes) -> torch.Tensor:
         oks.append((tags == st.macs).all())
     if not oks:
         return torch.ones((), dtype=torch.bool,
-                          device=eng.key_words.device)
+                          device=eng.mac_ctx.key_words.device)
     return torch.stack(oks).all()
 
 
@@ -389,7 +389,14 @@ def fused_params(sp: SealedParams, key_bytes: bytes):
 
 
 def _sealed_in_view(sp: SealedParams, tie_embeddings: bool):
-    return () if tie_embeddings or EMBED not in sp.tensors else (EMBED,)
+    """The leaves ``serving_params`` keeps line-sealed: the embedding, whose
+    rows the ChaCha gather kernel unseals. Direct's AES lines have no
+    gather, so there the embedding is decrypted whole, as the reference's
+    ``fused_params`` does for every engine."""
+    if tie_embeddings or EMBED not in sp.tensors or \
+            not E.ENGINES[sp.seal.mode].supports_fused:
+        return ()
+    return (EMBED,)
 
 
 def serving_params(sp: SealedParams, key_bytes: bytes,
@@ -398,5 +405,6 @@ def serving_params(sp: SealedParams, key_bytes: bytes,
     left line-sealed (``SealedTensor.gather_rows`` decrypts a dispatch's
     rows inside the gather kernel), so no plaintext embedding is written to
     device memory. A model whose unembedding shares the embedding needs
-    the whole matrix, so there it is decrypted as before."""
+    the whole matrix, so there it is decrypted as before, and so it is under
+    the Direct engine (``_sealed_in_view``)."""
     return _view(sp, key_bytes, _sealed_in_view(sp, tie_embeddings))

@@ -4,7 +4,8 @@ Port of ``repro/core/sealed_tensor.py``, as a plain class (no pytree).
 Two layouts:
 
 * ``"lines"`` — the at-rest image: payload (L, 32) data lines (counter
-  scheme, counters in a separate table) or (L, 34) ColoE records. Decrypted
+  scheme, counters in a separate table; Direct, AES-ECB, its flags in the
+  same slot) or (L, 34) ColoE records. Decrypted
   before use (``sealed_store.fused_params`` / ``unseal_params``), except the
   serving view's token embedding: ``gather_rows`` decrypts only the rows a
   dispatch embeds, inside the gather kernel.
@@ -30,7 +31,7 @@ from repro_torch import u32
 @dataclasses.dataclass(frozen=True)
 class SealMeta:
     """Static layout metadata."""
-    scheme: str                    # counter | coloe
+    scheme: str                    # direct | counter | coloe
     layout: str                    # lines | tiles
     dtype: str                     # original leaf dtype, e.g. "float32"
     nonce: Tuple[int, ...]         # 2 words (lines) / 3 words (tiles)
@@ -51,7 +52,8 @@ class SealedTensor:
     """Ciphertext leaf.
 
     payload:     int32 words (layout-dependent shape, see module doc)
-    counters:    (L,) separate counter table — counter scheme, lines only
+    counters:    (L,) separate counter table (counter scheme) or line flags
+                 (Direct) — lines only
     row_mask:    (batch..., K) bool SE row flags — tiles only
     key_words:   (batch..., 8) int32 — tiles, and the serving view's
                  line-sealed embedding (``sealed_store.serving_params``)
@@ -130,7 +132,8 @@ class SealedTensor:
         n_lines = self.payload.shape[0]
         if self.meta.scheme == "coloe":
             return n_lines * self.payload.shape[1] * 4 + mac_b
-        return n_lines * 32 * 4 + n_lines * 8 + mac_b
+        extra = n_lines * 8 if self.meta.scheme == "counter" else 0
+        return n_lines * 32 * 4 + extra + mac_b
 
     def extra_streams(self) -> int:
         """Independent memory streams a reader must fetch (1 = colocated)."""

@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("chacha20", "sealed_matmul", "flash_attention",
            "sealed_matmul_tc", "flash_attention_tc", "sealed_matmul_dec",
-           "chacha20_cache", "chacha20_lines", "chacha20_weights")
+           "chacha20_cache", "chacha20_lines", "chacha20_weights",
+           "aes128")
 
 _P, _I, _L, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_float, ctypes.c_uint)
@@ -56,6 +57,8 @@ PROTOTYPES = {
     "chacha20_weights": {
         "tile_tags": [_P] * 6 + [_I] * 5 + [_U] * 3 + [_I, _P],
         "line_tags": [_P] * 4 + [_L] + [_U] * 4 + [_P] * 2},
+    "aes128": {"aes128_encrypt": [_P] * 3 + [_L, _P, _L, _P, _P],
+               "aes128_decrypt": [_P] * 4 + [_L] * 2 + [_P] * 2},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -5,7 +5,10 @@ ChaCha routes that make their pads where the data is used (the reference
 composes these from ``chacha20_keystream``): ``cache_view``,
 ``cache_splice``, ``cache_copy`` and ``cache_tags`` of the paged KV cache,
 ``lines_unseal`` and ``lines_gather_rows`` of line-sealed leaves, and
-``tile_tags`` and ``line_tags`` of the sealed weight image's MACs.
+``tile_tags`` and ``line_tags`` of the sealed weight image's MACs; and
+AES-128 ECB over line-sealed leaves (``aes128_lines_encrypt`` /
+``aes128_lines_decrypt``) for the Direct engine, which the reference runs as
+jnp.
 
 A CPU tensor takes a kernel's plain version; a CUDA tensor launches the
 kernel or raises — there is no fallback. ``launch_counts`` reads the plain
@@ -18,6 +21,7 @@ from typing import Dict
 import torch
 
 from repro_torch import u32
+from repro_torch.kernels import aes128 as _aes
 from repro_torch.kernels import chacha20 as _cc
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import sealed_matmul as _sm
@@ -35,7 +39,9 @@ _COUNTED = {"chacha20": _cc.chacha20_blocks,
             "sealed_matmul_tc": _sm.sealed_matmul_tc_cuda,
             "sealed_matmul_dec": _sm.sealed_matmul_dec_cuda,
             "flash_attention": _fa.flash_attention_cuda,
-            "flash_attention_tc": _fa.flash_attention_tc_cuda}
+            "flash_attention_tc": _fa.flash_attention_tc_cuda,
+            "aes128_lines_encrypt": _aes.lines_encrypt_cuda,
+            "aes128_lines_decrypt": _aes.lines_decrypt_cuda}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -56,6 +62,9 @@ lines_unseal = _cc.lines_unseal
 lines_gather_rows = _cc.lines_gather_rows
 tile_tags = _cc.tile_tags
 line_tags = _cc.line_tags
+# AES-128 ECB over the Direct engine's lines (kernels/aes128.py)
+aes128_lines_encrypt = _aes.lines_encrypt
+aes128_lines_decrypt = _aes.lines_decrypt
 
 
 def keystream(key_words, nonce_words, n_blocks: int, *,

@@ -3,6 +3,7 @@ the group-drain baseline, over optionally sealed weights and KV cache. Port
 of ``repro/launch/serve.py`` (``poisson_arrivals``, ``drive``, ``main``).
 
 ``python -m repro_torch.launch.serve --arch internlm2_1_8b --seal coloe``
+``python -m repro_torch.launch.serve --seal direct --verify --check``
 ``python -m repro_torch.launch.serve --device cpu --engine group --check``
 ``python -m repro_torch.launch.serve --prefix-share --chunked-prefill \
     --shared-prefix 32 --expect-shared --compare-sealed``
@@ -19,8 +20,8 @@ exits non-zero unless every request completed. ``--device`` picks the card
 
 ``--verify`` over sealed weights also seals them with MACs and sweeps them
 once per drain (fail-stop); ``--seed`` seeds the requests' sampling streams
-too. ``--seal direct`` (the Direct engine, not ported yet) exits 2 with a
-message that names its slice.
+too. ``--seal direct`` serves through the Direct engine (AES-128-ECB lines,
+every leaf decrypted each dispatch: the AES kernel on the card).
 """
 from __future__ import annotations
 
@@ -78,15 +79,6 @@ def drive(eng, prompts, arrivals, submit_kw) -> list:
     return reqs
 
 
-def _unported(args) -> list:
-    """(flag, where it comes) for every flag whose slice is not ported."""
-    out = []
-    if args.seal == "direct":
-        out.append(("--seal direct",
-                    "the Direct engine (AES-128) slice of the port"))
-    return out
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="internlm2_1_8b")
@@ -141,13 +133,6 @@ def main(argv=None) -> int:
     ap.add_argument("--check", action="store_true",
                     help="exit non-zero unless every request completed")
     args = ap.parse_args(argv)
-
-    unported = _unported(args)
-    for flag, where in unported:
-        print(f"FAIL: {flag} is not ported yet: it comes with {where}",
-              file=sys.stderr)
-    if unported:
-        return 2
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch) if args.production else get_reduced(args.arch)

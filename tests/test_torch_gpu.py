@@ -19,7 +19,8 @@ bf16 rounding of each element in bf16; the tensor-core flash kernel (bf16,
 head dim 64 or 128, probabilities rounded to bf16 before ``p @ v``) under
 ``flash_attention.bf16_gate``; the card's sealed logits and the group
 engine's tokens against the CPU's plain f32 path at 1e-4 relative and
-exactly.
+exactly; the AES kernel (FIPS-197, blocks, Direct lines) bitwise against
+its plain version, and Direct serving on the card equal to the CPU's.
 """
 import numpy as np
 import pytest
@@ -661,3 +662,94 @@ def test_sampler_on_the_card_matches_cpu(cuda):
                                      greedy=False).cpu()))
     for a, b in zip(*out):
         assert torch.equal(a, b)
+
+
+def test_aes_kernel_fips197_and_blocks_bitwise(cuda):
+    """The FIPS-197 C.1 vector both ways, and random runs of blocks against
+    the plain rounds (forward and inverse), each launch counted."""
+    from repro_torch.core import cipher as C
+    from repro_torch.kernels import aes128 as AES
+    rk = C.round_keys_tensor(C.aes128_key_schedule(np.arange(16,
+                                                             dtype=np.uint8)),
+                             cuda)
+    pt = torch.tensor(list(bytes.fromhex("00112233445566778899aabbccddeeff")),
+                      dtype=torch.uint8, device=cuda)[None]
+    ops.reset_launch_counts()
+    ct = C.aes128_encrypt_blocks(pt, rk)
+    assert ct.cpu().reshape(-1).tolist() == list(
+        bytes.fromhex("69c4e0d86a7b0430d8cdb78070b4c55a"))
+    assert torch.equal(C.aes128_decrypt_blocks(ct, rk), pt)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    for n in (1, 7, 1000, 70001):
+        b = torch.randint(0, 256, (n, 16), generator=gen, device=cuda,
+                          dtype=torch.uint8)
+        assert torch.equal(AES.encrypt_blocks(b, rk),
+                           AES.encrypt_blocks_plain(b, rk))
+        assert torch.equal(AES.decrypt_blocks(b, rk),
+                           AES.decrypt_blocks_plain(b, rk))
+    counts = ops.launch_counts()
+    assert counts["aes128_lines_encrypt"] == 5
+    assert counts["aes128_lines_decrypt"] == 5
+
+
+@pytest.mark.parametrize("n_words", [1, 5, 32, 33, 1001, 4096 * 32 + 7])
+@pytest.mark.parametrize("flags", ["none", "enc", "bypass", "mixed"])
+def test_aes_lines_kernel_bitwise(cuda, n_words, flags):
+    """Line encrypt and decrypt against their plain versions, twice, at
+    lengths off whole lines and blocks, every kind of flag; the round trip
+    returns the words."""
+    from repro_torch.core import engine as E
+    from repro_torch.kernels import aes128 as AES
+    gen = torch.Generator(device=cuda).manual_seed(n_words)
+    words = _words(gen, (n_words,), cuda)
+    lines = -(-n_words // 32)
+    fl = {"none": None,
+          "enc": torch.ones((lines,), dtype=torch.int32, device=cuda),
+          "bypass": torch.zeros((lines,), dtype=torch.int32, device=cuda),
+          "mixed": _words(gen, (lines,), cuda)}[flags]
+    rk = E.DirectEngine(bytes(range(32)), cuda).round_keys
+    want = AES.lines_encrypt_plain(rk, words, fl)
+    for _ in range(2):
+        ct = AES.lines_encrypt(rk, words, fl)
+        assert torch.equal(ct, want)
+    for _ in range(2):
+        back = AES.lines_decrypt(rk, ct, fl, n_words)
+        assert torch.equal(back, AES.lines_decrypt_plain(rk, ct, fl, n_words))
+        assert torch.equal(back, words)
+
+
+def test_direct_serving_on_the_card_matches_cpu(cuda):
+    """A reduced Direct engine, verified over a sealed cache, in f32 (in
+    bf16 the card's and the CPU's sums round apart, so a near-tied argmax
+    may differ): the card's sealed image, tokens and stats equal the CPU's;
+    one decrypt launch a leaf a dispatch, one encrypt a leaf at sealing."""
+    cfg = get_reduced("internlm2_1_8b").with_(num_layers=4,
+                                              dtype="float32")
+    params = T.init_params(cfg, seed=5, device="cpu")
+    rng = np.random.RandomState(8)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (9, 21, 14)]
+    runs = []
+    for dev in ("cpu", cuda):
+        ops.reset_launch_counts()
+        eng = ServeEngine(cfg, map_leaves(lambda t: t.to(dev), params),
+                          batch_slots=2, max_len=48,
+                          seal=SealConfig(mode="direct"), verify=True,
+                          device=dev)
+        sealed = ops.launch_counts()["aes128_lines_encrypt"]
+        hs = [eng.submit(p, max_tokens=6) for p in prompts]
+        ops.reset_launch_counts()
+        eng.run()
+        st = dict(eng.stats)
+        dispatches = st["prefills"] + st["decode_steps"]
+        runs.append(([h.out for h in hs], st,
+                     {p: (t.payload.cpu(), t.counters.cpu(), t.macs.cpu())
+                      for p, t in eng.sealed.tensors.items()}))
+        if dev != "cpu":
+            n = len(eng.sealed.tensors)
+            assert sealed == n
+            assert ops.launch_counts()["aes128_lines_decrypt"] == \
+                dispatches * n
+    assert runs[1][:2] == runs[0][:2]
+    for p, (a, b, c) in runs[0][2].items():
+        assert all(torch.equal(x, y) for x, y in zip((a, b, c),
+                                                     runs[1][2][p])), p

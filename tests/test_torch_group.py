@@ -222,9 +222,26 @@ def test_launcher_runs_ported_flags(flag, rc, effect, capsys):
 
 @pytest.mark.parametrize("flag", [["--seal", "direct"]],
                          ids=lambda f: " ".join(f))
-def test_launcher_refuses_unported_flags(flag, capsys):
-    assert LS.main(["--device", "cpu"] + flag) != 0
-    assert "slice of the port" in capsys.readouterr().err
+def test_launcher_refuses_unported_flags(flag, capsys, monkeypatch):
+    """No flag is refused any more: ``--seal direct``, the last one that
+    was, serves through the Direct engine, and the run's stats equal the
+    reference launcher's on the same line (the weight-independent ones, as
+    in ``test_reference_ci_command_lines``, and the plaintext bytes: the
+    whole image, every leaf decrypted each dispatch)."""
+    from repro.launch import serve as JLS
+    argv = SMALL[2:] + flag + ["--check"]
+    assert LS.main(["--device", "cpu"] + argv) == 0
+    out = capsys.readouterr()
+    assert "[continuous] completed 3/3 requests" in out.out and not out.err
+    got = _stats(out.out)
+    monkeypatch.setattr(sys, "argv", ["serve"] + argv)
+    JLS.main()
+    want = _stats(capsys.readouterr().out)
+    for key in ("prefills", "prefill_chunks", "decode_steps", "tokens",
+                "fused_matmul_leaves", "weights_plaintext_bytes_per_step",
+                "kv_plaintext_bytes_per_step"):
+        assert got[key] == want[key], key
+    assert got["fused_matmul_leaves"] == 0
 
 
 SAMPLED = ["--arch", "internlm2_1_8b", "--requests", "4", "--slots", "2",

@@ -153,6 +153,10 @@ def test_launch_counts_untouched_on_cpu():
                  lids, 8, 8)
     TO.line_tags(u32.words(KEY), torch.ones((68,), dtype=torch.int32),
                  (1, 2, 3), lines, None)
+    rk = torch.zeros((11, 16), dtype=torch.uint8)
+    ct = TO.aes128_lines_encrypt(rk, torch.arange(40, dtype=torch.int32),
+                                 None)
+    TO.aes128_lines_decrypt(rk, ct, None, 40)
     assert TO.launch_counts() == {"chacha20": 0, "sealed_matmul": 0,
                                   "sealed_matmul_tc": 0,
                                   "sealed_matmul_dec": 0,
@@ -165,4 +169,6 @@ def test_launch_counts_untouched_on_cpu():
                                   "chacha20_lines_unseal": 0,
                                   "chacha20_lines_gather": 0,
                                   "chacha20_weight_tile_tags": 0,
-                                  "chacha20_weight_line_tags": 0}
+                                  "chacha20_weight_line_tags": 0,
+                                  "aes128_lines_encrypt": 0,
+                                  "aes128_lines_decrypt": 0}

@@ -121,9 +121,9 @@ def test_decode_tick_reads_nothing_from_the_host(f32_model, monkeypatch):
 
 
 def test_unported_options_raise(f32_model):
-    """Only the Direct engine is still refused. Sampling settings, prefix
-    sharing, verification (over the cache and over sealed weights) and
-    fault hooks build and run."""
+    """No option is refused any more: sampling settings, prefix sharing,
+    verification (over the cache and over sealed weights), fault hooks and
+    the Direct engine (AES-128), the last one that was, build and run."""
     _, cfg_t, _, pt = f32_model
     eng = ServeEngine(cfg_t, pt, device="cpu", **KW)
     reqs = [eng.submit([1, 2, 3], max_tokens=2, **kw)
@@ -141,9 +141,11 @@ def test_unported_options_raise(f32_model):
     sealed = ServeEngine(cfg_t, pt, seal=SealConfig(), verify=True,
                          device="cpu", **KW)
     assert sealed.seal.verify and sealed.cache_seal.mac is not None
-    with pytest.raises(NotImplementedError):
-        ServeEngine(cfg_t, pt, seal=SealConfig(mode="direct"), device="cpu",
-                    **KW)
+    direct = ServeEngine(cfg_t, pt, seal=SealConfig(mode="direct"),
+                         device="cpu", **KW)
+    assert direct.sealed.fused_paths() == [] and all(
+        st.meta.scheme == "direct" for st in direct.sealed.tensors.values())
+    assert direct.stats["fused_matmul_leaves"] == 0
 
 
 def test_entry_points_default_to_the_card():
