@@ -18,9 +18,13 @@ runs:
    counters at 2^32 - 1, ColoE and counter layouts, mixed SE flags, rows off
    line boundaries), and timed there beside their bounds and plain
    versions; likewise the paged cache's copy-on-write re-key (one pair over
-   24 layers, partial units, a masked pair) and MAC tags (a view's verdict
+   24 layers, partial units, a masked pair), MAC tags (a view's verdict
    over 4 slots x 16 blocks, a splice's re-tag over 24 layers, partial
-   geometries, dead and repeated entries, words with bit 31 set);
+   geometries, dead and repeated entries, words with bit 31 set) and the
+   pass's MAC check (every layer of 4 slots x 16 blocks in one launch,
+   right and with a flipped word in the first layer, the last layer and
+   past a slot's length, and partial geometries), the check timed over a
+   tick's resident blocks;
 2. the three fused decrypt-in-matmul kernels against their plain version
    at the full-width internlm2-1.8B shapes (wq/wo, wk/wv, MLP wi/wo, LM
    head): the CUDA-core kernel at decode M and at a ragged M of 1000 rows,
@@ -58,10 +62,13 @@ runs:
    ``evict_lru`` freeing every block, and teacher-forced f32 logits shared
    against unshared at 1e-4; (b) a verified sealed cache on phase 4's
    trace, its tokens equal to the unverified run's, no MAC failure,
-   ``mac_checks`` as the reference counts them, one tag launch per layer
-   view and per splice; (c) each tamper kind detected and recovered, the
+   ``mac_checks`` as the reference counts them, one verify launch per
+   dispatch and pattern position (every layer's check) and one tag launch
+   per splice; (c) each tamper kind detected and recovered, the
    other requests exact, no block leaked; (d) a verified tick beside an
-   unverified one and a copy-on-write admission, timed;
+   unverified one and a copy-on-write admission, timed, and the verify
+   kernel bitwise and timed at the verified engine's own pools, tables and
+   lengths (the operands of its next tick's check);
 7. CUDA-event timings of every kernel variant, old beside new (the fused
    matmul's decode kernels on every leaf at M = 4 and 32, and their sum
    over a decode tick's 169 launches; flash beside
@@ -72,8 +79,10 @@ runs:
    group prefill and decode step, each kernel beside the least time the
    card could take for the same work, and profiler splits of sealed decode
    ticks and of a sealed and a plaintext group prefill (each ChaCha
-   kernel's device time and the idle share among them). A device-side sleep before each timed launch
-   keeps the host's dispatch out of the timed window;
+   kernel's device time and the idle share among them). A device-side
+   sleep before each timed window keeps the host's dispatch out of it; a
+   kernel's time is the mean over the launches, logged beside the median
+   where a phase reads both, with the host's time in each window;
 8. verified sealed weights and sampling at full width: (a) the weight MAC
    kernels ``tile_tags`` and ``line_tags`` bitwise, twice, against their
    plain versions and the stored tags (one stack slice of every tile leaf,
@@ -108,8 +117,10 @@ runs:
    plaintext in bf16 and in f32; (d) the same verified (one line-tag sweep,
    tokens equal) and a flipped enciphered or bypass line word stopping the
    drain with ``SealedIntegrityError("weights")`` before any token; (e) one
-   dispatch's decrypt of the whole image against its bound, and a Direct
-   tick beside a ColoE and a plaintext tick (events, host clock, profiler).
+   dispatch's decrypt of the whole image against its bound, by events
+   after an L2 flush and without it, and by the profiler's kernel time
+   over the same calls, and a Direct tick beside a ColoE and a plaintext
+   tick (events, host clock, profiler).
 
 Every phase raises on failure, so the script exits non-zero. The line before
 the last is a JSON ``{"kernels": [...]}`` record; the last line is
@@ -120,8 +131,10 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -158,6 +171,10 @@ TAG_HALF_ALU_OPS = 1
 
 # SASS opcodes of 32-bit integer work that the ChaCha rounds may compile to
 INT_OPCODES = ("IADD3", "IMAD", "LOP3", "SHF", "PRMT", "IADD", "LEA")
+# ... and what the AES rounds issue: table reads (LDS) and the ALU work
+# around them
+AES_OPCODES = ("LDS", "PRMT", "LOP3", "SHF", "IMAD", "IADD3", "LEA", "LDG",
+               "STG")
 
 # the CUDA source of each kernel variant whose name is not its file's
 SOURCE = {"chacha20_weight_tile_tags": "chacha20_weights",
@@ -166,6 +183,7 @@ SOURCE = {"chacha20_weight_tile_tags": "chacha20_weights",
           "chacha20_cache_splice": "chacha20_cache",
           "chacha20_cache_copy": "chacha20_cache",
           "chacha20_cache_tags": "chacha20_cache",
+          "chacha20_cache_verify": "chacha20_cache",
           "chacha20_lines_unseal": "chacha20_lines",
           "chacha20_lines_gather": "chacha20_lines",
           "aes128_lines_encrypt": "aes128",
@@ -268,6 +286,19 @@ def main(argv=None) -> int:
                          if op.split(".")[0] in INT_OPCODES + ("LDS",)}
         log(f"[build:{name}] SASS integer mix: " + ", ".join(
             f"{op} {n}" for op, n in int_ops[name].items()))
+    # the AES kernel's two instantiations apart (by direction): its ten
+    # rounds are unrolled, so a tenth of each count is a round's
+    import re
+    for fn, mix in _build.sass_opcodes("aes128", per_function=True).items():
+        kinds = {}
+        for op, n in mix.items():
+            kinds[op.split(".")[0]] = kinds.get(op.split(".")[0], 0) + n
+        m = re.search(r"aes128_kernelILb(\d)E", fn)
+        key = (f"aes128:{'decrypt' if m.group(1) == '1' else 'encrypt'}"
+               if m else f"aes128:{fn}")
+        int_ops[key] = {op: kinds.get(op, 0) for op in AES_OPCODES}
+        log(f"[build:{key}] SASS: " + ", ".join(
+            f"{op} {n}" for op, n in int_ops[key].items()))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -341,13 +372,16 @@ def kernel_records(report):
         ("chacha20_cache_splice", CC_REPLACES, serve["chacha20_cache_splice"],
          0),
         # the copy-on-write counted over the prefix-sharing run, the tags
-        # over the verified run (phase 6)
+        # and the verify over the verified run (phase 6)
         ("chacha20_cache_copy", CC_REPLACES,
          report["prefix_integrity"]["shared"]["launches"][
              "chacha20_cache_copy"], 0),
         ("chacha20_cache_tags", CC_REPLACES,
          report["prefix_integrity"]["verify"]["launches"][
              "chacha20_cache_tags"], 0),
+        ("chacha20_cache_verify", CC_REPLACES,
+         report["prefix_integrity"]["verify"]["launches"][
+             "chacha20_cache_verify"], 0),
         ("chacha20_lines_unseal", CC_REPLACES, serve["chacha20_lines_unseal"],
          0),
         ("chacha20_lines_gather", CC_REPLACES, serve["chacha20_lines_gather"],
@@ -378,6 +412,7 @@ def kernel_records(report):
     fused = dict(report["chacha_fused"]["timing"])
     fused.update(report["weights_sampling"]["timing"])
     fused.update(report["direct"]["timing"])
+    fused.update(report["prefix_integrity"]["timing"])
     for name, recs in fused.items():    # the main path's shape: the first
         t[name] = dict(recs[0])
     kernels = []
@@ -561,10 +596,57 @@ def _check_tags(torch, gen, dev, n, slots, mb, wpb, layer, blocks, live,
     return label
 
 
+def _check_verify(torch, gen, dev, n, slots, mb, wpb, wpt, lengths, label):
+    """A pass's check over every layer, k and v, stored tags from the plain
+    ``cache_tags``: right, then a flipped word in a resident block of the
+    first layer (the last slot), of the last layer's v (the first slot
+    with a resident block), and past the last slot's length; the kernel
+    launched twice against the plain version each time."""
+    from repro_torch.kernels import chacha20 as CC
+    pk, pv, tables, wc, _, lids = _cache_operands(torch, gen, dev, n, slots,
+                                                  mb, wpb)
+    ctx = _mac(torch, dev)
+    hk = ctx.hash_keys(wpb)
+    nonces = (ctx.nonce(NONCES[0]), ctx.nonce(NONCES[1]))
+    nb = pk.shape[1]
+    every = torch.arange(nb, device=dev)
+    tags = CC.cache_tags_plain(ctx.key_words, hk, *nonces, pk, pv, lids,
+                               every, torch.ones_like(every,
+                                                      dtype=torch.bool), wc)
+    mac_k, mac_v = tags[:, 0].contiguous(), tags[:, 1].contiguous()
+    bs = wpb // wpt
+    res = [-(-x // bs) for x in lengths]
+    first = min(i for i, r in enumerate(res) if r)
+    flips = [(None, None)]
+    if res[-1]:
+        flips.append(((pk, 0, int(tables[-1, res[-1] - 1])), slots - 1))
+    flips.append(((pv, n - 1, int(tables[first, 0])), first))
+    if res[-1] < mb:
+        flips.append(((pk, n // 2, int(tables[-1, res[-1]])), None))
+    lens = torch.tensor(lengths, device=dev)
+    args = (ctx.key_words, hk, *nonces, pk, pv, mac_k, mac_v, lids, tables,
+            lens, wc, bs)
+    for site, slot in flips:
+        if site is not None:
+            site[0][site[1], site[2], 1] ^= 1 << 9
+        got = [CC.cache_verify_cuda(*args) for _ in range(2)]
+        want = CC.cache_verify_plain(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, want) for g in got):
+            raise AssertionError(f"cache_verify kernel != plain: {label}")
+        if want.tolist() != [i != slot for i in range(slots)]:
+            raise AssertionError(f"cache_verify verdict {want.tolist()}: "
+                                 f"{label}, a flip in slot {slot}")
+        if site is not None:
+            site[0][site[1], site[2], 1] ^= 1 << 9
+    return f"{label} ({len(flips)} flips)"
+
+
 def _tags_bound(tags, wpb):
     """Bound of a ``cache_tags`` launch of ``tags`` live tags: each block's
-    words read once, the hash keys once, each tag written; per 16-bit half
-    an extraction and a 64-bit multiply-add, per tag one pad."""
+    words read once, the hash keys once, each tag written (for
+    ``cache_verify``: the stored tag read); per 16-bit half an extraction
+    and a 64-bit multiply-add, per tag one pad."""
     halves = tags * 2 * wpb
     return bound_ms(tags * (4 * wpb + 4 + 16) + 8 * wpb,
                     halves * TAG_HALF_OPS + tags * CHACHA_OPS,
@@ -744,6 +826,14 @@ def phase_chacha_fused(torch, dev, seed):
                                 [3, 0, 8, 3, 7], [True, False, True, True,
                                                   True],
                                 f"tags wpb {w}, dead and repeated entries"))
+    # the verify: a pass's check of every layer (4 slots x 16 blocks x 24
+    # layers, lengths 0 to full), partial geometries
+    done.append(_check_verify(torch, gen, dev, n, SLOTS, CACHE_MB, wpb, wpt,
+                              [0, 1, 137, 200], "verify, 24 layers"))
+    for w, t in ((24, 6), (40, 10), (18, 6)):
+        done.append(_check_verify(torch, gen, dev, 3, 4, 3, w, t,
+                                  [0, 1, 3 * w // t, 5],
+                                  f"verify wpb {w} wpt {t}"))
     log(f"[chacha_fused] {len(done)} cases, each kernel launched twice and "
         f"bitwise equal to its plain version: " + "; ".join(done))
 
@@ -1600,7 +1690,8 @@ def phase_prefix_integrity(torch, dev, args, serve):
     if st["shared_prefix_blocks"] <= 0 or st["cow_copies"] < 1:
         raise AssertionError("the shared run shared no block or copied none")
     want = _chacha_launches(eng, dispatches, paged=True)
-    want.update(chacha20_cache_copy=st["cow_copies"], chacha20_cache_tags=0)
+    want.update(chacha20_cache_copy=st["cow_copies"], chacha20_cache_tags=0,
+                chacha20_cache_verify=0)
     got = {name: launches[name] for name in want}
     if got != want:
         raise AssertionError(f"shared run ChaCha launches {got}, expected "
@@ -1667,8 +1758,8 @@ def phase_prefix_integrity(torch, dev, args, serve):
             "chacha20_lines_unseal": 0, "chacha20_cache_copy": 0,
             "chacha20_cache_view": dispatches * cfg.num_layers,
             "chacha20_cache_splice": dispatches * len(cfg.pattern),
-            "chacha20_cache_tags":
-                dispatches * (cfg.num_layers + len(cfg.pattern))}
+            "chacha20_cache_tags": dispatches * len(cfg.pattern),
+            "chacha20_cache_verify": dispatches * len(cfg.pattern)}
     got = {name: launches[name] for name in want}
     out["verify"] = {"stats": dict(st), "launches": launches,
                      "serve_s": secs, "plain_serve_s": plain_s}
@@ -1712,6 +1803,9 @@ def phase_prefix_integrity(torch, dev, args, serve):
         f"{ticks['unverified']['device_busy_ms']:.2f}; ChaCha kernels per "
         f"verified tick {ticks['verified']['chacha_device_ms']}")
     out["ticks"] = ticks
+    out["timing"] = {"chacha20_cache_verify": [_verify_at_tick(
+        torch, dev, ver, ticks["verified"]["chacha_device_ms"][
+            "chacha20_cache_verify"])]}
     del ver, plain
     torch.cuda.empty_cache()
 
@@ -1753,32 +1847,137 @@ def phase_prefix_integrity(torch, dev, args, serve):
     return out
 
 
+def _verify_at_tick(torch, dev, eng, in_tick_ms):
+    """The verify kernel at a verified engine's own operands (its pools,
+    tables, lengths and counters, as its next tick's check reads them):
+    bitwise against the plain version and every slot intact, then timed
+    after an L2 flush by writes (the kernels' yardstick: the flush leaves
+    dirty lines for the kernel to write back), after one by reads (clean
+    lines) and without one, beside its bound over the resident blocks and
+    its device time inside a profiled tick (``in_tick_ms``)."""
+    from repro_torch.kernels import chacha20 as CC
+    from repro_torch.models import cache as MC
+    if len(eng._pools) != 1:
+        raise AssertionError("the verify timing reads one pattern position")
+    seal, state, pool = eng.cache_seal, eng._state, eng._pools[0]
+    wpb = pool["k"].shape[-1]
+    bs = wpb // MC.kv_words_per_token(eng.cfg)
+    mac = seal.mac
+    vargs = (mac.key_words, mac.hash_keys(wpb), *seal.mac_nonces(),
+             pool["k"], pool["v"], pool["mac_k"], pool["mac_v"], pool["lid"],
+             state.tables, state.lengths, state.wc, bs)
+    got = [CC.cache_verify_cuda(*vargs) for _ in range(2)]
+    want = CC.cache_verify_plain(*vargs)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, want) for g in got) or not bool(want.all()):
+        raise AssertionError(f"cache_verify at a tick's operands: "
+                             f"{[g.tolist() for g in got]}, plain "
+                             f"{want.tolist()}")
+    mb = state.tables.shape[1]
+    resident = int(((state.lengths + bs - 1) // bs).clamp(max=mb).sum())
+    n = pool["k"].shape[0]
+    tags = 2 * n * resident
+    scratch = torch.empty((64 * 2**20,), dtype=torch.int32, device=dev)
+    cold = _time_stats(torch, lambda: CC.cache_verify_cuda(*vargs), 20,
+                       lambda: scratch.zero_())
+    clean = _time_stats(torch, lambda: CC.cache_verify_cuda(*vargs), 20,
+                        lambda: scratch.sum())
+    warm = _time_stats(torch, lambda: CC.cache_verify_cuda(*vargs), 20)
+    plain_ms = _time_ms(torch, lambda: CC.cache_verify_plain(*vargs), 2)
+    b_ms, b_by = _tags_bound(tags, wpb)
+    label = (f"a tick's check, {n} layers x {state.tables.shape[0]} slots "
+             f"x {mb} blocks, lengths {state.lengths.tolist()}, {resident} "
+             f"resident")
+    log(f"[time] chacha20_cache_verify {label}: {cold['ms']:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; {tags} tags of "
+        f"{4 * wpb} bytes; {b_ms / cold['ms']:.2f} of the kernel's time); "
+        f"{in_tick_ms:.4f} ms inside a profiled tick")
+    log(f"[time]   events, L2 flushed by writes: {_stats_text(cold)}")
+    log(f"[time]   events, L2 flushed by reads: {_stats_text(clean)}")
+    log(f"[time]   events, not flushed: {_stats_text(warm)}")
+    del scratch
+    return {"shape": label, "ms": cold["ms"], "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "tags": tags,
+            "lengths": state.lengths.tolist(), "stats": cold,
+            "read_flushed": clean, "unflushed": warm,
+            "in_tick_ms": in_tick_ms}
+
+
 # --------------------------------------------------------------------------
 # phase 7: timings
 # --------------------------------------------------------------------------
 
-def _time_ms(torch, fn, iters, flush=None):
-    """Mean CUDA-event time of ``fn`` over ``iters`` launches after one
-    warm-up; ``flush`` (if given) runs between launches, outside the timed
-    window, so every launch finds a cold L2. Before each start event the
-    stream gets a device-side sleep of about 1 ms, so the host has enqueued
-    the start event and ``fn``'s launches before the device reaches them:
-    a short call is timed by the device, not by the host's dispatch."""
+def _gc_runs():
+    return sum(g["collections"] for g in gc.get_stats())
+
+
+def _time_stats(torch, fn, iters, flush=None):
+    """CUDA-event times of ``fn`` over ``iters`` launches after one warm-up;
+    ``flush`` (if given) runs between launches, outside the timed window,
+    so every launch finds a cold L2. Before each start event the stream gets
+    a device-side sleep of about 1 ms, so the host has enqueued the start
+    event and ``fn``'s launches before the device reaches them: a short call
+    is timed by the device, not by the host's dispatch. Returns the mean
+    (``ms``) and the median of the launches' times, each launch's time,
+    the host's time from recording the start event to recording the end
+    one (``host_ms``: where it passes the sleep, the device may have waited
+    for the host inside the window; ``host_past_sleep`` counts those
+    windows) and the garbage collections the host ran in that time
+    (``gc``)."""
+    sleep_ms = _sleep_ms(torch)
     fn()
     torch.cuda.synchronize()
-    total = 0.0
+    times, host, gcs = [], [], []
     for _ in range(iters):
         if flush is not None:
             flush()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(SLEEP_CYCLES)
+        g0, t0 = _gc_runs(), time.perf_counter()
         a.record()
         fn()
         b.record()
+        host.append(1e3 * (time.perf_counter() - t0))
+        gcs.append(_gc_runs() - g0)
         b.synchronize()
-        total += a.elapsed_time(b)
-    return total / iters
+        times.append(a.elapsed_time(b))
+    return {"ms": statistics.fmean(times),
+            "median_ms": statistics.median(times), "times": times,
+            "host_ms": host, "gc": gcs, "sleep_ms": sleep_ms,
+            "host_past_sleep": sum(h > sleep_ms for h in host)}
+
+
+def _time_ms(torch, fn, iters, flush=None):
+    """The mean CUDA-event time of ``fn`` (``_time_stats``)."""
+    return _time_stats(torch, fn, iters, flush)["ms"]
+
+
+_SLEEP_MS = []
+
+
+def _sleep_ms(torch):
+    """How long the device-side sleep before each timed window lasts
+    (measured once)."""
+    if _SLEEP_MS:
+        return _SLEEP_MS[0]
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    b.record()
+    b.synchronize()
+    _SLEEP_MS.append(a.elapsed_time(b))
+    return _SLEEP_MS[0]
+
+
+def _stats_text(st):
+    """A ``_time_stats`` result in a log line."""
+    return (f"mean {st['ms']:.4f} ms, median {st['median_ms']:.4f}, "
+            f"launches {[round(x, 4) for x in st['times']]}, host "
+            f"{[round(x, 3) for x in st['host_ms']]} ms "
+            f"({st['host_past_sleep']} past the {st['sleep_ms']:.3f} ms "
+            f"sleep), gc {sum(st['gc'])}")
 
 
 def _sealed_bound(m, k, n, enc_rows, x_bytes):
@@ -2404,8 +2603,9 @@ def phase_weights_sampling(torch, dev, args, cfg, params, prompts, serve):
     dispatches = st["prefills"] + st["decode_steps"]
     checks = 1 + st["prefill_chunks"] + st["tokens"] - len(prompts)
     want = _chacha_launches(ver, dispatches, paged=True)
-    want.update(chacha20_cache_copy=0, chacha20_cache_tags=dispatches * (
-        cfg.num_layers + len(cfg.pattern)),
+    want.update(chacha20_cache_copy=0,
+                chacha20_cache_tags=dispatches * len(cfg.pattern),
+                chacha20_cache_verify=dispatches * len(cfg.pattern),
         chacha20_weight_tile_tags=len(tile_paths),
         chacha20_weight_line_tags=len(line_paths))
     got = {name: launches[name] for name in want}
@@ -2748,16 +2948,18 @@ def phase_direct(torch, dev, args, cfg, params, prompts):
                  AES.lines_decrypt_plain, (rk, pay, fl, n_words)),
                 ("aes128_lines_encrypt", AES.lines_encrypt_cuda,
                  AES.lines_encrypt_plain, (rk, words, fl))):
-            ms = _time_ms(torch, lambda: kern(*a), 10, flush)
+            st = _time_stats(torch, lambda: kern(*a), 10, flush)
+            ms = st["ms"]
             plain_ms = _time_ms(torch, lambda: plain(*a), 1)
             b_ms, b_by = _aes_bound(n_lines, n_words if "decrypt" in name
                                     else 32 * n_lines, enc)
             times.setdefault(name, []).append(
                 {"shape": label, "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                 "stats": st})
             log(f"[time] {name} {label}: {ms:.4f} ms, plain {plain_ms:.3f} "
                 f"ms, bound {b_ms:.4f} ms ({b_by}; {b_ms / ms:.2f} of the "
-                f"kernel's time)")
+                f"kernel's time); {_stats_text(st)}")
     log(f"[direct] {len(done)} AES cases bitwise, each kernel launched "
         f"twice: " + "; ".join(done))
     out["cases"] = done
@@ -2821,8 +3023,8 @@ def phase_direct(torch, dev, args, cfg, params, prompts):
     vwant = dict(want, aes128_lines_decrypt=dispatches * n_leaves,
                  chacha20_weight_line_tags=n_leaves,
                  chacha20_weight_tile_tags=0,
-                 chacha20_cache_tags=dispatches * (cfg.num_layers
-                                                   + len(cfg.pattern)))
+                 chacha20_cache_tags=dispatches * len(cfg.pattern),
+                 chacha20_cache_verify=dispatches * len(cfg.pattern))
     vgot = {name: vl[name] for name in vwant}
     out["verify"] = {"stats": dict(vst), "launches": vl, "serve_s": vsecs,
                      "tokens_equal": vsame}
@@ -2861,14 +3063,46 @@ def phase_direct(torch, dev, args, cfg, params, prompts):
     del ver, vwi, fl
     torch.cuda.empty_cache()
 
-    # (e) one dispatch's decrypt of the whole image, and three ticks
-    view_ms = _time_ms(torch, lambda: SS.serving_params(sp, key), 3, flush)
+    # (e) one dispatch's decrypt of the whole image, and three ticks: the
+    # decrypt by events after an L2 flush (the yardstick of the kernels'
+    # rows), by events without the flush, and by the profiler's kernel time
+    # over flush, sleep and decrypt, as the events window sees them
+    view = lambda: SS.serving_params(sp, key)
     b_ms, b_by = _aes_bound(lines, out_words, enc_lines)
-    out["dispatch_decrypt"] = {"ms": view_ms, "bound_ms": b_ms,
-                               "bound_by": b_by}
+    sleep_ms = _sleep_ms(torch)
+    cold = _time_stats(torch, view, 5, flush)
+    warm = _time_stats(torch, view, 5)
+
+    def windowed():
+        flush()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        view()
+
+    prof = _profile(torch, windowed, 3, "flushed image decrypts",
+                    launches_of="aes128_kernel")
+    aes_prof = sum(v for k, v in prof["device_ms"].items()
+                   if "aes128_kernel" in k) / 3
+    bare = _profile(torch, view, 3, "image decrypts back to back",
+                    launches_of="aes128_kernel")
+    aes_bare = sum(v for k, v in bare["device_ms"].items()
+                   if "aes128_kernel" in k) / 3
+    out["dispatch_decrypt"] = {"ms": cold["ms"], "bound_ms": b_ms,
+                               "bound_by": b_by, "flushed": cold,
+                               "unflushed": warm, "profiled_aes_ms": aes_prof,
+                               "profiled_launch_ms": prof.get("launch_ms"),
+                               "back_to_back_aes_ms": aes_bare,
+                               "sleep_ms": sleep_ms}
     log(f"[time] one Direct dispatch's decrypt of the image ({n_leaves} "
-        f"launches, {image / 1e9:.3f} GB): {view_ms:.3f} ms against a "
-        f"{b_ms:.3f} ms bound ({b_by}; {b_ms / view_ms:.2f})")
+        f"launches, {image / 1e9:.3f} GB) against a {b_ms:.3f} ms bound "
+        f"({b_by}; {b_ms / cold['ms']:.2f}); the sleep before a window "
+        f"{sleep_ms:.3f} ms")
+    log(f"[time]   events, L2 flushed: {_stats_text(cold)}")
+    log(f"[time]   events, not flushed: {_stats_text(warm)}")
+    log(f"[time]   profiler, AES kernels of one flushed window: "
+        f"{aes_prof:.3f} ms; of one of three decrypts back to back: "
+        f"{aes_bare:.3f} ms (the profiler kept {len(prof['launch_ms'])} "
+        f"and {len(bare['launch_ms'])} AES launch records of "
+        f"{3 * n_leaves})")
     coloe = ServeEngine(cfg, params, batch_slots=SLOTS, max_len=256,
                         seal=SealConfig(), device=dev)
     ticks = {}
@@ -2885,7 +3119,8 @@ def phase_direct(torch, dev, args, cfg, params, prompts):
             t0 = time.time()
             e._decode_tick()                 # ends in the tokens' d2h copy
             wall.append(1e3 * (time.time() - t0))
-        prof = _profile(torch, e._decode_tick, 3, f"{label} decode ticks")
+        prof = _profile(torch, e._decode_tick, 3, f"{label} decode ticks",
+                        launches_of="aes128_kernel")
         aes_ms = sum(v for k, v in prof["device_ms"].items()
                      if "aes128_kernel" in k) / 3
         ticks[label] = {"ms": ms, "host_ms": sorted(wall)[len(wall) // 2],
@@ -2893,10 +3128,13 @@ def phase_direct(torch, dev, args, cfg, params, prompts):
                         "idle_share": prof["idle_share"],
                         "aes_device_ms": aes_ms,
                         "kernel_launches": prof["kernel_launches"] / 3}
+        ticks[label]["aes_records"] = len(prof["launch_ms"])
         log(f"[time] decode tick, {SLOTS} slots, {label}: {ms:.2f} ms "
             f"(device events), {ticks[label]['host_ms']:.2f} ms (host "
             f"clock), device busy {ticks[label]['device_busy_ms']:.2f} ms "
-            f"(AES {aes_ms:.2f} ms), idle share {prof['idle_share']:.3f}")
+            f"(AES {aes_ms:.2f} ms from {len(prof['launch_ms'])} AES launch "
+            f"records of the {3 * n_leaves if label == 'direct' else 0} "
+            f"made), idle share {prof['idle_share']:.3f}")
         e.queue.clear()
     out["ticks"] = ticks
     del direct, coloe, plain_engine, sp, wi, emb
@@ -2914,6 +3152,7 @@ CHACHA_KERNELS = {"chacha20": "chacha20_blocks_kernel",
                   "chacha20_cache_splice": "cache_splice_kernel",
                   "chacha20_cache_copy": "cache_copy_kernel",
                   "chacha20_cache_tags": "cache_tags_kernel",
+                  "chacha20_cache_verify": "cache_verify_kernel",
                   "chacha20_lines_unseal": "lines_unseal_kernel",
                   "chacha20_lines_gather": "lines_gather_kernel",
                   "chacha20_weight_tile_tags": "tile_tags_kernel",
@@ -2927,9 +3166,11 @@ def _chacha_device_ms(prof):
             for name, fn in CHACHA_KERNELS.items()}
 
 
-def _profile(torch, fn, reps, label, top=12):
+def _profile(torch, fn, reps, label, top=12, launches_of=None):
     """Device time by kernel over ``reps`` calls of ``fn``, and the share
-    of the window in which the device ran nothing (torch.profiler)."""
+    of the window in which the device ran nothing (torch.profiler);
+    ``launches_of``: also each launch's ms, in order, of the kernels whose
+    name holds that text."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2962,6 +3203,14 @@ def _profile(torch, fn, reps, label, top=12):
     for r in out["top"]:
         log(f"[profile]   {r['device_ms']:9.3f} ms  x{r['calls']:<6d} "
             f"{r['kernel']}")
+    if launches_of is not None:
+        evs = [ev for ev in prof.events()
+               if str(getattr(ev, "device_type", "")).endswith("CUDA")
+               and launches_of in ev.name]
+        evs.sort(key=lambda ev: ev.time_range.start)
+        out["launch_ms"] = [ev.time_range.elapsed_us() / 1e3 for ev in evs]
+        log(f"[profile]   each {launches_of} in start order: "
+            f"{[round(x, 4) for x in out['launch_ms']]} ms")
     return out
 
 

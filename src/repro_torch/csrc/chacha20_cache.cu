@@ -5,7 +5,7 @@
 // the reference applies it through kernels/ref.py::cache_block_otp in
 // models/paged.py::_dense_view (the read), ::append_tokens (the write) and
 // ::copy_blocks (the copy-on-write), and as src/repro/core/mac.py::
-// MacContext.tags applies it to the cache blocks' MAC pads. Four entry
+// MacContext.tags applies it to the cache blocks' MAC pads. Five entry
 // points:
 //
 //   cache_view    one layer's k and v blocks gathered through the block
@@ -21,7 +21,11 @@
 //                 (dst, wc[dst] + 1), so no plaintext reaches the pool;
 //   cache_tags    one Carter-Wegman tag per (layer, stream, block) of a
 //                 list: uhash(ciphertext) XOR word 0 of ChaCha20(MAC key,
-//                 counter = block, nonce = (m0 ^ lid, m1 ^ wc[block], m2)).
+//                 counter = block, nonce = (m0 ^ lid, m1 ^ wc[block], m2));
+//   cache_verify  a pass's check of every layer, k and v, in one launch:
+//                 each resident block of each slot's table re-tagged as
+//                 cache_tags does and held against its stored tag, the
+//                 slot's verdict cleared by an atomicAnd where one fails.
 //
 // Keystream contract (cache_block_otp): 16-word unit c of pool block b in
 // layer lid, under write counter wc, XORs the ChaCha20 block with
@@ -51,7 +55,13 @@
 // multiply-add a half, a warp-shuffle and shared-memory reduction, and one
 // modulo and one pad at the end. Per tag that is the block's bytes, read
 // once, against about 3 integer operations a half and one pad: the bytes
-// bound it.
+// bound it. The verify runs one such block of threads per (table entry,
+// layer, stream), some thousands a pass, so one launch fills the card where
+// a launch a layer (a hundred blocks of threads) did not; the compare and
+// the AND over layers happen in the kernel, so a pass's check is one launch
+// and no PyTorch op. (A block of threads over four layers, k and v, that
+// loads each hash key once for eight rows was slower: too few blocks of
+// threads in flight; PERF.md §6.)
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -295,6 +305,32 @@ cache_copy_kernel(const uint32_t* __restrict__ key, uint32_t* pool_k,
   store16<VEC>(base + db * rs + w0, nw, w);
 }
 
+// The tag of one cache block's words `row` (pool block blk, layer id lid,
+// write counter wcb, stream nonce n), returned to thread 0 of the block of
+// threads; the other threads get nothing of use.
+template <bool VEC>
+__device__ __forceinline__ uint32_t block_tag(
+    const uint32_t* __restrict__ key, const uint32_t* __restrict__ hkeys,
+    const uint32_t* row, long long blk, uint32_t lid, uint32_t wcb,
+    const Nonce& n, int wpb) {
+  uint32_t pad0 = 0u;
+  if (threadIdx.x == 0)             // the pad overlaps the other loads
+    pad0 = seal::mac_pad(load_key(key).w, static_cast<uint32_t>(blk),
+                         n.w[0] ^ lid, n.w[1] ^ wcb, n.w[2]);
+  unsigned long long acc = 0;
+  if (VEC) {
+    const uint4* row4 = reinterpret_cast<const uint4*>(row);
+    for (int q = threadIdx.x; q < wpb / 4; q += kThreads)
+      acc += seal::mac_quad_terms(row4[q], hkeys, q);
+  } else {
+    for (int q = threadIdx.x; q < wpb; q += kThreads)
+      acc += seal::mac_word_terms(row[q], __ldg(hkeys + 2 * q),
+                                  __ldg(hkeys + 2 * q + 1));
+  }
+  acc = seal::mac_block_sum<kThreads>(acc);
+  return seal::mac_tag(acc, pad0);
+}
+
 // Block (e, 2*l + kv): the tag of entry e in layer l, stream kv; out is
 // (layers, 2, entries). A dead entry writes 0 and reads nothing.
 template <bool VEC>
@@ -320,25 +356,44 @@ cache_tags_kernel(const uint32_t* __restrict__ key,
   const long long blk = __ldg(blocks + e);
   const uint32_t* row =
       kv ? pool_v + l * ls_v + blk * rs_v : pool_k + l * ls_k + blk * rs_k;
-  uint32_t pad0 = 0u;
-  if (threadIdx.x == 0) {           // the pad overlaps the other loads
-    const Nonce& n = kv ? mv : mk;
-    pad0 = seal::mac_pad(load_key(key).w, static_cast<uint32_t>(blk),
-                         n.w[0] ^ __ldg(lids + l), n.w[1] ^ __ldg(wc + blk),
-                         n.w[2]);
+  const uint32_t tag = block_tag<VEC>(key, hkeys, row, blk, __ldg(lids + l),
+                                      __ldg(wc + blk), kv ? mv : mk, wpb);
+  if (threadIdx.x == 0) *dst = tag;
+}
+
+// Block (e, 2*l + kv): table entry e = b * MB + m of slot b, in layer l,
+// stream kv. A resident entry (m < ceil(lengths[b] / bs)) recomputes its
+// block's tag over the ciphertext as cache_tags does and, where it differs
+// from the stored tag, clears ok[b]; the others return at once. No tag
+// reaches memory.
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+cache_verify_kernel(const uint32_t* __restrict__ key,
+                    const uint32_t* __restrict__ hkeys,
+                    const uint32_t* __restrict__ pool_k,
+                    const uint32_t* __restrict__ pool_v, long long ls_k,
+                    long long rs_k, long long ls_v, long long rs_v,
+                    const uint32_t* __restrict__ mac_k,
+                    const uint32_t* __restrict__ mac_v, long long mls_k,
+                    long long mls_v, const uint32_t* __restrict__ lids,
+                    const long long* __restrict__ tables,
+                    const long long* __restrict__ lengths,
+                    const uint32_t* __restrict__ wc, int* __restrict__ ok,
+                    int mb, int wpb, int bs, Nonce mk, Nonce mv) {
+  const int e = blockIdx.x;
+  const int kv = blockIdx.y & 1;
+  const int l = blockIdx.y >> 1;
+  const int b = e / mb;
+  if (e - b * mb >= (__ldg(lengths + b) + bs - 1) / bs) return;
+  const long long blk = __ldg(tables + e);
+  const uint32_t* row =
+      kv ? pool_v + l * ls_v + blk * rs_v : pool_k + l * ls_k + blk * rs_k;
+  const uint32_t tag = block_tag<VEC>(key, hkeys, row, blk, __ldg(lids + l),
+                                      __ldg(wc + blk), kv ? mv : mk, wpb);
+  if (threadIdx.x == 0) {
+    const uint32_t* stored = kv ? mac_v + l * mls_v : mac_k + l * mls_k;
+    if (tag != __ldg(stored + blk)) atomicAnd(ok + b, 0);
   }
-  unsigned long long acc = 0;
-  if (VEC) {
-    const uint4* row4 = reinterpret_cast<const uint4*>(row);
-    for (int q = threadIdx.x; q < wpb / 4; q += kThreads)
-      acc += seal::mac_quad_terms(row4[q], hkeys, q);
-  } else {
-    for (int q = threadIdx.x; q < wpb; q += kThreads)
-      acc += seal::mac_word_terms(row[q], __ldg(hkeys + 2 * q),
-                                  __ldg(hkeys + 2 * q + 1));
-  }
-  acc = seal::mac_block_sum<kThreads>(acc);
-  if (threadIdx.x == 0) *dst = seal::mac_tag(acc, pad0);
 }
 
 int blocks_for(long long units) {
@@ -467,5 +522,44 @@ extern "C" int cache_tags(const void* key, const void* hkeys,
       static_cast<const unsigned char*>(live),
       static_cast<const uint32_t*>(wc), static_cast<uint32_t*>(out), entries,
       wpb, mk, mv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// key (8,) u32 MAC key; hkeys (2*wpb,) u32 hash keys; pool_k, pool_v: (n,
+// NB, wpb) u32 words with layer strides ls_* and row strides rs_* (in
+// words); mac_k, mac_v: the stored tags, (n, NB) u32 with layer strides
+// mls_*; lids (n,) u32; tables (B, MB) and lengths (B,) int64, entries =
+// B * MB; wc (NB,) u32; ok (B,) int32, set to 1 by the caller: entry b is
+// cleared to 0 when a resident block of slot b (table column below
+// ceil(lengths[b] / bs)) in any layer, k or v, fails its tag. mk, mv: the
+// k and v streams' MAC nonces. vec as for cache_tags. Device pointers;
+// launches on `stream`; returns the launch's cudaError_t.
+extern "C" int cache_verify(const void* key, const void* hkeys,
+                            const void* pool_k, const void* pool_v,
+                            long long ls_k, long long rs_k, long long ls_v,
+                            long long rs_v, const void* mac_k,
+                            const void* mac_v, long long mls_k,
+                            long long mls_v, const void* lids,
+                            const void* tables, const void* lengths,
+                            const void* wc, void* ok, int layers, int entries,
+                            int mb, int wpb, int bs, unsigned mk0,
+                            unsigned mk1, unsigned mk2, unsigned mv0,
+                            unsigned mv1, unsigned mv2, int vec,
+                            void* stream) {
+  if (layers <= 0 || entries <= 0) return 0;
+  const Nonce mk{{mk0, mk1, mk2}}, mv{{mv0, mv1, mv2}};
+  auto launch = vec ? cache_verify_kernel<true> : cache_verify_kernel<false>;
+  launch<<<dim3(entries, 2 * layers), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(key), static_cast<const uint32_t*>(hkeys),
+      static_cast<const uint32_t*>(pool_k),
+      static_cast<const uint32_t*>(pool_v), ls_k, rs_k, ls_v, rs_v,
+      static_cast<const uint32_t*>(mac_k),
+      static_cast<const uint32_t*>(mac_v), mls_k, mls_v,
+      static_cast<const uint32_t*>(lids),
+      static_cast<const long long*>(tables),
+      static_cast<const long long*>(lengths),
+      static_cast<const uint32_t*>(wc), static_cast<int*>(ok), mb, wpb, bs,
+      mk, mv);
   return static_cast<int>(cudaGetLastError());
 }

@@ -49,7 +49,9 @@ PROTOTYPES = {
         "cache_copy": [_P] * 3 + [_L] * 4 + [_P] * 5 + [_I] * 3 + [_U] * 6
                       + [_I, _P],
         "cache_tags": [_P] * 4 + [_L] * 4 + [_P] * 5 + [_I] * 3 + [_U] * 6
-                      + [_I, _P]},
+                      + [_I, _P],
+        "cache_verify": [_P] * 4 + [_L] * 4 + [_P] * 2 + [_L] * 2
+                        + [_P] * 5 + [_I] * 5 + [_U] * 6 + [_I, _P]},
     "chacha20_lines": {
         "lines_unseal": [_P] * 3 + [_L] * 2 + [_U] * 2 + [_P] * 2,
         "lines_gather_rows": [_P] * 3 + [_U] * 2 + [_P] + [_L] * 3
@@ -152,17 +154,27 @@ def sass_counts(names=SOURCES, opcodes=("HGMMA", "HMMA")) -> Dict[str, Dict]:
     return counts
 
 
-def sass_opcodes(name: str) -> Dict[str, int]:
+def sass_opcodes(name: str, per_function: bool = False) -> Dict:
     """How many SASS instructions of each opcode (with its modifiers, e.g.
     ``IMAD.IADD``, ``LOP3.LUT``, ``SHF.L.W.U32.HI``) ``cuobjdump -sass``
     lists in the built library: the static mix, which tells which pipe an
-    unrolled loop such as the ChaCha rounds issues on."""
+    unrolled loop such as the ChaCha rounds issues on. ``per_function``:
+    one such count for each kernel, keyed by its mangled name."""
     sass = subprocess.run([_tool("cuobjdump"), "-sass", str(_lib_path(name))],
                           capture_output=True, text=True, check=True).stdout
-    counts: Dict[str, int] = {}
     line = r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
-    for m in re.finditer(line, sass):
-        counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    parts = re.split(r"Function : (\S+)", sass)
+    by_fn: Dict[str, Dict[str, int]] = {}
+    for fn, body in zip(parts[1::2], parts[2::2]):
+        counts = by_fn.setdefault(fn, {})
+        for m in re.finditer(line, body):
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    if per_function:
+        return by_fn
+    counts: Dict[str, int] = {}
+    for fn_counts in by_fn.values():
+        for op, n in fn_counts.items():
+            counts[op] = counts.get(op, 0) + n
     return counts
 
 

@@ -24,20 +24,24 @@ column-major (byte r + 4c is row r, column c), as the reference's byte
 views of its u32 words. Every route takes the plain version for a CPU
 tensor and launches the kernel, or raises, for a CUDA tensor. The plain
 versions are the reference's byte-wise rounds (S-box gathers, ShiftRows as
-an index, MixColumns by xtime); the kernel uses 32-bit T-tables, so the
-two share no code.
+an index, MixColumns by xtime); the kernel uses 32-bit T-tables, replicated
+once per shared-memory bank from ``kernel_tables`` (the layout is in the
+source's header), so the two share no code.
 """
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
+from repro_torch import u32
 from repro_torch.core import cipher as C
 from repro_torch.core import coloe as CL
 from repro_torch.kernels import _build
 
 _TABLES: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+_KERNEL_TABLES: Dict[torch.device, torch.Tensor] = {}
 
 
 def _tables(dev) -> Dict[str, torch.Tensor]:
@@ -49,6 +53,33 @@ def _tables(dev) -> Dict[str, torch.Tensor]:
         t.update({f"mul{m}": v for m, v in C._MUL.items()})
         t = {k: torch.from_numpy(v.copy()).to(dev) for k, v in t.items()}
         _TABLES[dev] = t
+    return t
+
+
+def _rotl8(x: np.ndarray, n: int) -> np.ndarray:
+    return ((x << np.uint32(8 * n)) | (x >> np.uint32(32 - 8 * n))) \
+        if n else x
+
+
+def kernel_tables(dev) -> torch.Tensor:
+    """(2, 5, 256) int32 words the kernel stages, made once per device: for
+    the cipher (row 0) Te0..Te3 and the S-box, for the inverse cipher (row
+    1) Td0..Td3 and the inverse S-box. Te0[x] holds the MixColumns column
+    (2s, s, s, 3s) of s = S[x] in bytes 0..3, Td0[x] the InvMixColumns
+    column (14i, 9i, 13i, 11i) of i = InvS[x]; Tj is T0 rotated left by 8j
+    bits."""
+    t = _KERNEL_TABLES.get(dev)
+    if t is None:
+        s = C.SBOX.astype(np.uint32)
+        i = C._INV_SBOX.astype(np.uint32)
+        xt = C._XT[C.SBOX].astype(np.uint32)
+        te0 = xt | (s << 8) | (s << 16) | ((xt ^ s) << 24)
+        m = {k: v[C._INV_SBOX].astype(np.uint32) for k, v in C._MUL.items()}
+        td0 = m[14] | (m[9] << 8) | (m[13] << 16) | (m[11] << 24)
+        rows = [[_rotl8(t0, j) for j in range(4)] + [box]
+                for t0, box in ((te0, s), (td0, i))]
+        t = u32.words(np.asarray(rows, np.uint32), dev)
+        _KERNEL_TABLES[dev] = t
     return t
 
 
@@ -185,7 +216,7 @@ def lines_encrypt_cuda(round_keys, words, flags,
         return out
     fn = _build.load("aes128").aes128_encrypt
     with torch.cuda.device(dev):
-        rc = fn(_tables(dev)["sbox"].data_ptr(), round_keys.data_ptr(),
+        rc = fn(kernel_tables(dev)[0].data_ptr(), round_keys.data_ptr(),
                 words.data_ptr(), n,
                 None if flags is None else flags.data_ptr(), n_blocks,
                 out.data_ptr(), _stream(dev))
@@ -209,7 +240,7 @@ def lines_decrypt_cuda(round_keys, payload, flags,
         return out
     fn = _build.load("aes128").aes128_decrypt
     with torch.cuda.device(dev):
-        rc = fn(_tables(dev)["sbox"].data_ptr(), round_keys.data_ptr(),
+        rc = fn(kernel_tables(dev)[1].data_ptr(), round_keys.data_ptr(),
                 payload.data_ptr(),
                 None if flags is None else flags.data_ptr(), n // 4,
                 orig_len, out.data_ptr(), _stream(dev))

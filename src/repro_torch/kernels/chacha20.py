@@ -12,12 +12,14 @@ sealed matmul:
   ALU pipe, 16.7e12 a second on the H100, against 80 bytes moved with a
   per-block nonce: the arithmetic.
 * ``csrc/chacha20_cache.cu`` (``cache_view``, ``cache_splice``,
-  ``cache_copy``, ``cache_tags``): the paged KV cache's pads
-  (``ref.cache_block_otp``) made in registers inside the pass that consumes
-  them: the gather of one layer's dense view (zeroed past each slot's
-  length), the in-place splice of a write over every layer, the
-  copy-on-write re-key of shared blocks, and the blocks' Carter–Wegman tags
-  (``core.mac``: a hash of the ciphertext XOR one pad word).
+  ``cache_copy``, ``cache_tags``, ``cache_verify``): the paged KV cache's
+  pads (``ref.cache_block_otp``) made in registers inside the pass that
+  consumes them: the gather of one layer's dense view (zeroed past each
+  slot's length), the in-place splice of a write over every layer, the
+  copy-on-write re-key of shared blocks, the blocks' Carter–Wegman tags
+  (``core.mac``: a hash of the ciphertext XOR one pad word), and a read's
+  check of those tags over every layer with the slots' verdicts made in the
+  kernel.
 * ``csrc/chacha20_lines.cu`` (``lines_unseal``, ``lines_gather_rows``): the
   line layout's pads (``core.engine._line_otp``) made inside the unseal of a
   whole leaf, or inside the gather of the embedding rows a dispatch needs.
@@ -544,6 +546,90 @@ def cache_tags(key_words, hash_keys, nonce_k, nonce_v, pool_k, pool_v, lids,
               blocks, live, wc)
 
 
+def cache_verify_plain(key_words, hash_keys, nonce_k, nonce_v, pool_k,
+                       pool_v, mac_k, mac_v, lids, tables, lengths, wc,
+                       bs: int) -> torch.Tensor:
+    """(B,) bool verdict of a pass over every layer of ``pool_*`` (n, NB,
+    wpb): slot b holds where each *resident* block of its table row
+    (tables (B, MB) int64, columns below ceil(lengths[b] / bs)) has, in
+    every layer and in k and v, the tags ``cache_tags_plain`` computes over
+    its ciphertext equal to the stored ``mac_k``/``mac_v`` (n, NB): the AND
+    of the per-layer verdicts of the reference's
+    ``models/paged.py::_dense_view``."""
+    b, mb = tables.shape
+    n = pool_k.shape[0]
+    resident = (torch.arange(mb, device=tables.device)[None, :]
+                < ((lengths + bs - 1) // bs)[:, None])             # (B, MB)
+    tags = cache_tags_plain(key_words, hash_keys, nonce_k, nonce_v, pool_k,
+                            pool_v, lids, tables.reshape(-1),
+                            resident.reshape(-1), wc)              # (n, 2, E)
+    okb = ((tags[:, 0].reshape(n, b, mb) == mac_k[:, tables])
+           & (tags[:, 1].reshape(n, b, mb) == mac_v[:, tables]))
+    return (okb | ~resident).all(dim=2).all(dim=0)
+
+
+def cache_verify_cuda(key_words, hash_keys, nonce_k, nonce_v, pool_k,
+                      pool_v, mac_k, mac_v, lids, tables, lengths, wc,
+                      bs: int) -> torch.Tensor:
+    """Launch ``cache_verify`` of ``csrc/chacha20_cache.cu``: one block of
+    threads a (table entry, layer, stream), every layer in one launch, the
+    compare and the AND over layers in the kernel. The pools and tag words
+    may be strided views of the stacked pool (no copy)."""
+    from repro_torch.core.mac import MAX_WORDS
+    dev = pool_k.device
+    _check_words("key_words", key_words, (8,))
+    _check_stacked_pools(pool_k, pool_v)
+    n, nb, wpb = pool_k.shape
+    b, mb = tables.shape
+    if wpb > MAX_WORDS:
+        raise ValueError(f"{wpb} words a block exceed one tag's message")
+    _check_words("hash_keys", hash_keys, (2 * wpb,))
+    _check_words("wc", wc, (nb,))
+    _check_words("lids", lids, (n,))
+    for name, t in (("mac_k", mac_k), ("mac_v", mac_v)):
+        _check_words(name, t, (n, nb))
+        if t.stride(1) != 1:
+            raise ValueError(f"{name}: expected unit stride within a layer")
+    if tables.dtype != torch.int64 or lengths.dtype != torch.int64 or \
+            tuple(lengths.shape) != (b,):
+        raise TypeError(f"tables ({b}, {mb}) and lengths ({b},): int64")
+    if not 0 < bs or b * mb >= 2**31 or 2 * n >= 65536:
+        raise ValueError("bad block size or too many tags for one launch")
+    _same_device(dev, key_words, hash_keys, pool_v, mac_k, mac_v, lids,
+                 tables, lengths, wc)
+    key_words, hash_keys, lids, tables, lengths, wc = (
+        t.contiguous() for t in (key_words, hash_keys, lids, tables, lengths,
+                                 wc))
+    ok = torch.ones((b,), dtype=torch.int32, device=dev)
+    vec = (wpb % 4 == 0
+           and all(s % 4 == 0 for s in pool_k.stride()[:2]
+                   + pool_v.stride()[:2])
+           and _aligned(pool_k, pool_v, hash_keys))
+    fn = _build.load("chacha20_cache").cache_verify
+    with torch.cuda.device(dev):
+        rc = fn(key_words.data_ptr(), hash_keys.data_ptr(),
+                pool_k.data_ptr(), pool_v.data_ptr(), pool_k.stride(0),
+                pool_k.stride(1), pool_v.stride(0), pool_v.stride(1),
+                mac_k.data_ptr(), mac_v.data_ptr(), mac_k.stride(0),
+                mac_v.stride(0), lids.data_ptr(), tables.data_ptr(),
+                lengths.data_ptr(), wc.data_ptr(), ok.data_ptr(), n, b * mb,
+                mb, wpb, bs, *_nonce_words(nonce_k), *_nonce_words(nonce_v),
+                int(vec), _stream(dev))
+    _build.check(rc, "cache_verify")
+    cache_verify_cuda.launches += 1
+    return ok.to(torch.bool)
+
+
+def cache_verify(key_words, hash_keys, nonce_k, nonce_v, pool_k, pool_v,
+                 mac_k, mac_v, lids, tables, lengths, wc,
+                 bs: int) -> torch.Tensor:
+    """(B,) bool verdict of a cache read over every layer (see
+    ``cache_verify_plain``)."""
+    fn = cache_verify_cuda if pool_k.is_cuda else cache_verify_plain
+    return fn(key_words, hash_keys, nonce_k, nonce_v, pool_k, pool_v, mac_k,
+              mac_v, lids, tables, lengths, wc, bs)
+
+
 # --------------------------------------------------------------------------
 # line-sealed leaves: the whole leaf, or the rows of a gather
 # --------------------------------------------------------------------------
@@ -815,6 +901,6 @@ def line_tags(key_words, hash_keys, nonce3, payload, counters,
 
 
 for _fn in (cache_view_cuda, cache_splice_cuda, cache_copy_cuda,
-            cache_tags_cuda, lines_unseal_cuda, lines_gather_rows_cuda,
-            tile_tags_cuda, line_tags_cuda):
+            cache_tags_cuda, cache_verify_cuda, lines_unseal_cuda,
+            lines_gather_rows_cuda, tile_tags_cuda, line_tags_cuda):
     _fn.launches = 0

@@ -3,9 +3,10 @@
 reference calls straight from ``repro/kernels/flash_attention.py``, and the
 ChaCha routes that make their pads where the data is used (the reference
 composes these from ``chacha20_keystream``): ``cache_view``,
-``cache_splice``, ``cache_copy`` and ``cache_tags`` of the paged KV cache,
-``lines_unseal`` and ``lines_gather_rows`` of line-sealed leaves, and
-``tile_tags`` and ``line_tags`` of the sealed weight image's MACs; and
+``cache_splice``, ``cache_copy``, ``cache_tags`` and ``cache_verify`` of
+the paged KV cache, ``lines_unseal`` and ``lines_gather_rows`` of
+line-sealed leaves, and ``tile_tags`` and ``line_tags`` of the sealed
+weight image's MACs; and
 AES-128 ECB over line-sealed leaves (``aes128_lines_encrypt`` /
 ``aes128_lines_decrypt``) for the Direct engine, which the reference runs as
 jnp.
@@ -31,6 +32,7 @@ _COUNTED = {"chacha20": _cc.chacha20_blocks,
             "chacha20_cache_splice": _cc.cache_splice_cuda,
             "chacha20_cache_copy": _cc.cache_copy_cuda,
             "chacha20_cache_tags": _cc.cache_tags_cuda,
+            "chacha20_cache_verify": _cc.cache_verify_cuda,
             "chacha20_lines_unseal": _cc.lines_unseal_cuda,
             "chacha20_lines_gather": _cc.lines_gather_rows_cuda,
             "chacha20_weight_tile_tags": _cc.tile_tags_cuda,
@@ -58,6 +60,7 @@ cache_view = _cc.cache_view
 cache_splice = _cc.cache_splice
 cache_copy = _cc.cache_copy
 cache_tags = _cc.cache_tags
+cache_verify = _cc.cache_verify
 lines_unseal = _cc.lines_unseal
 lines_gather_rows = _cc.lines_gather_rows
 tile_tags = _cc.tile_tags

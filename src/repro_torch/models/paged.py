@@ -18,8 +18,13 @@ loop over layers; the pools and ``wc`` are updated in place.
 When the seal carries a MAC context, every sealed write re-tags the blocks
 it touched (``mac_k``/``mac_v``, under the bumped counter) and every read
 checks the tags of the slot's resident blocks over the ciphertext, before
-the unseal: one ``ops.cache_tags`` launch a layer read and a write, two a
-copy-on-write (the sources' check, the copies' tags).
+the unseal: a decode or chunk pass checks every layer at once, before its
+first layer's view (one ``ops.cache_verify`` launch a pattern position,
+which also makes the slots' verdicts); a write takes one ``ops.cache_tags``
+launch, a copy-on-write two (the sources' check, the copies' tags). The
+pools do not change within a pass (its splice comes after it, fault hooks
+between dispatches), so the one check's verdict is the AND of the
+reference's per-layer verdicts.
 """
 from __future__ import annotations
 
@@ -40,33 +45,20 @@ from repro_torch.models.cache import SCRATCH_BLOCK
 
 def _dense_view(cfg: ModelConfig, seal: Optional[CacheSeal], pool_j,
                 tables, lengths, wc, pos_len=None):
-    """One layer's blocks gathered into the dense {"k","v","pos"} view, and
-    the slots' integrity verdict.
+    """One layer's blocks gathered into the dense {"k","v","pos"} view.
 
     pool_j: {"k","v": (NB, wpb) int32, "mac_k","mac_v": (NB,), "lid": ()};
     tables (B, MB) block ids; lengths (B,); wc (NB,) int32 words. k/v come
     back (B, L, kv_heads, head_dim) with L = MB * block_size, zero at and
     past each slot's length; pos is INVALID_POS past ``lengths`` (or past
     ``pos_len`` for the chunk path, whose fresh keys are spliced into the
-    zeroed tail). The verdict ok (B,) bool holds where every *resident*
-    block of the slot (table entries below ceil(length / block_size)) has
-    the tags stored beside it, recomputed over the gathered ciphertext; it
-    is None when the seal carries no MAC context (nothing is checked)."""
+    zeroed tail). It checks no MAC: the passes check every layer before
+    their first view (``_verify_pass``); the reference's one-layer verdict
+    is ``_verify`` over a one-layer pool."""
     b, mb = tables.shape
     wpb = pool_j["k"].shape[-1]
     wpt = MC.kv_words_per_token(cfg)
     seq = mb * wpb // wpt
-    ok = None
-    if seal is not None and seal.mac is not None:
-        bs = wpb // wpt
-        resident = (torch.arange(mb, device=tables.device)[None, :]
-                    < ((lengths + bs - 1) // bs)[:, None])        # (B, MB)
-        tags = _tags(seal, pool_j["k"][None], pool_j["v"][None],
-                     pool_j["lid"].reshape(1), tables.reshape(-1),
-                     resident.reshape(-1), wc)[0]                  # (2, B*MB)
-        okb = ((tags[0].reshape(b, mb) == pool_j["mac_k"][tables])
-               & (tags[1].reshape(b, mb) == pool_j["mac_v"][tables]))
-        ok = (okb | ~resident).all(dim=1)
     # (2, B, MB*wpb) words, zero past each slot's length; sealed: one
     # launch that unseals as it gathers
     view = ops.cache_view if seal is not None else _cc.cache_view_plain
@@ -80,7 +72,34 @@ def _dense_view(cfg: ModelConfig, seal: Optional[CacheSeal], pool_j,
     valid = pos < lengths[:, None]                 # (B, L)
     vpos = valid if pos_len is None else pos < pos_len[:, None]
     pos = torch.where(vpos, pos, torch.full_like(pos, MC.INVALID_POS))
-    return {"k": k, "v": v, "pos": pos}, ok
+    return {"k": k, "v": v, "pos": pos}
+
+
+def _verify(seal: CacheSeal, pool, tables, lengths, wc, bs: int):
+    """(B,) bool: every resident block of each slot (table entries below
+    ceil(length / bs)), in every layer of the stacked ``pool`` ({"k","v":
+    (n, NB, wpb), "mac_k","mac_v": (n, NB), "lid": (n,)}), k and v, has its
+    stored tags (one ``ops.cache_verify`` launch)."""
+    mac = seal.mac
+    return ops.cache_verify(mac.key_words, mac.hash_keys(pool["k"].shape[-1]),
+                            *seal.mac_nonces(), pool["k"], pool["v"],
+                            pool["mac_k"], pool["mac_v"], pool["lid"], tables,
+                            lengths, wc, bs)
+
+
+def _verify_pass(cfg: ModelConfig, seal: Optional[CacheSeal], pools, tables,
+                 lengths, wc) -> torch.Tensor:
+    """(B,) bool verdict of a pass's cache reads, every layer checked once,
+    before the first view: one ``_verify`` a pattern position; all True
+    when the seal carries no MAC context."""
+    ok = torch.ones((tables.shape[0],), dtype=torch.bool,
+                    device=tables.device)
+    if seal is None or seal.mac is None:
+        return ok
+    bs = pools[0]["k"].shape[-1] // MC.kv_words_per_token(cfg)
+    for pj in pools:
+        ok &= _verify(seal, pj, tables, lengths, wc, bs)
+    return ok
 
 
 def _tags(seal: CacheSeal, pool_k, pool_v, lids, blocks, live, wc):
@@ -118,23 +137,18 @@ def _layer_slices(params, pools, j: int, i: int):
 
 
 def _run_layers(cfg, params, pools, x, positions, mode, view_fn):
-    """Layer loop; returns (x, updates, ok): updates per pattern position
-    {"k_new","v_new"} stacked (n_super, B, C, kv_heads, head_dim), ok (B,)
-    the AND of every layer's cache verdict (all True when nothing is
-    checked)."""
+    """Layer loop; returns (x, updates): updates per pattern position
+    {"k_new","v_new"} stacked (n_super, B, C, kv_heads, head_dim)."""
     ups = [[] for _ in cfg.pattern]
-    ok = torch.ones((x.shape[0],), dtype=torch.bool, device=x.device)
     for i in range(cfg.n_superblocks()):
         for j, kind in enumerate(cfg.pattern):
             p, pool = _layer_slices(params, pools, j, i)
-            view, okj = view_fn(pool)
-            if okj is not None:
-                ok &= okj
-            x, up, _ = B.block_apply(cfg, kind, p, x, positions, mode, view)
+            x, up, _ = B.block_apply(cfg, kind, p, x, positions, mode,
+                                     view_fn(pool))
             ups[j].append(up)
     updates = tuple({key: torch.stack([u[key] for u in uj])
                      for key in ("k_new", "v_new")} for uj in ups)
-    return x, updates, ok
+    return x, updates
 
 
 def decode_logits(cfg: ModelConfig, params, pools, tables, lengths, wc,
@@ -145,14 +159,14 @@ def decode_logits(cfg: ModelConfig, params, pools, tables, lengths, wc,
     (logits (B, V) f32, updates for ``append_tokens``, ok (B,) bool: the
     AND of every layer's cache-read verdict, all True unless the seal
     carries a MAC context)."""
+    ok = _verify_pass(cfg, seal, pools, tables, lengths, wc)
     x = T._embed(cfg, params, tokens)
     positions = lengths[:, None]
 
     def view(pool):
         return _dense_view(cfg, seal, pool, tables, lengths, wc)
 
-    x, updates, ok = _run_layers(cfg, params, pools, x, positions, "decode",
-                                 view)
+    x, updates = _run_layers(cfg, params, pools, x, positions, "decode", view)
     x = L.apply_norm(cfg, params["final_norm"], x)
     return T._unembed(cfg, params, x)[:, 0], updates, ok
 
@@ -163,18 +177,18 @@ def chunk_logits(cfg: ModelConfig, params, pools, tables, lengths, wc,
     at positions [lengths[i], lengths[i] + chunk_len[i]). Returns (logits
     (B, V) at each row's last chunk token, updates, ok (B,) as in
     ``decode_logits``)."""
+    ok = _verify_pass(cfg, seal, pools, tables, lengths, wc)
     x = T._embed(cfg, params, tokens)
     c = tokens.shape[1]
     positions = lengths[:, None] + torch.arange(c, device=tokens.device)[None]
 
     def view(pool):
-        v, ok = _dense_view(cfg, seal, pool, tables, lengths, wc,
-                            pos_len=lengths + chunk_len)
+        v = _dense_view(cfg, seal, pool, tables, lengths, wc,
+                        pos_len=lengths + chunk_len)
         v["cl"] = chunk_len
-        return v, ok
+        return v
 
-    x, updates, ok = _run_layers(cfg, params, pools, x, positions, "chunk",
-                                 view)
+    x, updates = _run_layers(cfg, params, pools, x, positions, "chunk", view)
     x = L.apply_norm(cfg, params["final_norm"], x)
     idx = (chunk_len - 1).clamp(min=0)
     last = x[torch.arange(x.shape[0], device=x.device), idx][:, None]

@@ -194,3 +194,133 @@ def test_engine_protocol_is_shared():
                  lambda: eng.seal_cache_blocks(None, None, None, None, None)):
         with pytest.raises(NotImplementedError):
             call()
+
+
+# --------------------------------------------------------------------------
+# the kernel's tables, as csrc/aes128.cu stages and indexes them
+# --------------------------------------------------------------------------
+
+REGION_WORDS = 16384            # a 64 KB region: 256 entries x 2 slots x 32
+
+
+def _staged(inverse):
+    """The words of the kernel's dynamic shared memory (``stage``): word w
+    is lane w % 32 of entry (w >> 6) % 256 of slot 2 (w >> 14) + (w >> 5) %
+    2; slots 0..3 are T0..T3, slot 4 the inverse S-box (inverse cipher
+    only); other words are never read."""
+    tab = AES.kernel_tables("cpu")[int(inverse)].to(torch.int64) & 0xFFFFFFFF
+    slots = 4 + int(inverse)
+    w = torch.arange((slots + 1) // 2 * REGION_WORDS)
+    slot = 2 * (w >> 14) + ((w >> 5) & 1)
+    img = tab[slot.clamp(max=4), (w >> 6) & 255]
+    return torch.where(slot < slots, img, torch.full_like(img, -1))
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's ``__byte_perm`` on int64 tensors of u32 values."""
+    out = torch.zeros_like(x)
+    for n in range(4):
+        k = (sel >> (4 * n)) & 7
+        src = x if k < 4 else y
+        out |= ((src >> (8 * (k & 3))) & 0xFF) << (8 * n)
+    return out
+
+
+def _mirror(blocks, rk, inverse):
+    """The kernel's rounds (``cipher``) on (n, 16) uint8 blocks, block b on
+    lane b % 32, every lookup checked to fall in its lane's bank."""
+    img = _staged(inverse)
+    n = blocks.shape[0]
+    lane4 = 4 * (torch.arange(n) % 32)
+
+    def entry(w, j):
+        return _byte_perm(w, lane4, 0x5504 | (j << 4))
+
+    def lookup(e, slot):
+        word = (e + (slot >> 1) * REGION_WORDS * 4 + (slot & 1) * 128) >> 2
+        assert bool((word % 32 == lane4 // 4).all())     # no bank conflict
+        got = img[word]
+        assert bool((got >= 0).all())                    # a staged word
+        return got
+
+    rkw = rk.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    keys = rkw.reshape(11, 4)
+    if inverse:                  # the equivalent inverse cipher's keys
+        mixed = AES._inv_mix_columns(AES._tables("cpu"), rk[1:10])
+        keys = keys.clone()
+        keys[1:10] = (mixed.contiguous().view(torch.int32).to(torch.int64)
+                      & 0xFFFFFFFF).reshape(9, 4)
+    d = 3 if inverse else 1
+    s = [(blocks.contiguous().view(torch.int32).to(torch.int64)
+          & 0xFFFFFFFF).reshape(n, 4)[:, c] for c in range(4)]
+    k = keys[10 if inverse else 0]
+    s = [s[c] ^ k[c] for c in range(4)]
+    for r in range(1, 10):
+        k = keys[10 - r if inverse else r]
+        s = [lookup(entry(s[c], 0), 0) ^ lookup(entry(s[(c + d) % 4], 1), 1)
+             ^ lookup(entry(s[(c + 2 * d) % 4], 2), 2)
+             ^ lookup(entry(s[(c + 3 * d) % 4], 3), 3) ^ k[c]
+             for c in range(4)]
+    k = keys[0 if inverse else 10]
+    slot, p = (4, 0) if inverse else (0, 1)
+    out = []
+    for c in range(4):
+        w = [lookup(entry(s[(c + j * d) % 4], j), slot) for j in range(4)]
+        lo = _byte_perm(w[0], w[1], p | ((p + 4) << 4))
+        hi = _byte_perm(w[2], w[3], p | ((p + 4) << 4))
+        out.append(_byte_perm(lo, hi, 0x5410) ^ k[c])
+    words = torch.stack(out, dim=1)
+    return torch.from_numpy(words.numpy().astype(np.uint32).view(np.uint8)
+                            ).reshape(n, 16)
+
+
+def test_kernel_tables_are_the_reference_t_tables():
+    """Te0/Td0 from the reference's S-boxes and GF(2^8) products, Tj their
+    8j-bit rotations, row 4 the S-box of the direction."""
+    t = u32.to_numpy(AES.kernel_tables("cpu"))
+    assert t.shape == (2, 5, 256)
+    s, inv = TC.SBOX.astype(np.uint32), TC._INV_SBOX.astype(np.uint32)
+    mul = {m: np.array([TC._gf_mul(x, m) for x in range(256)], np.uint32)
+           for m in (2, 3, 9, 11, 13, 14)}
+    te0 = mul[2][s] | (s << 8) | (s << 16) | (mul[3][s] << 24)
+    td0 = (mul[14][inv] | (mul[9][inv] << 8) | (mul[13][inv] << 16)
+           | (mul[11][inv] << 24))
+    for d, (t0, box) in enumerate(((te0, s), (td0, inv))):
+        for j in range(4):
+            rot = (t0.astype(np.uint64) << (8 * j)) | (t0 >> (32 - 8 * j)
+                                                       if j else 0)
+            np.testing.assert_array_equal(t[d, j], rot.astype(np.uint32))
+        np.testing.assert_array_equal(t[d, 4], box)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_kernel_table_rounds_match_reference(inverse):
+    """A mirror of the kernel's rounds over its staged, bank-replicated
+    tables (byte-permute entries, four lookups a column, the last round's
+    S-box bytes joined by byte permutes) equals the reference's AES,
+    bitwise, on 256 blocks, and inverts the other direction; every lookup
+    lands in its lane's bank."""
+    rng = np.random.RandomState(41 + int(inverse))
+    blocks = rng.randint(0, 256, (256, 16)).astype(np.uint8)
+    rk = JC.aes128_key_schedule(rng.randint(0, 256, 16).astype(np.uint8))
+    rkt = torch.from_numpy(np.array(rk))
+    ref = JC.aes128_decrypt_blocks if inverse else JC.aes128_encrypt_blocks
+    back = JC.aes128_encrypt_blocks if inverse else JC.aes128_decrypt_blocks
+    want = np.asarray(ref(jnp.asarray(blocks), rk))
+    got = _mirror(torch.from_numpy(blocks), rkt, inverse)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        np.asarray(back(jnp.asarray(got.numpy()), rk)), blocks)
+
+
+def test_kernel_table_rounds_fips197_vector():
+    """The mirror of the kernel's rounds on FIPS-197 appendix C.1, both
+    ways."""
+    rk = torch.from_numpy(np.array(JC.aes128_key_schedule(
+        np.arange(16, dtype=np.uint8))))
+    pt = np.frombuffer(bytes.fromhex("00112233445566778899aabbccddeeff"),
+                       np.uint8)[None]
+    ct = _mirror(torch.from_numpy(pt.copy()), rk, False)
+    assert bytes(ct.numpy().reshape(-1)) == bytes.fromhex(
+        "69c4e0d86a7b0430d8cdb78070b4c55a")
+    np.testing.assert_array_equal(_mirror(ct, rk, True).numpy(), pt)

@@ -136,17 +136,21 @@ def test_cache_view_matches_reference(geom, path):
             jnp.asarray(tables, jnp.int32), jnp.asarray(lengths, jnp.int32),
             jnp.asarray(wc),
             None if pos_len is None else jnp.asarray(pos_len, jnp.int32))
-        vt, okt = TPG._dense_view(
-            cfg_t, seal_t, {"k": u32.words(k)[i], "v": u32.words(v)[i],
-                            "lid": u32.words(lid)},
-            torch.from_numpy(tables), torch.from_numpy(lengths),
-            u32.words(wc),
+        pt = {"k": u32.words(k)[i], "v": u32.words(v)[i],
+              "lid": u32.words(lid)}
+        vt = TPG._dense_view(
+            cfg_t, seal_t, pt, torch.from_numpy(tables),
+            torch.from_numpy(lengths), u32.words(wc),
             None if pos_len is None else torch.from_numpy(pos_len))
         for key in ("k", "v"):     # random words: NaNs of every payload
             np.testing.assert_array_equal(_tbits(vt[key]), _bits(vj[key]),
                                           err_msg=key)
         np.testing.assert_array_equal(vt["pos"].numpy(), np.asarray(vj["pos"]))
-        assert okt is None             # no MAC context: nothing checked
+        # no MAC context: nothing checked, every slot passes
+        assert bool(TPG._verify_pass(
+            cfg_t, seal_t, ({key: x[None] for key, x in pt.items()},),
+            torch.from_numpy(tables), torch.from_numpy(lengths),
+            u32.words(wc)).all())
 
 
 @pytest.mark.parametrize("geom", GEOMS, ids=str)

@@ -6,7 +6,8 @@ for the card and skips without one. On a machine with a card:
 
 Tolerances: keystreams bitwise, and so are the kernels that make their pads
 inside the pass that uses them (the paged cache's view, splice,
-copy-on-write and MAC tags, the line layout's unseal and row gather: each
+copy-on-write, MAC tags and MAC check, the line layout's unseal and row
+gather: each
 against its plain version, twice), and so are the card's prefix-sharing and
 verified cache paths against the CPU's;
 each fused-matmul kernel (CUDA cores, and
@@ -445,11 +446,60 @@ def test_cache_tags_kernel_bitwise(cuda, wpb, wpt, shift):
     assert not bool(want[:, :, 1].any()) and bool(want[:, :, 0].all())
 
 
+@pytest.mark.parametrize("wpb,wpt", COPY_GEOMS)
+@pytest.mark.parametrize("shift", [0, 1], ids=["aligned", "misaligned"])
+def test_cache_verify_kernel_bitwise(cuda, wpb, wpt, shift):
+    """A pass's check over every layer, k and v: with the stored tags
+    right, then with a flipped word in a resident block of the first and of
+    the last layer and one past a slot's length (lengths 0, partial and
+    full, a repeated table entry), two launches equal the plain version's
+    verdict; each launch counted."""
+    from repro_torch.core.mac import mac_context
+    gen = torch.Generator(device=cuda).manual_seed(5 * wpb + shift)
+    n, nb, b, mb = 3, 12, 4, 3
+    bs = wpb // wpt
+    wide = _words(gen, (2, n, nb, wpb + 8), cuda)
+    wide[0, :, :, ::5] = -1
+    wide[1, :, :, 1::3] |= -2**31
+    pk, pv = wide[0, :, :, shift:wpb + shift], wide[1, :, :, shift:wpb + shift]
+    wc = _words(gen, (nb,), cuda)
+    wc[::2] = -1
+    ctx = mac_context(bytes(range(32)), "kvcache", cuda)
+    lids = torch.tensor([0, 5, -1], dtype=torch.int32, device=cuda)
+    tables = torch.tensor([[1, 2, 3], [4, 5, 6], [7, 8, 9], [10, 11, 4]],
+                          device=cuda)
+    lengths = torch.tensor([0, bs + 1, 3 * bs, 2 * bs], device=cuda)
+    nonces = (ctx.nonce((9, 8, 7)), ctx.nonce((2**32 - 1, 0, 1)))
+    hk = ctx.hash_keys(wpb)
+    blocks = torch.arange(nb, device=cuda)
+    tags = CC.cache_tags_plain(ctx.key_words, hk, *nonces, pk, pv, lids,
+                               blocks, torch.ones_like(blocks, dtype=torch.bool),
+                               wc)
+    mac_k, mac_v = tags[:, 0].contiguous(), tags[:, 1].contiguous()
+    flips = ((None, [True] * 4), ((0, 0, 5), [True, False, True, True]),
+             ((1, n - 1, 9), [True, True, False, True]),
+             ((0, n - 1, 6), [True] * 4))         # slot 1, past its length
+    for flip, verdict in flips:
+        if flip is not None:
+            wide[flip[0], flip[1], flip[2], shift + 1] ^= 1 << 7
+        args = (ctx.key_words, hk, *nonces, pk, pv, mac_k, mac_v, lids,
+                tables, lengths, wc, bs)
+        want = CC.cache_verify_plain(*args)
+        before = ops.launch_counts()
+        got = [CC.cache_verify(*args) for _ in range(2)]
+        torch.cuda.synchronize()
+        _launched(before, "chacha20_cache_verify", 2)
+        assert torch.equal(got[0], want) and torch.equal(got[1], want)
+        assert want.tolist() == verdict
+        if flip is not None:
+            wide[flip[0], flip[1], flip[2], shift + 1] ^= 1 << 7
+
+
 def _cow_sequence(dev, verify):
     """A donor writes 7 tokens, a sharer copies the donor's tail block and
     writes 6 more into the copy, through ``models/paged.py`` with a sealed
     cache (MACs armed when ``verify``). Returns the pools, counters and
-    the sharer's verdict of its view."""
+    the sharer's verdict of its layer-0 blocks."""
     from repro_torch.core import sealed_store as SS
     from repro_torch.models import cache as MC
     from repro_torch.models import paged as PG
@@ -476,11 +526,13 @@ def _cow_sequence(dev, verify):
                         torch.tensor([True, False], device=dev))
     write([1, 5, 6, 7], 6, 5, 5)
     write([1, 5, 6, 7], 11, 1, 1)
-    _, view_ok = PG._dense_view(
-        cfg, seal, {key: pools[0][key][0] for key in pools[0]},
-        torch.tensor([[1, 5, 6, 7]], device=dev), torch.tensor([12],
-                                                               device=dev),
-        wc)
+    table = torch.tensor([[1, 5, 6, 7]], device=dev)
+    length = torch.tensor([12], device=dev)
+    PG._dense_view(cfg, seal, {key: pools[0][key][0] for key in pools[0]},
+                   table, length, wc)
+    view_ok = None if seal.mac is None else PG._verify(
+        seal, {key: pools[0][key][:1] for key in pools[0]}, table, length,
+        wc, bs)
     return pools, wc, bool(ok), view_ok
 
 
@@ -504,9 +556,12 @@ def test_append_into_cowed_shared_tail_on_the_card(cuda, verify):
     assert after["chacha20_cache_copy"] - before["chacha20_cache_copy"] == 1
     assert after["chacha20_cache_splice"] - before["chacha20_cache_splice"] \
         == 3
-    # three writes and the copy's check and tag, plus the view's verdict
+    # three writes and the copy's check and tag; the view's verdict is one
+    # verify launch
     assert after["chacha20_cache_tags"] - before["chacha20_cache_tags"] == \
-        (6 if verify else 0)
+        (5 if verify else 0)
+    assert after["chacha20_cache_verify"] - before["chacha20_cache_verify"] \
+        == (1 if verify else 0)
 
 
 def test_prefix_sharing_verified_serving_on_the_card_matches_cpu(cuda):

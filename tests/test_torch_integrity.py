@@ -248,9 +248,10 @@ def test_append_tokens_mac_words_match_reference(dtype):
 
 @pytest.mark.parametrize("tamper", ["none", "resident", "past the length"])
 def test_dense_view_verdict_matches_reference(tamper):
-    """The view's verdict over resident blocks only: a flipped word in a
-    resident block fails that slot alone; one in a table entry past
-    ceil(length / block_size) is not checked."""
+    """A layer's verdict (``_verify`` over a one-layer pool) against the
+    reference's ``_dense_view`` verdict, over resident blocks only: a
+    flipped word in a resident block fails that slot alone; one in a table
+    entry past ceil(length / block_size) is not checked."""
     cfg_j, cfg_t = _cfgs()
     seal_j, seal_t = _seals()
     pools_j, pools_t, wc_j, wc_t, lengths = _written_pools(
@@ -270,14 +271,65 @@ def test_dense_view_verdict_matches_reference(tamper):
             cfg_j, seal_j, {k: pools_j[0][k][i] for k in pools_j[0]},
             jnp.asarray(tables, jnp.int32), jnp.asarray(lengths, jnp.int32),
             wc_j)
-        vt, okt = TPG._dense_view(
+        vt = TPG._dense_view(
             cfg_t, seal_t, {k: pools_t[0][k][i] for k in pools_t[0]},
             torch.from_numpy(tables), torch.from_numpy(lengths), wc_t)
+        okt = TPG._verify(seal_t, {k: pools_t[0][k][i:i + 1]
+                                   for k in pools_t[0]},
+                          torch.from_numpy(tables),
+                          torch.from_numpy(lengths), wc_t, BS)
         np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
         want = [True, not (tamper == "resident" and i == 0)]
         assert okt.tolist() == want
         np.testing.assert_array_equal(vt["k"].numpy(),
                                       np.asarray(vj["k"]))
+
+
+@pytest.mark.parametrize("tamper", ["none", "layer 0", "last layer",
+                                    "past the length"])
+def test_cache_verify_plain_is_the_and_of_reference_layer_verdicts(tamper):
+    """A pass's one check over every layer (``cache_verify_plain``, and
+    ``_verify_pass`` that the decode and chunk passes run) equals the AND
+    of the reference's per-layer ``_dense_view`` verdicts: a flipped word in
+    a resident block of the first or the last layer fails its slot alone;
+    one past the slot's length is not checked."""
+    cfg_j, cfg_t = _cfgs()
+    seal_j, seal_t = _seals()
+    pools_j, pools_t, wc_j, wc_t, lengths = _written_pools(
+        cfg_j, cfg_t, seal_j, seal_t)
+    tables = _tables()
+    n = cfg_t.n_superblocks()
+    # slot 0 holds 10 tokens (entries 0-2 resident), slot 1 holds 5 (0-1)
+    site = {"layer 0": ("k", 0, 1, 1), "last layer": ("v", n - 1, 0, 2),
+            "past the length": ("k", n - 1, 1, 3)}.get(tamper)
+    if site is not None:
+        key, layer, slot, col = site
+        blk = int(tables[slot, col])
+        pools_t[0][key][layer, blk, 5] ^= u32.const(1 << 31)
+        pj = dict(pools_j[0])
+        pj[key] = pj[key].at[layer, blk, 5].set(
+            pj[key][layer, blk, 5] ^ np.uint32(1 << 31))
+        pools_j = (pj,)
+    want = np.ones((B,), bool)
+    for i in range(n):
+        _, okj = JPG._dense_view(
+            cfg_j, seal_j, {k: pools_j[0][k][i] for k in pools_j[0]},
+            jnp.asarray(tables, jnp.int32), jnp.asarray(lengths, jnp.int32),
+            wc_j)
+        want &= np.asarray(okj)
+    pt = pools_t[0]
+    mac = seal_t.mac
+    got = CC.cache_verify_plain(
+        mac.key_words, mac.hash_keys(pt["k"].shape[-1]), *seal_t.mac_nonces(),
+        pt["k"], pt["v"], pt["mac_k"], pt["mac_v"], pt["lid"],
+        torch.from_numpy(tables), torch.from_numpy(lengths), wc_t, BS)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.tolist() == {"none": [True, True], "layer 0": [True, False],
+                            "last layer": [False, True],
+                            "past the length": [True, True]}[tamper]
+    assert torch.equal(TPG._verify_pass(cfg_t, seal_t, pools_t,
+                                        torch.from_numpy(tables),
+                                        torch.from_numpy(lengths), wc_t), got)
 
 
 # --------------------------------------------------------------------------

@@ -147,6 +147,10 @@ def test_launch_counts_untouched_on_cpu():
                   lids, blocks, torch.tensor([3, 0]), live, wc)
     TO.cache_tags(u32.words(KEY), torch.ones((64,), dtype=torch.int32),
                   (1, 2, 3), (4, 5, 6), pool, pool, lids, blocks, live, wc)
+    TO.cache_verify(u32.words(KEY), torch.ones((64,), dtype=torch.int32),
+                    (1, 2, 3), (4, 5, 6), pool, pool, wc[None].repeat(2, 1),
+                    wc[None].repeat(2, 1), lids, torch.tensor([[1, 2]]),
+                    torch.tensor([5]), wc, 4)
     ct = torch.zeros((2, 16, 8), dtype=torch.int32)
     TO.tile_tags(u32.words(KEY), torch.ones((128,), dtype=torch.int32),
                  (1, 2, 3), ct, torch.ones((2, 16), dtype=torch.bool),
@@ -166,6 +170,7 @@ def test_launch_counts_untouched_on_cpu():
                                   "chacha20_cache_splice": 0,
                                   "chacha20_cache_copy": 0,
                                   "chacha20_cache_tags": 0,
+                                  "chacha20_cache_verify": 0,
                                   "chacha20_lines_unseal": 0,
                                   "chacha20_lines_gather": 0,
                                   "chacha20_weight_tile_tags": 0,

@@ -282,11 +282,14 @@ def test_append_into_cowed_shared_tail(kind):
     for key, before in zip(("k", "v"), donor_words):   # the donor's intact
         assert torch.equal(pools_t[0][key][:, [1, 2]], before)
     if seal_t is not None:           # the sharer reads its view back
-        view, ok = TPG._dense_view(
+        TPG._dense_view(
             cfg_t, seal_t, {key: pools_t[0][key][0] for key in
                             ("k", "v", "mac_k", "mac_v", "lid")},
             torch.from_numpy(sharer), torch.tensor([12]), wc_t)
-        assert ok is None if seal_t.mac is None else bool(ok.all())
+        ok = TPG._verify_pass(cfg_t, seal_t, pools_t,
+                              torch.from_numpy(sharer), torch.tensor([12]),
+                              wc_t)
+        assert bool(ok.all())
 
 
 # --------------------------------------------------------------------------
