@@ -27,14 +27,16 @@ runs:
    tick's resident blocks;
 2. the three fused decrypt-in-matmul kernels against their plain version
    at the full-width internlm2-1.8B shapes (wq/wo, wk/wv, MLP wi/wo, LM
-   head): the CUDA-core kernel at decode M and at a ragged M of 1000 rows,
-   the decode tensor-core kernel at M of 1, 4, 16, 32, 33 and 64 (each
-   case launched twice, bitwise equal), the prefill tensor-core kernel at M
-   of 128, 1000 and 3560 (the group prefill's), SE 0/0.5/1, write counters
-   0 and 5;
+   head) and at phase 10's Qwen3-30B-A3B shapes (wq, wk/wv at N 512, wo
+   at K 4096, the head at N 151,936): the CUDA-core kernel at decode M and
+   at a ragged M of 1000 rows, the decode tensor-core kernel at M of 1, 4,
+   8, 16, 32, 33 and 64 (each case launched twice, bitwise equal), the
+   prefill tensor-core kernel at M of 128, 1000 and each model's group
+   prefill's M, SE 0/0.5/1, write counters 0 and 5;
 3. both flash-attention kernels against their plain version: the reference
-   test's grid, the group prefill's full-width shape, a gemma2-like head
-   dim of 256 with window and softcap, and a short-query case, in f32 and
+   test's grid, the group prefill's full-width shape and phase 10's (GQA
+   8:1 at head dim 128), a gemma2-like head dim of 256 with window and
+   softcap, and a short-query case, in f32 and
    bf16 through the CUDA-core kernel, and the bf16 cases of head dim 64 and
    128 through the tensor-core kernel under ``flash_attention.bf16_gate``;
 4. sealed continuous-batching serving of internlm2-1.8B at full width (ColoE,
@@ -120,7 +122,21 @@ runs:
    dispatch's decrypt of the whole image against its bound, by events
    after an L2 flush and without it, and by the profiler's kernel time
    over the same calls, and a Direct tick beside a ColoE and a plaintext
-   tick (events, host clock, profiler).
+   tick (events, host clock, profiler);
+10. the MoE family: Qwen3-30B-A3B at its published widths (128 experts of
+   d_ff 768, top-8, GQA 32/4, vocab 151,936), 6 of its 48 layers: (a) the
+   image sealed and unsealed bit for bit, ``lines_unseal`` over a whole
+   4.8 GB stacked expert leaf twice and bitwise against its plain version
+   at the leaf's start, across its 2^31- and 2^32-byte offsets and at its
+   end, timed against its bound; (b) teacher-forced logits and routes,
+   sealed vs plaintext (f32 gated: logits at 1e-4, every expert choice and
+   kept flag equal; bf16 reported); (c) a staggered trace on 8 slots with
+   padded chunk dispatches, launches gated, tokens against plaintext
+   reported, a verified run equal to it (its cache checks, re-tags and
+   weight sweep's launches gated) and a flipped expert word stopping the
+   drain; (d) a group drain of 512-1024-token prompts; (e) a decode
+   tick and a group prefill timed and profiled, and peak memory
+   (``phase_moe``).
 
 Every phase raises on failure, so the script exits non-zero. The line before
 the last is a JSON ``{"kernels": [...]}`` record; the last line is
@@ -332,6 +348,8 @@ def main(argv=None) -> int:
     report["direct"] = phase_direct(torch, dev, args, cfg, serve["params"],
                                     serve["prompts"])
     del serve
+    # phase 10 serves another model: everything above is let go first
+    report["moe"] = phase_moe(torch, dev, args)
 
     kernels = kernel_records(report)
     if args.report:
@@ -415,13 +433,19 @@ def kernel_records(report):
     fused.update(report["prefix_integrity"]["timing"])
     for name, recs in fused.items():    # the main path's shape: the first
         t[name] = dict(recs[0])
+    # phase 10's main path: its continuous trace, the same trace verified
+    # and its group drain
+    moe = {name: sum(report["moe"][run][name] for run in (
+               "launches", "verify_launches", "group_launches"))
+           for name, *_ in rows}
     kernels = []
     for name, replaces, launches, err in rows:
         tk = t[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{SOURCE.get(name, name)}.cu",
-            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "replaces": replaces, "launches": launches,
+            "moe_launches": moe[name], "max_abs_err": err,
             "ms": tk["ms"], "plain_ms": tk["plain_ms"],
             "bound_ms": tk["bound_ms"], "bound_by": tk["bound_by"],
             "library_ms": tk.get("library_ms"),
@@ -944,6 +968,27 @@ def _shapes():
             "mlp_wo": (f, d), "head": (d, v)}
 
 
+def _moe_shapes():
+    """Phase 10's fused leaves (Qwen3-30B-A3B, GQA 32/4 heads of 128): wq,
+    wk/wv at N 512, wo at K 4096 and the LM head at N 151,936."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MOE_ARCH)
+    d, v = cfg.d_model, cfg.vocab_size
+    return {"moe_wq": (d, cfg.q_dim), "moe_wk": (d, cfg.kv_dim),
+            "moe_wo": (cfg.q_dim, d), "moe_head": (d, v)}
+
+
+def _moe_group_prompts(seed):
+    """Phase 10's group drain prompts: ``MOE_GROUP`` of 512-1024 tokens."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    vocab = get_config(MOE_ARCH).vocab_size
+    rng = np.random.RandomState(seed + 24)
+    return [rng.randint(0, vocab, rng.randint(GROUP_PROMPT[0],
+                                              GROUP_PROMPT[1] + 1)
+                        ).astype(np.int32) for _ in range(MOE_GROUP)]
+
+
 def _sealed_operands(torch, dev, gen, k, n, ratio, wc, bk, bn):
     from repro_torch import u32
     from repro_torch.kernels import ref
@@ -966,12 +1011,18 @@ def phase_sealed_matmul(torch, dev, seed):
               for wc in (0, 5) for cdt in ("float32", "bfloat16")]
     seals = [(r, wc) for r in (0.0, 0.5, 1.0) for wc in (0, 5)]
     tc_rows = (128, 1000, 3560)            # 3560: the group prefill's M
-    dec_rows = (1, 4, 16, 32, 33, 64)      # decode ticks and chunks
+    # phase 10's group prefill: MOE_GROUP right-aligned prompts
+    moe_tc_rows = (128, 1000, MOE_GROUP * max(
+        len(p) for p in _moe_group_prompts(seed)))
+    # decode ticks (4 slots; 8 in phase 10) and chunks
+    dec_rows = (1, 4, 8, 16, 32, 33, 64)
     cases = []
     shapes = dict(_shapes())
     shapes["bn8"] = (2048, 2056)           # N = 8 * 257: seal tile bn = 8
+    shapes.update(_moe_shapes())
     for name, (k, n) in shapes.items():
         bk, bn = _pick_block(k), _pick_block(n)
+        rows = moe_tc_rows if name.startswith("moe_") else tc_rows
         if name == "wq":
             mine = combos                  # the whole grid
         else:                              # each value of each axis
@@ -982,10 +1033,10 @@ def phase_sealed_matmul(torch, dev, seed):
                      for cdt in ("float32", "bfloat16")]
         if name != "bn8":   # the tensor cores: each seal at one of the
             # three M (SE 0.5, wc 5 at 128) and SE 0.5, wc 5 at all three
-            mine += [(tc_rows[i % 3], r, wc, "bfloat16", "sealed_matmul_tc")
+            mine += [(rows[i % 3], r, wc, "bfloat16", "sealed_matmul_tc")
                      for i, (r, wc) in enumerate(seals)]
             mine += [(m, 0.5, 5, "bfloat16", "sealed_matmul_tc")
-                     for m in tc_rows[1:]]
+                     for m in rows[1:]]
             # the decode kernel: every M at every seal
             mine += [(m, r, wc, "bfloat16", "sealed_matmul_dec")
                      for m in dec_rows for r, wc in seals]
@@ -1088,11 +1139,21 @@ def _flash_inputs(torch, gen, dev, b, s, t, hq, hkv, dh, dtype):
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
+def _moe_flash_case(seed):
+    """Phase 10's group prefill: GQA 8:1 at head dim 128, full width."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MOE_ARCH)
+    s = max(len(p) for p in _moe_group_prompts(seed))
+    return (MOE_GROUP, s, s, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+            cfg.window, cfg.attn_softcap)
+
+
 def phase_flash(torch, dev, seed):
     from repro_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
     cases = []
-    for b, s, t, hq, hkv, dh, win, cap in FLASH_CASES:
+    for b, s, t, hq, hkv, dh, win, cap in (FLASH_CASES
+                                           + [_moe_flash_case(seed)]):
         for dname in ("float32", "bfloat16"):
             q, k, v = _flash_inputs(torch, gen, dev, b, s, t, hq, hkv, dh,
                                     getattr(torch, dname))
@@ -3139,6 +3200,514 @@ def phase_direct(torch, dev, args, cfg, params, prompts):
     out["ticks"] = ticks
     del direct, coloe, plain_engine, sp, wi, emb
     torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 10: the MoE family (Qwen3-30B-A3B) at full width
+# --------------------------------------------------------------------------
+
+MOE_ARCH = "qwen3_moe_30b_a3b"
+# 6 of its 48 layers: the serving view decrypts every line-sealed leaf
+# whole each dispatch, and 48 layers of f32 experts are 116 GB of it
+MOE_LAYERS = 6
+MOE_SLOTS, MOE_REQUESTS, MOE_GROUP, MOE_TF_PROMPTS = 8, 12, 4, 4
+# the trace's mean gap between arrivals (scheduler steps): a prompt that
+# arrives alone prefills alone, beside a padding row
+MOE_STAGGER = 4.0
+# lines of each window of the expert leaf held against the plain unseal
+MOE_WINDOW = 65_536
+MOE_LEAF = "blocks/0/mlp/wi"
+
+
+class _Routes:
+    """While active, records every ``moe_router`` call's (token, k) expert
+    choices and every ``capacity_slots`` call's choices and kept set, on
+    the host."""
+
+    def __init__(self, L):
+        self.L, self.idx, self.keep, self.slot_idx = L, [], [], []
+
+    def __enter__(self):
+        L = self.L
+        self._router, self._slots = L.moe_router, L.capacity_slots
+
+        def router(*a, **k):
+            out = self._router(*a, **k)
+            self.idx.append(out[1].cpu())
+            return out
+
+        def slots(*a, **k):
+            out = self._slots(*a, **k)
+            self.keep.append(out[0].cpu())
+            self.slot_idx.append(a[0].cpu())
+            return out
+
+        L.moe_router, L.capacity_slots = router, slots
+        return self
+
+    def __exit__(self, *exc):
+        self.L.moe_router, self.L.capacity_slots = self._router, self._slots
+
+    def agreement(self, torch, other):
+        """(share of equal (token, k) choices, share of equal kept flags);
+        None when the calls' shapes differ."""
+        def share(a, b):
+            if [t.shape for t in a] != [t.shape for t in b]:
+                return None
+            same = sum(int((x == y).sum()) for x, y in zip(a, b))
+            return same / max(1, sum(x.numel() for x in a))
+        return share(self.idx, other.idx), share(self.keep, other.keep)
+
+
+def _moe_logits(torch, L, cfg, params, cache_seal, prompts, toks, forced,
+                max_len, dev):
+    """Teacher-forced logits of the chunked path (every 32-token chunk of
+    ``prompts``, then one decode tick) and of the one-shot prefill of
+    ``toks`` and one decode step, each MoE layer's routes recorded.
+    Returns ([chunked prefill, tick, one-shot prefill, step], routes,
+    forced tokens)."""
+    with _Routes(L) as routes:
+        pre, dec, f1 = first_tick_logits(torch, cfg, params, cache_seal,
+                                         prompts, forced and forced[0], dev)
+        gpre, gdec, f2 = group_logits(torch, cfg, params, toks,
+                                      forced and forced[1], max_len)
+    return [pre, dec, gpre, gdec], routes, (f1, f2)
+
+
+def _real_entries(torch, prompts, layers, top_k, chunk=32):
+    """For each capacity call of ``_moe_logits`` in order (every chunk of
+    the chunked prefill, then the one-shot prefill; ``layers`` calls each),
+    a (t * top_k,) bool: True at the (token, k) entries of the prompts' own
+    tokens, False at a chunk's zero tail or a finished prompt's zero row,
+    and at the left padding of the right-aligned group."""
+    lens = torch.tensor([len(p) for p in prompts])
+    longest = int(lens.max())
+    masks = []
+    for off in range(0, longest, chunk):
+        m = torch.arange(chunk)[None, :] < (lens - off).clamp(0, chunk)[:, None]
+        masks += [m.reshape(-1).repeat_interleave(top_k)] * layers
+    m = torch.arange(longest)[None, :] >= (longest - lens)[:, None]
+    masks += [m.reshape(-1).repeat_interleave(top_k)] * layers
+    return masks
+
+
+def _kept_by_layer(routes, real, layers, experts):
+    """Per layer, for the chunked prefill's dispatches and the one-shot
+    prefill apart: the share of the prompts' (token, k) entries kept, and
+    the most loaded expert's entries over the mean load (each call's, then
+    their mean)."""
+    n_chunk = len(real) - layers
+    split = {}
+    for kind, calls in (("chunks", range(n_chunk)),
+                        ("one-shot", range(n_chunk, len(real)))):
+        kept, skew = [], []
+        for layer in range(layers):
+            js = [j for j in calls if j % layers == layer]
+            kept.append(sum(int(routes.keep[j][real[j]].sum()) for j in js)
+                        / sum(int(real[j].sum()) for j in js))
+            loads = [routes.slot_idx[j].reshape(-1).bincount(minlength=experts)
+                     for j in js]
+            skew.append(sum(float(c.max()) * experts / float(c.sum())
+                            for c in loads) / len(js))
+        split[kind] = {"kept_real": kept, "max_load_over_mean": skew}
+    return split
+
+
+def _gib(n):
+    return n / 2**30
+
+
+def phase_moe(torch, dev, args):
+    """Phase 10: Qwen3-30B-A3B at its published widths (d_model 2048, GQA
+    32/4 heads of 128, 128 experts of d_ff 768, top-8, vocab 151,936), its
+    depth cut to ``MOE_LAYERS``, random weights from ``--seed``, bf16 unless
+    said, the default ``SealConfig`` (ColoE, SE 0.5, fused).
+
+    (a) The image sealed under ColoE gives back every leaf bit for bit;
+    ``lines_unseal`` runs over the whole stacked ``wi`` expert leaf (4.8 GB,
+    past 2^31 and 2^32 bytes) twice, bitwise, and windows of 65,536 lines
+    at its start, across its 2^31- and 2^32-byte offsets and at its end
+    equal the plain version at their own line addresses; the whole leaf's
+    unseal is timed against its bound.
+    (b) Teacher-forced logits, sealed against plaintext on the same prompts
+    and forced tokens: every chunk of a chunked prefill, the first decode
+    tick, a one-shot prefill and its first step. Gated in f32: logits
+    within 1e-4 of their scale, every (token, k) expert choice and every
+    capacity-kept flag equal; the share of entries kept within capacity
+    is reported apart for the prompts' own tokens and for zero padding
+    (chunk tails, finished prompts' zero rows, the group's left padding).
+    In bf16 the two paths round differently (the fused kernels against
+    cuBLAS), and one route flipped at a bf16 near-tie among 128 experts
+    moves a token's MLP output wholesale, so the bf16 logit error and
+    route agreement are reported, not gated.
+    (c) A staggered trace through the continuous engine, 8 slots (admit
+    width 2), ColoE weights and cache: every request completes, chunk
+    dispatches with a padding row counted (gated above 0), the launches of
+    each kernel per dispatch gated, tokens against a plaintext engine
+    reported; a verified engine (weight sweep and cache MACs, their
+    launches gated) gives the same tokens; a flipped word in an
+    enciphered expert line stops the drain with
+    ``SealedIntegrityError("weights")`` before any token.
+    (d) A group drain of 4 prompts of 512-1024 tokens (prefill through
+    ``flash_attention_tc``, GQA 8:1, and ``sealed_matmul_tc``) completes
+    with its launches gated.
+    (e) A sealed decode tick and a sealed group prefill: events, host
+    clock, the profiler's top kernels and idle share; peak memory after
+    sealing and over the drain; the phase's wall time.
+    One engine is built at a time and released before the next."""
+    import numpy as np
+    from repro_torch.config import SealConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core import sealed_store as SS
+    from repro_torch.core.mac import SealedIntegrityError
+    from repro_torch.kernels import chacha20 as CC
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import drive, poisson_arrivals
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import GroupServeEngine, ServeEngine
+
+    t_phase = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"held_before_gib": _gib(torch.cuda.memory_allocated(dev))}
+    cfg = get_config(MOE_ARCH).with_(num_layers=MOE_LAYERS)
+    key = bytes(range(32))
+    params = T.init_params(cfg, seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    out["params_gib"] = _gib(4 * n_params)
+    log(f"[moe] {cfg.name}: {cfg.num_layers} of 48 layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.head_dim}, {cfg.moe.num_experts} experts of d_ff {cfg.d_ff} "
+        f"top-{cfg.moe.top_k}, vocab {cfg.vocab_size}: {n_params / 1e9:.3f} B "
+        f"params ({out['params_gib']:.2f} GiB f32); "
+        f"{out['held_before_gib']:.2f} GiB held from earlier phases")
+
+    # (a) sealing
+    kw = dict(batch_slots=MOE_SLOTS, max_len=256, chunk_tokens=32, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    ops.reset_launch_counts()
+    eng = ServeEngine(cfg, params, seal=SealConfig(), **kw)
+    torch.cuda.synchronize()
+    out["seal_s"] = time.time() - t0
+    out["seal_launches"] = {k: v for k, v in ops.launch_counts().items() if v}
+    out["peak_after_seal_gib"] = _gib(torch.cuda.max_memory_allocated(dev))
+    sp = eng.sealed
+    out["image_gib"] = _gib(sp.stored_bytes())
+    log(f"[moe] sealed in {out['seal_s']:.1f} s ({out['seal_launches']}): "
+        f"image {out['image_gib']:.2f} GiB, {len(sp.fused_paths())} tile "
+        f"leaves, plaintext per step "
+        f"{_gib(eng.stats['weights_plaintext_bytes_per_step']):.2f} GiB; "
+        f"peak allocated {out['peak_after_seal_gib']:.2f} GiB")
+    for path in ("blocks/0/mlp/router", "blocks/0/mlp/wi", "blocks/0/mlp/wg",
+                 "blocks/0/mlp/wo"):
+        if sp.tensors[path].meta.layout != "lines":
+            raise AssertionError(f"{path} is not line-sealed")
+    seng = sp.engine(key)
+    for path, leaf in flatten_paths(params):      # one leaf at a time
+        back = SS._unseal_tensor(seng, sp.tensors[path])
+        if back.dtype != leaf.dtype or not torch.equal(
+                back.view(torch.int32), leaf.view(torch.int32)):
+            raise AssertionError(f"unsealing {path} lost bits")
+        del back
+    log(f"[moe] every leaf unseals bit for bit")
+    st = sp.tensors[MOE_LEAF]
+    n_lines, orig = st.payload.shape[0], st.meta.orig_len
+    uargs = (seng.key_words, st.payload, None, orig, st.meta.nonce)
+    got = CC.lines_unseal_cuda(*uargs)
+    again = CC.lines_unseal_cuda(*uargs)
+    if not torch.equal(got, again):
+        raise AssertionError("lines_unseal differs between two launches")
+    del again
+    rec_bytes = 4 * st.payload.shape[1]
+    starts = {"start": 0,
+              "across 2^31 B": 2**31 // rec_bytes - MOE_WINDOW // 2,
+              "across 2^32 B": 2**32 // rec_bytes - MOE_WINDOW // 2,
+              "end": n_lines - MOE_WINDOW}
+    starts = {k: min(max(a, 0), n_lines - MOE_WINDOW)
+              for k, a in starts.items()}
+    for label, a in starts.items():
+        w = slice(a, a + MOE_WINDOW)
+        want = CC.lines_unseal_plain(seng.key_words, st.payload[w], None,
+                                     32 * MOE_WINDOW, st.meta.nonce, line0=a)
+        if not torch.equal(got[32 * a:32 * (a + MOE_WINDOW)], want):
+            raise AssertionError(f"lines_unseal != plain at {label} "
+                                 f"(line {a})")
+    if not torch.equal(got.view(torch.float32).reshape(st.meta.shape),
+                       params["blocks"][0]["mlp"]["wi"]):
+        raise AssertionError("the expert leaf's unseal is not the leaf")
+    del got
+    enc = int((st.payload[:, 33] & 1).sum())
+    nbytes = st.payload.numel() * 4 + orig * 4
+    b_ms, b_by = _pad_bound(nbytes, 2 * enc)
+    ts = _time_stats(torch, lambda: CC.lines_unseal_cuda(*uargs), 3)
+    out["expert_unseal"] = {
+        "leaf": MOE_LEAF, "lines": n_lines, "enc_lines": enc,
+        "bytes": nbytes, "ms": ts["ms"], "median_ms": ts["median_ms"],
+        "bound_ms": b_ms, "bound_by": b_by, "windows": starts}
+    log(f"[moe] lines_unseal over {MOE_LEAF} ({n_lines} lines, "
+        f"{nbytes / 1e9:.2f} GB moved, {enc / n_lines:.3f} ciphered) twice "
+        f"bitwise, windows at {starts} equal to the plain version; "
+        f"{_stats_text(ts)}; bound {b_ms:.3f} ms ({b_by}), "
+        f"{b_ms / ts['ms']:.3f} of it")
+
+    # (b) teacher-forced logits, sealed vs plaintext
+    tf_prompts = _prompts(args.seed + 21, MOE_TF_PROMPTS, cfg.vocab_size)
+    toks = _group_tokens(torch, tf_prompts, dev)
+    cfg32 = cfg.with_(dtype="float32")
+    real = _real_entries(torch, tf_prompts, cfg.num_layers, cfg.moe.top_k)
+    n_real = sum(int(m.sum()) for m in real)
+    n_pad = sum(int((~m).sum()) for m in real)
+    tf = {}
+    for label, c in (("f32", cfg32), ("bf16", cfg)):
+        plain_l, plain_r, forced = _moe_logits(
+            torch, L, c, params, None, tf_prompts, toks, None, 256, dev)
+        sealed_l, sealed_r, _ = _moe_logits(
+            torch, L, c, eng.params(), eng.cache_seal, tf_prompts, toks,
+            forced, 256, dev)
+        errs = [_rel_err(torch, s, p) for s, p in zip(sealed_l, plain_l)]
+        routes, kept = sealed_r.agreement(torch, plain_r)
+        kept_share = (sum(int(k.sum()) for k in plain_r.keep)
+                      / max(1, sum(k.numel() for k in plain_r.keep)))
+        if [m.shape for m in real] != [k.shape for k in plain_r.keep]:
+            raise AssertionError("the capacity calls are not the chunks and "
+                                 "the one-shot prefill of the prompts")
+        kept_real = sum(int(k[m].sum()) for k, m in zip(plain_r.keep, real))
+        kept_pad = sum(int(k[~m].sum()) for k, m in zip(plain_r.keep, real))
+        tf[label] = {"rel_err": errs, "route_agreement": routes,
+                     "kept_agreement": kept, "kept_share": kept_share,
+                     "kept_share_real": kept_real / n_real,
+                     "kept_share_padding": kept_pad / max(1, n_pad),
+                     "real_entries": n_real, "padding_entries": n_pad,
+                     "by_layer": _kept_by_layer(plain_r, real,
+                                                cfg.num_layers,
+                                                cfg.moe.num_experts),
+                     "router_calls": len(plain_r.idx),
+                     "dispatch_calls": len(plain_r.keep)}
+        log(f"[moe] teacher-forced {label}, sealed vs plaintext: max rel err"
+            f" chunked prefill {errs[0]:.3e}, tick {errs[1]:.3e}, one-shot "
+            f"prefill {errs[2]:.3e}, step {errs[3]:.3e}; (token, k) expert "
+            f"choices equal {routes}, kept flags equal {kept} over "
+            f"{len(plain_r.idx)} router and {len(plain_r.keep)} capacity "
+            f"calls; {kept_share:.4f} of the (token, k) entries kept "
+            f"within capacity: {kept_real / n_real:.4f} of the {n_real} of "
+            f"the prompts' tokens, {kept_pad / max(1, n_pad):.4f} of the "
+            f"{n_pad} of zero padding")
+        for kind, v in tf[label]["by_layer"].items():
+            log(f"[moe] {label} {kind}, by layer: kept share of the "
+                f"prompts' entries "
+                f"{', '.join(f'{x:.3f}' for x in v['kept_real'])}; the most "
+                f"loaded expert over the mean load "
+                f"{', '.join(f'{x:.2f}' for x in v['max_load_over_mean'])}")
+        del plain_l, sealed_l, plain_r, sealed_r
+    out["teacher_forced"] = tf
+    if not (max(tf["f32"]["rel_err"]) <= 1e-4
+            and tf["f32"]["route_agreement"] == 1.0
+            and tf["f32"]["kept_agreement"] == 1.0):
+        raise AssertionError("sealed f32 MoE logits or routes disagree with "
+                             "plaintext")
+
+    # (c) the staggered trace through the continuous engine
+    prompts = _prompts(args.seed + 22, MOE_REQUESTS, cfg.vocab_size)
+    arrivals = poisson_arrivals(MOE_REQUESTS, MOE_STAGGER,
+                                np.random.RandomState(args.seed + 23))
+    submit = dict(max_tokens=NEW_TOKENS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()            # the MoE path starts here
+    torch.cuda.synchronize()
+    t0 = time.time()
+    handles = drive(eng, prompts, arrivals, submit)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()       # ... and ends here
+    out["serve_s"] = time.time() - t0
+    out["peak_drain_gib"] = _gib(torch.cuda.max_memory_allocated(dev))
+    out["launches"] = launches
+    st_ = dict(eng.stats)
+    out["stats"] = st_
+    dispatches = st_["prefills"] + st_["decode_steps"]
+    pad_rows = eng._admit_n * st_["prefills"] - st_["prefill_chunks"]
+    out["padded_rows"] = pad_rows
+    log(f"[moe] continuous run: {out['serve_s']:.2f} s, "
+        f"{st_['tokens']} tokens, {st_['prefills']} chunk dispatches "
+        f"({st_['prefill_chunks']} rows, {pad_rows} padding rows at admit "
+        f"width {eng._admit_n}: {pad_rows} dispatches carried a padding "
+        f"row) + {st_['decode_steps']} decode ticks; peak "
+        f"allocated {out['peak_drain_gib']:.2f} GiB; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if not all(h.done and len(h.out) == NEW_TOKENS for h in handles):
+        raise AssertionError("not every MoE request completed")
+    if eng._admit_n != 2 or pad_rows <= 0:
+        raise AssertionError("no chunk dispatch carried a padding row")
+    want = _fused_launches(eng, 64, 64)     # chunk rows and ticks: <= 64
+    want = {k: v * dispatches for k, v in want.items()}
+    want.update(_chacha_launches(eng, dispatches, paged=True))
+    got_ = {k: launches[k] for k in want}
+    if got_ != want or not want["sealed_matmul_dec"]:
+        raise AssertionError(f"MoE launches {got_}, expected {want}")
+    eng.check_device_mirror()
+    tokens = [h.out for h in handles]
+
+    # (e) a sealed decode tick with every slot decoding
+    for p in prompts[:MOE_SLOTS]:
+        eng.submit(p, max_tokens=64)
+    while any(r is None or eng._pending[i] is not None
+              for i, r in enumerate(eng._active)):
+        eng.step()
+    tick = _time_stats(torch, eng._decode_tick, 3)
+    wall = []
+    for _ in range(3):
+        t0 = time.time()
+        eng._decode_tick()
+        wall.append(1e3 * (time.time() - t0))
+    prof = _profile(torch, eng._decode_tick, 2, "sealed MoE decode ticks",
+                    top=15, launches_of="lines_unseal")
+    # the serving view of a dispatch: every line leaf but the embedding
+    # unsealed (one lines_unseal launch each), timed alone by events; the
+    # profiler keeps only some of these long launches' records
+    view = [t for p, t in sp.tensors.items()
+            if t.meta.layout == "lines" and p != SS.EMBED]
+    view_bytes = sum(t.payload.numel() * 4 + t.meta.orig_len * 4
+                     for t in view)
+    view_pads = sum(2 * int((t.payload[:, 33] & 1).sum()) for t in view)
+    vb_ms, vb_by = _pad_bound(view_bytes, view_pads)
+    vts = _time_stats(torch, eng.params, 3)
+    kept = len(prof.get("launch_ms", []))
+    out["tick"] = {"ms": tick["ms"], "median_ms": tick["median_ms"],
+                   "host_ms": sorted(wall)[1], "profile": prof,
+                   "view_ms": vts["ms"], "view_bound_ms": vb_ms,
+                   "view_bound_by": vb_by, "view_bytes": view_bytes,
+                   "unseal_records": kept,
+                   "unseal_launches": prof["reps"] * len(view)}
+    log(f"[moe] sealed decode tick, {MOE_SLOTS} slots: {_stats_text(tick)};"
+        f" host clock {out['tick']['host_ms']:.2f} ms; a dispatch's view "
+        f"({len(view)} line leaves unsealed, {view_bytes / 1e9:.2f} GB "
+        f"moved): {_stats_text(vts)}, bound {vb_ms:.3f} ms ({vb_by}); the "
+        f"profiler kept {kept} of the {prof['reps'] * len(view)} "
+        f"lines_unseal records")
+    eng.queue.clear()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    plain = ServeEngine(cfg, params, seal=None, **kw)
+    ph = drive(plain, prompts, arrivals, submit)
+    same = sum(a == b for h, g in zip(tokens, ph) for a, b in zip(h, g.out))
+    total = sum(len(h) for h in tokens)
+    out["greedy_agreement"] = same / total
+    log(f"[moe] greedy tokens equal to the plaintext engine's: {same}/"
+        f"{total} = {same / total:.3f} (bf16 near-ties; not gated)")
+    del plain, ph
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ver = ServeEngine(cfg, params, seal=SealConfig(), verify=True, **kw)
+    ops.reset_launch_counts()            # the verified MoE path starts here
+    torch.cuda.synchronize()
+    vh = drive(ver, prompts, arrivals, submit)
+    torch.cuda.synchronize()
+    vlaunch = ops.launch_counts()        # ... and ends here
+    out["verified_stats"] = dict(ver.stats)
+    out["verify_launches"] = vlaunch
+    if [h.out for h in vh] != tokens:
+        raise AssertionError("verified MoE tokens differ from unverified")
+    # one weight sweep, a cache check a chunk row and a decode token (every
+    # token but each request's first, which its last chunk samples)
+    if ver.stats["mac_failures"] or ver.stats["mac_checks"] != 1 + \
+            st_["prefill_chunks"] + st_["tokens"] - MOE_REQUESTS:
+        raise AssertionError(f"verified run's MAC stats {ver.stats}")
+    # per dispatch the unverified run's launches, a cache check and a
+    # re-tag per pattern position; one tag launch a leaf for the sweep
+    vdisp = ver.stats["prefills"] + ver.stats["decode_steps"]
+    layouts = [t.meta.layout for t in ver.sealed.tensors.values()]
+    vwant = {k: v * vdisp for k, v in _fused_launches(ver, 64, 64).items()}
+    vwant.update(_chacha_launches(ver, vdisp, paged=True))
+    vwant.update(chacha20_cache_copy=0,
+                 chacha20_cache_tags=vdisp * len(cfg.pattern),
+                 chacha20_cache_verify=vdisp * len(cfg.pattern),
+                 chacha20_weight_tile_tags=layouts.count("tiles"),
+                 chacha20_weight_line_tags=layouts.count("lines"))
+    vgot = {k: vlaunch[k] for k in vwant}
+    log(f"[moe] verified run's launches over {vdisp} dispatches: "
+        f"{ {k: v for k, v in vlaunch.items() if v} }")
+    if vgot != vwant:
+        raise AssertionError(f"verified MoE launches {vgot}, expected "
+                             f"{vwant}")
+    vst = ver.sealed.tensors[MOE_LEAF]
+    line = int(torch.nonzero(vst.payload[:, 33] & 1)[-1])
+    vst.payload[line, 7] ^= 1 << 9
+    victim = ver.submit(prompts[0], max_tokens=4)
+    tokens0 = ver.stats["tokens"]
+    try:
+        ver.run()
+        raise AssertionError("a flipped expert word went unnoticed")
+    except SealedIntegrityError as e:
+        if e.scope != "weights" or victim.out or \
+                ver.stats["tokens"] != tokens0:
+            raise AssertionError(f"the expert flip raised {e!r} after "
+                                 f"tokens") from e
+    vst.payload[line, 7] ^= 1 << 9
+    log(f"[moe] verified run: tokens equal to unverified, mac_checks "
+        f"{out['verified_stats']['mac_checks']}; a flipped word in "
+        f"enciphered line {line} of {MOE_LEAF} stopped the drain with "
+        f"SealedIntegrityError('weights') before any token")
+    del ver, vh, vst
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the group drain
+    gprompts = _moe_group_prompts(args.seed)
+    geng = GroupServeEngine(cfg, params, batch_slots=MOE_GROUP,
+                            max_len=GROUP_MAX_LEN, seal=SealConfig(),
+                            device=dev)
+    ops.reset_launch_counts()            # the MoE group path starts here
+    torch.cuda.synchronize()
+    t0 = time.time()
+    gh = drive(geng, gprompts, np.zeros((MOE_GROUP,)), submit)
+    torch.cuda.synchronize()
+    glaunch = ops.launch_counts()        # ... and ends here
+    out["group_s"] = time.time() - t0
+    out["group_launches"] = glaunch
+    gst = geng.stats
+    if not all(h.done and len(h.out) == NEW_TOKENS for h in gh):
+        raise AssertionError("not every MoE group request completed")
+    plen = max(len(p) for p in gprompts)
+    want = {"flash_attention_tc": gst["prefills"] * cfg.num_layers,
+            "flash_attention": 0}
+    for rows, head_rows, times in ((MOE_GROUP * plen, MOE_GROUP,
+                                    gst["prefills"]),
+                                   (MOE_GROUP, MOE_GROUP,
+                                    gst["decode_steps"])):
+        for name, n in _fused_launches(geng, rows, head_rows).items():
+            want[name] = want.get(name, 0) + n * times
+    got_ = {k: glaunch[k] for k in want}
+    log(f"[moe] group drain: {out['group_s']:.2f} s, prompts "
+        f"{min(len(p) for p in gprompts)}-{plen} tokens, {gst['prefills']} "
+        f"prefill + {gst['decode_steps']} steps; launches {got_}")
+    if got_ != want or not want["sealed_matmul_tc"]:
+        raise AssertionError(f"MoE group launches {got_}, expected {want}")
+
+    # (e) a sealed group prefill
+    gtoks = _group_tokens(torch, gprompts, dev)
+    pre = lambda: T.prefill(cfg, geng.params(), gtoks, geng.max_len)
+    pts = _time_stats(torch, pre, 2)
+    t0 = time.time()
+    pre()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.time() - t0)
+    pprof = _profile(torch, pre, 1, "sealed MoE group prefill", top=15)
+    out["prefill"] = {"rows": int(gtoks.numel()), "ms": pts["ms"],
+                      "median_ms": pts["median_ms"], "host_ms": host_ms,
+                      "profile": pprof}
+    log(f"[moe] sealed prefill of {MOE_GROUP} x {gtoks.shape[1]} tokens: "
+        f"{_stats_text(pts)}; host clock {host_ms:.1f} ms")
+    del geng, gh, params, sp, seng, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.time() - t_phase
+    log(f"[moe] phase 10: {out['wall_s']:.1f} s")
     return out
 
 

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["internlm2_1_8b"]
+ARCH_IDS = ["qwen3_moe_30b_a3b", "dbrx_132b", "internlm2_1_8b"]
 
 _ALIAS = {i.replace("_", "-"): i for i in ARCH_IDS}
 

@@ -36,6 +36,10 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as _ref
 
 _FLAG_BIT = 1 << 31
+# lines sealed a pass: the pads and their int64 counter and nonce arrays
+# stay near 1.2 GB whatever the leaf's size (a stacked MoE expert leaf is
+# 37.7 M lines)
+SEAL_LINES = 1 << 22
 
 
 def tensor_to_words(x: torch.Tensor) -> Tuple[torch.Tensor, tuple, torch.dtype]:
@@ -200,10 +204,18 @@ class _CtrBase(EngineProtocol):
         self.key_words = u32.words(C.key_to_words(key_bytes[:32]), device)
         self.mac_ctx = M.mac_context(key_bytes, "weights", device)
 
-    def _otp(self, n_lines, write_counters, nonce2):
-        addrs = torch.arange(n_lines, dtype=torch.int32,
+    def _otp(self, first, n_lines, write_counters, nonce2):
+        """The pads of lines [first, first + n_lines)."""
+        addrs = torch.arange(first, first + n_lines, dtype=torch.int32,
                              device=self.key_words.device)
         return _line_otp(self.key_words, addrs, write_counters, nonce2)
+
+    def _seal_runs(self, out, lines, seal) -> torch.Tensor:
+        """``out[rows] = seal(first, rows)`` over runs of ``SEAL_LINES``
+        lines; returns ``out``."""
+        for a in range(0, lines.shape[0], SEAL_LINES):
+            out[a:a + SEAL_LINES] = seal(a, slice(a, a + SEAL_LINES))
+        return out
 
     def _nonce3(self, nonce3):
         return u32.words(nonce3, self.key_words.device)
@@ -245,10 +257,13 @@ class CounterEngine(_CtrBase):
     name = "counter"
 
     def _seal(self, lines, wc64, nonce2):
-        ct_full = lines ^ self._otp(lines.shape[0],
-                                    u32.from_i64(wc64 & 0x7FFFFFFF), nonce2)
-        enc = ((wc64 >> 31) & 1).to(torch.bool)[:, None]
-        return torch.where(enc, ct_full, lines)
+        def run(first, rows):
+            w = wc64[rows]
+            ct = lines[rows] ^ self._otp(first, w.shape[0],
+                                         u32.from_i64(w & 0x7FFFFFFF), nonce2)
+            enc = ((w >> 31) & 1).to(torch.bool)[:, None]
+            return torch.where(enc, ct, lines[rows])
+        return self._seal_runs(torch.empty_like(lines), lines, run)
 
     def encrypt(self, x, nonce2=(1, 2), write_counters=None,
                 enc_flags=None) -> SealedBuffer:
@@ -281,9 +296,18 @@ class ColoEEngine(_CtrBase):
     name = "coloe"
 
     def _seal(self, lines, wc, flags, nonce2):
-        otp = self._otp(lines.shape[0], wc, nonce2)
-        enc = (flags & 1).to(torch.bool)[:, None]
-        return torch.where(enc, lines ^ otp, lines)
+        """The packed (L, 34) records [32 data words | wc | flags] of
+        ``lines`` sealed under ``wc``, the data written run by run."""
+        def run(first, rows):
+            otp = self._otp(first, wc[rows].shape[0], wc[rows], nonce2)
+            enc = (flags[rows] & 1).to(torch.bool)[:, None]
+            return torch.where(enc, lines[rows] ^ otp, lines[rows])
+        out = torch.empty((lines.shape[0], CL.COLOE_LINE_WORDS),
+                          dtype=torch.int32, device=lines.device)
+        self._seal_runs(out[:, :CL.WORDS_PER_LINE], lines, run)
+        out[:, CL.WORDS_PER_LINE] = wc.to(torch.int32)
+        out[:, CL.WORDS_PER_LINE + 1] = flags.to(torch.int32)
+        return out
 
     def encrypt(self, x, nonce2=(1, 2), write_counters=None,
                 enc_flags=None) -> SealedBuffer:
@@ -296,18 +320,16 @@ class ColoEEngine(_CtrBase):
         flags = (torch.full((n_lines,), CL.FLAG_ENCRYPTED, dtype=torch.int32,
                             device=dev)
                  if enc_flags is None else enc_flags.to(torch.int32))
-        ct = self._seal(lines, wc, flags, nonce2)
-        return SealedBuffer("coloe", CL.coloe_pack(ct, wc, flags), None, orig,
-                            shape, dt, tuple(nonce2))
+        return SealedBuffer("coloe", self._seal(lines, wc, flags, nonce2),
+                            None, orig, shape, dt, tuple(nonce2))
 
     def rewrite(self, s: SealedBuffer, x) -> SealedBuffer:
         _, wc, flags = CL.coloe_unpack(s.payload)
         words, shape, dt = tensor_to_words(x)
         lines, orig = CL.pad_to_lines(words)
         wc = u32.from_i64(u32.to_i64(wc) + 1)
-        ct = self._seal(lines, wc, flags, s.nonce2)
-        return SealedBuffer("coloe", CL.coloe_pack(ct, wc, flags), None,
-                            orig, shape, dt, s.nonce2)
+        return SealedBuffer("coloe", self._seal(lines, wc, flags, s.nonce2),
+                            None, orig, shape, dt, s.nonce2)
 
 
 ENGINES = {"direct": DirectEngine, "counter": CounterEngine,

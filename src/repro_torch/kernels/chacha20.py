@@ -635,14 +635,16 @@ def cache_verify(key_words, hash_keys, nonce_k, nonce_v, pool_k, pool_v,
 # --------------------------------------------------------------------------
 
 def lines_unseal_plain(key_words, payload, counters, orig_len: int,
-                       nonce2) -> torch.Tensor:
+                       nonce2, line0: int = 0) -> torch.Tensor:
     """(orig_len,) int32 words of a line-sealed leaf: ``_line_otp`` XORed
     into the lines whose flag is set. ``counters`` None: ColoE records
     (L, 34) [32 data words | wc | flags], flag bit 0; else (L, 32) data
-    lines and their (L,) counter words, flag bit 31, wc the low 31 bits."""
+    lines and their (L,) counter words, flag bit 31, wc the low 31 bits.
+    ``line0``: the address of the first line (a run of a larger leaf)."""
     from repro_torch.core.engine import _line_otp   # deferred: engine uses ops
     n_lines = payload.shape[0]
-    addrs = torch.arange(n_lines, dtype=torch.int32, device=payload.device)
+    addrs = torch.arange(line0, line0 + n_lines, dtype=torch.int32,
+                         device=payload.device)
     if counters is None:
         ct, wc, enc = payload[:, :32], payload[:, 32], payload[:, 33] & 1
     else:

@@ -8,7 +8,9 @@
   (B, 1) positions);
 * ``chunk``: chunked prefill over the paged view.
 
-MoE, RG-LRU and SSD blocks and the train mode come with later slices.
+An MoE layer's MLP is ``layers.moe_apply_dense`` at decode and
+``layers.moe_apply`` (capacity routing) in the other two modes. RG-LRU and
+SSD blocks and the train mode come with later slices.
 """
 from __future__ import annotations
 
@@ -94,14 +96,23 @@ def _prefill_sub_apply(cfg: ModelConfig, p, h, positions, window: int,
 
 
 def block_apply(cfg: ModelConfig, kind: str, p, x, positions, mode, cache):
-    """Returns (x_out, cache update, aux_loss)."""
+    """Returns (x_out, cache update, aux_loss). An MoE layer routes as the
+    reference's does: ``decode`` through the dropless dense path, ``chunk``
+    and ``prefill`` through the capacity dispatch."""
     if kind not in ("attn", "local_attn"):
         raise NotImplementedError(f"{kind!r} blocks are not ported yet")
+    aux = 0.0
     h = L.apply_norm(cfg, p["norm1"], x)
     sub, update = attn_block_sub_apply(cfg, kind, p["attn"], h, positions,
                                        mode, cache)
     x = x + sub.to(x.dtype)
     if cfg.d_ff:
         h2 = L.apply_norm(cfg, p["norm2"], x)
-        x = x + L.mlp_apply(cfg, p["mlp"], h2).to(x.dtype)
-    return x, update, 0.0
+        if cfg.moe is None:
+            m = L.mlp_apply(cfg, p["mlp"], h2)
+        elif mode == "decode":
+            m, aux = L.moe_apply_dense(cfg, p["mlp"], h2)
+        else:
+            m, aux = L.moe_apply(cfg, p["mlp"], h2)
+        x = x + m.to(x.dtype)
+    return x, update, aux

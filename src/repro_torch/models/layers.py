@@ -1,6 +1,8 @@
 """Layer math: dense contractions (plain or sealed), norms, RoPE, attention
 (self-attention through the flash kernel, cache attention through
-``_sdpa``), dense MLP. Port of the serving half of ``repro/models/layers.py``.
+``_sdpa``), the dense MLP and the MoE layers (router, the dropless decode
+path, the capacity dispatch). Port of the serving half of
+``repro/models/layers.py``.
 
 Conventions as in the reference: params are f32, compute is ``cfg.dtype``
 with f32 softmax and norm accumulation; activations (batch, seq, d_model)
@@ -206,15 +208,156 @@ def project_kv(cfg: ModelConfig, p, x, positions):
 
 
 # --------------------------------------------------------------------------
-# MLP
+# MLP (dense + MoE)
 # --------------------------------------------------------------------------
 
 def mlp_apply(cfg: ModelConfig, p, x):
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE layers are not ported yet")
     dt = cdtype(cfg)
     xb = x.to(dt)
     a = act_fn(cfg.act)
     h = a(dense(xb, p["wg"], "bsd,df->bsf", dt)) * \
         dense(xb, p["wi"], "bsd,df->bsf", dt)
     return dense(h, p["wo"], "bsf,fd->bsd", dt)
+
+
+def _expert_matmul(a: torch.Tensor, b: torch.Tensor,
+                   dt: torch.dtype) -> torch.Tensor:
+    """``torch.matmul(a, b)`` (batched over the experts) of operands in the
+    compute dtype, with f32 sums and the result in ``dt``: one batched GEMM
+    in ``dt`` on the card, f32 products of the rounded operands on the CPU
+    (``plain_matmul``'s contract). The reference computes the expert
+    contractions as jnp einsums, outside any Pallas kernel. Each call keeps
+    the experts' weights in their stored (e, d_in, d_out) layout: an einsum
+    that put the contracted axis first would copy the weights every call."""
+    if a.is_cuda:
+        return torch.matmul(a.to(dt), b.to(dt))
+    return torch.matmul(a.to(dt).float(), b.to(dt).float()).to(dt)
+
+
+def moe_router(cfg: ModelConfig, p, x2d):
+    """Router: returns (gate_vals (t, k) f32, gate_idx (t, k) int64, aux).
+
+    The top k by a stable descending sort: among equal probabilities the
+    lower expert index comes first, as ``lax.top_k`` orders them (bf16
+    logits tie often among many experts, and the order of a token's k
+    choices feeds the capacity cumsum)."""
+    moe = cfg.moe
+    logits = dense(x2d, p["router"], "td,de->te", x2d.dtype).float()
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = vals[:, :moe.top_k], idx[:, :moe.top_k]
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp(
+        min=1e-9)
+    me = probs.mean(dim=0)
+    ce = F.one_hot(gate_idx, moe.num_experts).to(torch.float32).sum(
+        dim=1).mean(dim=0)
+    aux = moe.aux_loss_weight * moe.num_experts * (me * ce).sum()
+    return gate_vals, gate_idx, aux
+
+
+def moe_apply_dense(cfg: ModelConfig, p, x):
+    """Dropless MoE: every expert on every token, the top-k gated combine.
+    Exact (no capacity drops), E/k times the FLOPs: the decode path."""
+    moe = cfg.moe
+    dt = cdtype(cfg)
+    b, s, d = x.shape
+    t = b * s
+    xb = x.reshape(t, d).to(dt)
+    gate_vals, gate_idx, aux = moe_router(cfg, p, xb)
+    gates = torch.zeros((t, moe.num_experts), dtype=torch.float32,
+                        device=x.device)
+    gates.scatter_(1, gate_idx, gate_vals)
+    a = act_fn(cfg.act)
+    # (t, d) against every expert: (e, t, f), then (e, t, d)
+    h = a(_expert_matmul(xb, p["wg"], dt)) * _expert_matmul(xb, p["wi"], dt)
+    eout = _expert_matmul(h, p["wo"], dt)
+    # "ted,te->td": each token's gated sum over the experts
+    out = _expert_matmul(eout.permute(1, 2, 0), gates[:, :, None], dt)
+    return out.reshape(b, s, d), aux
+
+
+MOE_TOKEN_CHUNK = 65_536
+
+
+def moe_apply(cfg: ModelConfig, p, x, *, capacity_factor=None):
+    """Capacity-based MoE over chunks of the sequence: a dispatch of more
+    than ``MOE_TOKEN_CHUNK`` tokens runs in sequential chunks, each with its
+    own capacity buffer. Returns (out, aux), aux the chunks' mean."""
+    b, s, d = x.shape
+    t = b * s
+    nc = t // MOE_TOKEN_CHUNK if t > MOE_TOKEN_CHUNK else 1
+    if nc <= 1 or t % MOE_TOKEN_CHUNK or s % nc:
+        return _moe_apply_block(cfg, p, x, capacity_factor=capacity_factor)
+    sc = s // nc
+    outs, auxs = [], []
+    for c in range(nc):
+        o, a = _moe_apply_block(cfg, p, x[:, c * sc:(c + 1) * sc],
+                                capacity_factor=capacity_factor)
+        outs.append(o)
+        auxs.append(a)
+    return torch.cat(outs, dim=1), torch.stack(auxs).mean()
+
+
+def capacity_slots(gate_idx, num_experts: int, cap: int):
+    """(keep, slot), each (t*k,), of the (token, choice) entries of
+    ``gate_idx`` (t, k): an entry's position in its expert's buffer is the
+    count of earlier entries (in token, then choice order) routed to that
+    expert; it is kept below ``cap``, at slot ``expert * cap + position``
+    (``expert * cap`` when dropped)."""
+    flat_expert = gate_idx.reshape(-1)
+    # the reference's one-hot cumsum, by a stable sort: entries grouped by
+    # expert keep their (token, choice) order, and an entry's position is
+    # its rank in its group (a cumsum down a (t*k, e) one-hot is a scan of
+    # e columns)
+    order = torch.argsort(flat_expert, stable=True)
+    counts = torch.bincount(flat_expert, minlength=num_experts)
+    first = counts.cumsum(dim=0) - counts
+    ranks = torch.arange(flat_expert.shape[0], device=flat_expert.device)
+    pos = torch.empty_like(flat_expert)
+    pos[order] = ranks - first[flat_expert[order]]
+    keep = pos < cap
+    slot = flat_expert * cap + torch.where(keep, pos, torch.zeros_like(pos))
+    return keep, slot
+
+
+def _moe_apply_block(cfg: ModelConfig, p, x, *, capacity_factor=None):
+    """Capacity-based top-k MoE (GShard-style dispatch). Each expert takes
+    at most C = ceil(T * k / E * capacity_factor) of the (token, choice)
+    entries, in (token, choice) order; the rest are dropped. Returns (out,
+    aux).
+
+    The dispatch is an indexed write of the kept entries (each has a slot of
+    its own; the reference's scatter-add of a dropped entry adds zeros), and
+    the combine sums a token's k weighted outputs in choice order in the
+    compute dtype, as the reference's scatter-add does (an ``index_add_``
+    on the card has no order)."""
+    moe = cfg.moe
+    dt = cdtype(cfg)
+    b, s, d = x.shape
+    t = b * s
+    e, k = moe.num_experts, moe.top_k
+    cf = capacity_factor if capacity_factor is not None \
+        else moe.capacity_factor
+    cap = int(t * k / e * cf + 0.999)
+    cap = max(min(cap, t), 1)
+
+    xb = x.reshape(t, d).to(dt)
+    gate_vals, gate_idx, aux = moe_router(cfg, p, xb)
+    keep, slot = capacity_slots(gate_idx, e, cap)
+
+    tok_idx = torch.arange(t, device=x.device).repeat_interleave(k)
+    buf = torch.zeros((e * cap + 1, d), dtype=dt, device=x.device)
+    buf[torch.where(keep, slot, torch.full_like(slot, e * cap))] = \
+        xb[tok_idx]                            # dropped entries: row e*cap
+    buf = buf[:e * cap].reshape(e, cap, d)
+
+    a = act_fn(cfg.act)
+    h = a(_expert_matmul(buf, p["wg"], dt)) * _expert_matmul(buf, p["wi"], dt)
+    eout = _expert_matmul(h, p["wo"], dt).reshape(e * cap, d)
+
+    w = (gate_vals.reshape(-1) * keep).to(dt)
+    weighted = (eout[slot] * w[:, None]).reshape(t, k, d)
+    out = torch.zeros((t, d), dtype=dt, device=x.device)
+    for j in range(k):
+        out = out + weighted[:, j]
+    return out.reshape(b, s, d), aux

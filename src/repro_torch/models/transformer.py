@@ -26,9 +26,8 @@ from repro_torch.tree import map_leaves
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     """Random f32 params, shaped like the reference's ``init_params``."""
-    if cfg.moe is not None or any(k not in ("attn", "local_attn")
-                                  for k in cfg.pattern):
-        raise NotImplementedError("only dense attention models are ported")
+    if any(k not in ("attn", "local_attn") for k in cfg.pattern):
+        raise NotImplementedError("only attention models are ported")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     n = cfg.n_superblocks()
@@ -52,6 +51,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     }
     if not cfg.tie_embeddings:
         params["head"] = {"w": normal((d, v), d ** -0.5)}
+
+    def mlp():
+        if cfg.moe is not None:     # (n, e, ...) experts and their router
+            e = cfg.moe.num_experts
+            return {"router": normal((n, d, e), d ** -0.5),
+                    "wi": normal((n, e, d, f), d ** -0.5),
+                    "wg": normal((n, e, d, f), d ** -0.5),
+                    "wo": normal((n, e, f, d), f ** -0.5)}
+        return {"wi": normal((n, d, f), d ** -0.5),
+                "wg": normal((n, d, f), d ** -0.5),
+                "wo": normal((n, f, d), f ** -0.5)}
+
     blocks = []
     for _ in cfg.pattern:
         blocks.append({
@@ -61,9 +72,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
                      "wv": normal((n, d, hkv, dh), d ** -0.5),
                      "wo": normal((n, hq, dh, d), (hq * dh) ** -0.5)},
             "norm2": norm(),
-            "mlp": {"wi": normal((n, d, f), d ** -0.5),
-                    "wg": normal((n, d, f), d ** -0.5),
-                    "wo": normal((n, f, d), f ** -0.5)},
+            "mlp": mlp(),
         })
     params["blocks"] = tuple(blocks)
     return params

@@ -60,8 +60,9 @@ from repro_torch.serve import step as ST
 from repro_torch.tree import flatten_with_path, leaves, map_leaves, unflatten
 
 # leaves read only through a rounding to the compute dtype: every weight
-# contraction, and the embedding table's gather
-_ROUNDED_LEAVES = ("w", "wq", "wk", "wv", "wo", "wi", "wg")
+# contraction (the experts' and the router's too), and the embedding table's
+# gather
+_ROUNDED_LEAVES = ("w", "wq", "wk", "wv", "wo", "wi", "wg", "router")
 
 
 def _plain_weights(cfg: ModelConfig, params):
@@ -421,7 +422,12 @@ class ServeEngine:
     def _chunk_tick(self):
         """One chunked-prefill dispatch: up to admit-width pending slots
         each advance ``chunk_tokens`` prompt tokens; rows reaching the end
-        of their prompt sample their first token and switch to decode."""
+        of their prompt sample their first token and switch to decode.
+
+        A dense model runs only the pending rows. An MoE model runs the
+        reference's whole (admit width, chunk) batch, padding rows
+        included, since its expert capacity counts every token of the
+        dispatch (``step.chunk_step``'s ``pad_rows``)."""
         a, c, bs = self._admit_n, self.chunk_tokens, self.block_size
         rows = [i for i, p in enumerate(self._pending) if p is not None][:a]
         if not rows:
@@ -439,7 +445,8 @@ class ServeEngine:
             self.cfg, self.params(), self._pools, self._state,
             self._to_dev(np.asarray(rows, np.int64)), self._to_dev(toks),
             self._to_dev(cl), self._to_dev(fin), self.cache_seal,
-            greedy=bool((self._temp[rows] <= 0).all()))
+            greedy=bool((self._temp[rows] <= 0).all()),
+            pad_rows=a - len(rows) if self.cfg.moe is not None else 0)
         self.stats["prefills"] += 1
         self.stats["prefill_chunks"] += len(rows)
         tok, cok_h = self._fetch(tok, cok)

@@ -117,18 +117,38 @@ def cow(cfg: ModelConfig, pools, state: SchedState, src, dst, mask,
 
 
 def chunk_step(cfg: ModelConfig, params, pools, state: SchedState, slot_ids,
-               tokens, chunk_len, is_final, cache_seal, greedy: bool = True):
+               tokens, chunk_len, is_final, cache_seal, greedy: bool = True,
+               pad_rows: int = 0):
     """One chunked-prefill step for the listed slots: run the chunk, seal
     its K/V into the slots' blocks, and on each row's final chunk sample the
     request's first token (stream index 0). Returns (tok, cok, logits): tok
     is 0 on rows that are not final; cok (S,) bool is the per-slot cache
     verdict, True on slots not in the chunk (and everywhere without
-    verification)."""
-    tables = state.tables[slot_ids]
-    lengths = state.lengths[slot_ids]
+    verification).
+
+    ``pad_rows`` more rows run through the model after the listed ones, as
+    the reference's padding rows do (slot id S clamped to the last slot's
+    table and length, zero tokens, chunk length 0): an MoE layer's capacity
+    counts every token of the dispatch. They write nothing to the pools,
+    change no state and return nothing."""
+    n = slot_ids.shape[0]
+    sl, cl = slot_ids, chunk_len
+    if pad_rows:
+        last = state.lengths.shape[0] - 1
+        sl = torch.cat([slot_ids, slot_ids.new_full((pad_rows,), last)])
+        cl = torch.cat([chunk_len, chunk_len.new_zeros((pad_rows,))])
+        tokens = torch.cat([tokens, tokens.new_zeros(
+            (pad_rows, tokens.shape[1]))])
+    tables = state.tables[sl]
+    lengths = state.lengths[sl]
     logits, updates, okr = PG.chunk_logits(cfg, params, pools, tables,
-                                           lengths, state.wc, tokens,
-                                           chunk_len, cache_seal)
+                                           lengths, state.wc, tokens, cl,
+                                           cache_seal)
+    if pad_rows:
+        logits, okr, tables, lengths = (logits[:n], okr[:n], tables[:n],
+                                        lengths[:n])
+        updates = tuple({key: u[:, :n] for key, u in uj.items()}
+                        for uj in updates)
     PG.append_tokens(cfg, cache_seal, pools, updates, tables, lengths,
                      chunk_len, state.wc)
     zero = torch.zeros((), dtype=torch.int64, device=tokens.device)

@@ -808,3 +808,43 @@ def test_direct_serving_on_the_card_matches_cpu(cuda):
     for p, (a, b, c) in runs[0][2].items():
         assert all(torch.equal(x, y) for x, y in zip((a, b, c),
                                                      runs[1][2][p])), p
+
+
+@pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b", "dbrx_132b"])
+def test_moe_serving_on_the_card_matches_cpu(cuda, arch, monkeypatch):
+    """A reduced MoE model, sealed (ColoE) and verified at 8 slots with
+    staggered arrivals (chunk dispatches with padding rows), in f32: the
+    card's image, tokens and stats equal the CPU's; the image sealed in
+    runs of a few lines equals the one-pass image; one ``lines_unseal``
+    launch a line leaf but the embedding a dispatch."""
+    from repro_torch.core import engine as E
+    cfg = get_reduced(arch).with_(dtype="float32", num_layers=3)
+    params = T.init_params(cfg, seed=2, device="cpu")
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (9, 40, 14, 23, 5)]
+    runs = []
+    for dev in ("cpu", cuda, cuda):
+        if len(runs) == 2:
+            monkeypatch.setattr(E, "SEAL_LINES", 5)
+        eng = ServeEngine(cfg, map_leaves(lambda t: t.to(dev), params),
+                          batch_slots=8, max_len=64, chunk_tokens=8,
+                          seal=SealConfig(), verify=True, device=dev)
+        hs = []
+        ops.reset_launch_counts()
+        for p in prompts:
+            hs.append(eng.submit(p, max_tokens=5))
+            eng.step()
+        eng.run()
+        st = dict(eng.stats)
+        runs.append(([h.out for h in hs], st,
+                     {p: t.payload.cpu() for p, t in eng.sealed.tensors.items()}))
+        if dev != "cpu":
+            lines = sum(t.meta.layout == "lines"
+                        for t in eng.sealed.tensors.values())
+            assert ops.launch_counts()["chacha20_lines_unseal"] == \
+                (st["prefills"] + st["decode_steps"]) * (lines - 1)
+    assert st["prefill_chunks"] < 2 * st["prefills"]      # padded dispatches
+    for got in runs[1:]:
+        assert got[:2] == runs[0][:2]
+        for p, w in runs[0][2].items():
+            assert torch.equal(got[2][p], w), p
