@@ -27,8 +27,12 @@ runs:
    tick's resident blocks;
 2. the three fused decrypt-in-matmul kernels against their plain version
    at the full-width internlm2-1.8B shapes (wq/wo, wk/wv, MLP wi/wo, LM
-   head) and at phase 10's Qwen3-30B-A3B shapes (wq, wk/wv at N 512, wo
-   at K 4096, the head at N 151,936): the CUDA-core kernel at decode M and
+   head), at phase 10's Qwen3-30B-A3B shapes (wq, wk/wv at N 512, wo
+   at K 4096, the head at N 151,936) and at phase 11's (gemma2's K 2304,
+   deepseek-coder's wq N 8192, MLP wi N 19,200 and wo K 19,200, head N
+   32,256, RecurrentGemma's MLP N/K 12,288 and wk/wv N 256: the decode
+   kernel at every decode M, the prefill kernel at each family's prefill
+   M): the CUDA-core kernel at decode M and
    at a ragged M of 1000 rows, the decode tensor-core kernel at M of 1, 4,
    8, 16, 32, 33 and 64 (each case launched twice, bitwise equal), the
    prefill tensor-core kernel at M of 128, 1000 and each model's group
@@ -36,7 +40,10 @@ runs:
 3. both flash-attention kernels against their plain version: the reference
    test's grid, the group prefill's full-width shape and phase 10's (GQA
    8:1 at head dim 128), a gemma2-like head dim of 256 with window and
-   softcap, and a short-query case, in f32 and
+   softcap, phase 11's prefills (gemma2 at head dim 256 with softcap 50
+   and window 4096, deepseek-coder's GQA 64:8 at 128, RecurrentGemma's
+   MQA 16:1 at 256 with window 2048, past it), and a short-query case, in
+   f32 and
    bf16 through the CUDA-core kernel, and the bf16 cases of head dim 64 and
    128 through the tensor-core kernel under ``flash_attention.bf16_gate``;
 4. sealed continuous-batching serving of internlm2-1.8B at full width (ColoE,
@@ -134,9 +141,24 @@ runs:
    padded chunk dispatches, launches gated, tokens against plaintext
    reported, a verified run equal to it (its cache checks, re-tags and
    weight sweep's launches gated) and a flipped expert word stopping the
-   drain; (d) a group drain of 512-1024-token prompts; (e) a decode
-   tick and a group prefill timed and profiled, and peak memory
-   (``phase_moe``).
+   drain; the same trace under the Direct engine (tokens equal to
+   plaintext, one AES decrypt a leaf a dispatch, its tick and the expert
+   leaves' decrypt timed, peak memory); (d) a group drain of
+   512-1024-token prompts; (e) a decode tick and a group prefill timed and
+   profiled, and peak memory (``phase_moe``);
+11. the remaining token families at their published widths
+   (``phase_families``): granite-3-2b, gemma2-2b and deepseek-coder-33b
+   (4 of 62 layers) through the continuous engine (the image bit for
+   bit, f32 sealed-vs-plaintext logits at 1e-4, a staggered trace with
+   its launches gated per dispatch, a verified run, Direct for granite
+   and gemma2 with tokens equal to plaintext), RecurrentGemma-9B (6 of
+   39 layers) and Mamba2-130M through the group engine (the image, f32
+   prefill and 6 decode steps at 1e-4, a recurrence step on the card
+   against the CPU at 1e-5, drains under ColoE, Counter and Direct with
+   their launches gated, the plaintext baseline); each family's tick and
+   prefill beside plaintext, the tied embeddings' unseal, the scans
+   alone, flash at head dim 256 beside SDPA, peak memory, the phase's
+   wall time.
 
 Every phase raises on failure, so the script exits non-zero. The line before
 the last is a JSON ``{"kernels": [...]}`` record; the last line is
@@ -350,6 +372,8 @@ def main(argv=None) -> int:
     del serve
     # phase 10 serves another model: everything above is let go first
     report["moe"] = phase_moe(torch, dev, args)
+    # phase 11 serves five more, one at a time
+    report["families"] = phase_families(torch, dev, args)
 
     kernels = kernel_records(report)
     if args.report:
@@ -437,7 +461,10 @@ def kernel_records(report):
     # and its group drain
     moe = {name: sum(report["moe"][run][name] for run in (
                "launches", "verify_launches", "group_launches"))
+           + report["moe"]["direct"]["launches"][name]
            for name, *_ in rows}
+    # phase 11's: every gated run of the five families
+    family = report["families"]["launches"]
     kernels = []
     for name, replaces, launches, err in rows:
         tk = t[name]
@@ -445,7 +472,8 @@ def kernel_records(report):
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{SOURCE.get(name, name)}.cu",
             "replaces": replaces, "launches": launches,
-            "moe_launches": moe[name], "max_abs_err": err,
+            "moe_launches": moe[name],
+            "family_launches": family.get(name, 0), "max_abs_err": err,
             "ms": tk["ms"], "plain_ms": tk["plain_ms"],
             "bound_ms": tk["bound_ms"], "bound_by": tk["bound_by"],
             "library_ms": tk.get("library_ms"),
@@ -978,6 +1006,49 @@ def _moe_shapes():
             "moe_wo": (cfg.q_dim, d), "moe_head": (d, v)}
 
 
+# phase 11's families with fused leaves, by the prefix that names their
+# cases (Mamba2's projections are all line leaves)
+FAMILY_FUSED = (("granite", "granite_3_2b"), ("gemma2", "gemma2_2b"),
+                ("deepseek", "deepseek_coder_33b"),
+                ("rg", "recurrentgemma_9b"))
+
+
+def _family_shapes():
+    """Phase 11's fused leaves that the grid above lacks: the (K, N) of
+    every attention projection (wq, wk/wv, wo over the padded heads), MLP
+    leaf (wi/wg, wo) and untied LM head of each family in ``FAMILY_FUSED``,
+    less the pairs that ``_shapes`` and ``_moe_shapes`` hold. A pair that
+    two leaves share is named once, by both (``rg_wq/wo``)."""
+    from repro_torch.configs import get_config
+    seen = set(_shapes().values()) | set(_moe_shapes().values())
+    names = {}
+    for prefix, arch in FAMILY_FUSED:
+        c = get_config(arch)
+        d, q = c.d_model, c.heads_eff * c.head_dim
+        leaves = {}
+        if any(k in ("attn", "local_attn") for k in c.pattern):
+            leaves.update(wq=(d, q), wk=(d, c.kv_dim), wo=(q, d))
+        if c.d_ff and any(k != "ssd" for k in c.pattern):
+            leaves.update(mlp_wi=(d, c.d_ff), mlp_wo=(c.d_ff, d))
+        if not c.tie_embeddings:
+            leaves["head"] = (d, c.vocab_size)
+        for leaf, kn in leaves.items():
+            if kn in seen and (prefix, kn) not in names:
+                continue
+            names.setdefault((prefix, kn), []).append(leaf)
+            seen.add(kn)
+    return {f"{prefix}_{'/'.join(leaves)}": kn
+            for (prefix, kn), leaves in names.items()}
+
+
+def _family_prefill_rows(seed):
+    """The M of phase 11's bf16 prefills for each family prefix of
+    ``_family_shapes``: the dense families' one-shot prefill of their
+    trace's first 4 prompts, RecurrentGemma's two groups."""
+    return {prefix: tuple(b * s for b, s, *_ in shapes)
+            for prefix, shapes in _family_attention(seed).items()}
+
+
 def _moe_group_prompts(seed):
     """Phase 10's group drain prompts: ``MOE_GROUP`` of 512-1024 tokens."""
     import numpy as np
@@ -1020,18 +1091,39 @@ def phase_sealed_matmul(torch, dev, seed):
     shapes = dict(_shapes())
     shapes["bn8"] = (2048, 2056)           # N = 8 * 257: seal tile bn = 8
     shapes.update(_moe_shapes())
+    family_rows = _family_prefill_rows(seed)
+    shapes.update(_family_shapes())
     for name, (k, n) in shapes.items():
         bk, bn = _pick_block(k), _pick_block(n)
         rows = moe_tc_rows if name.startswith("moe_") else tc_rows
-        if name == "wq":
+        family = family_rows.get(name.split("_")[0])
+        if family is not None:
+            # phase 11's leaves: the CUDA-core kernel at decode M in f32
+            # (its f32 gates), the decode kernel at every M at SE 0.5 and
+            # at M 4 under SE 0 and 1, the prefill kernel at M 128 under
+            # SE 0 and 1 and at the family's prefills' M
+            mine = [(4, 0.5, 5, "float32", "sealed_matmul")]
+            mine += [(m, 0.5, 5, "bfloat16", "sealed_matmul_dec")
+                     for m in dec_rows]
+            mine += [(4, r, wc, "bfloat16", "sealed_matmul_dec")
+                     for r, wc in ((0.0, 0), (1.0, 5))]
+            mine += [(128, r, wc, "bfloat16", "sealed_matmul_tc")
+                     for r, wc in ((0.0, 0), (1.0, 5))]
+            mine += [(m, 0.5, 5, "bfloat16", "sealed_matmul_tc")
+                     for m in family]
+            if name.endswith("_head"):      # a prefill's head: one row each
+                mine = [c for c in mine if c[-1] != "sealed_matmul_tc"]
+        elif name == "wq":
             mine = combos                  # the whole grid
         else:                              # each value of each axis
             mine = [c for i, c in enumerate(combos) if i % 4 == i // 4 % 4]
-        mine = [c + ("sealed_matmul",) for c in mine]
+        if family is None:
+            mine = [c + ("sealed_matmul",) for c in mine]
         if name in ("wq", "mlp_wi"):       # a ragged M on the CUDA cores
             mine += [(1000, 0.5, 5, cdt, "sealed_matmul")
                      for cdt in ("float32", "bfloat16")]
-        if name != "bn8":   # the tensor cores: each seal at one of the
+        if name != "bn8" and family is None:
+            # the tensor cores: each seal at one of the
             # three M (SE 0.5, wc 5 at 128) and SE 0.5, wc 5 at all three
             mine += [(rows[i % 3], r, wc, "bfloat16", "sealed_matmul_tc")
                      for i, (r, wc) in enumerate(seals)]
@@ -1153,7 +1245,8 @@ def phase_flash(torch, dev, seed):
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
     cases = []
     for b, s, t, hq, hkv, dh, win, cap in (FLASH_CASES
-                                           + [_moe_flash_case(seed)]):
+                                           + [_moe_flash_case(seed)]
+                                           + _family_flash_cases(seed)):
         for dname in ("float32", "bfloat16"):
             q, k, v = _flash_inputs(torch, gen, dev, b, s, t, hq, hkv, dh,
                                     getattr(torch, dname))
@@ -1478,16 +1571,20 @@ def _leaves(tree):
 
 
 def _chacha_launches(eng, dispatches, paged):
-    """Launches of each ChaCha kernel a sealed engine's run of
-    ``dispatches`` must show: per dispatch one ``lines_gather_rows`` (the
-    embedding), one ``lines_unseal`` per other line leaf and, over a paged
-    cache, one view per layer and one splice per pattern position; never
-    ``chacha20_blocks``."""
+    """Launches of each ChaCha kernel a ChaCha-sealed (ColoE or Counter)
+    engine's run of ``dispatches`` must show: per dispatch one
+    ``lines_gather_rows`` for an untied embedding (a tied one is the LM
+    head too, so it is unsealed whole), one ``lines_unseal`` per other line
+    leaf and, over a paged cache, one view per attention layer and one
+    splice per attention pattern position; never ``chacha20_blocks``."""
     cfg = eng.cfg
+    if eng.seal.mode not in ("coloe", "counter"):
+        raise AssertionError(f"{eng.seal.mode} is not a ChaCha seal")
     lines = sum(st.meta.layout == "lines" for st in eng.sealed.tensors.values())
+    kept = 0 if cfg.tie_embeddings else 1
     return {"chacha20": 0,
-            "chacha20_lines_gather": dispatches,
-            "chacha20_lines_unseal": dispatches * (lines - 1),
+            "chacha20_lines_gather": dispatches * kept,
+            "chacha20_lines_unseal": dispatches * (lines - kept),
             "chacha20_cache_view": dispatches * cfg.num_layers if paged else 0,
             "chacha20_cache_splice":
                 dispatches * len(cfg.pattern) if paged else 0}
@@ -3599,6 +3696,7 @@ def phase_moe(torch, dev, args):
     out["greedy_agreement"] = same / total
     log(f"[moe] greedy tokens equal to the plaintext engine's: {same}/"
         f"{total} = {same / total:.3f} (bf16 near-ties; not gated)")
+    plain_tokens = [g.out for g in ph]
     del plain, ph
     gc.collect()
     torch.cuda.empty_cache()
@@ -3656,6 +3754,8 @@ def phase_moe(torch, dev, args):
     del ver, vh, vst
     gc.collect()
     torch.cuda.empty_cache()
+    out["direct"] = _moe_direct(torch, dev, cfg, params, prompts, arrivals,
+                                plain_tokens, kw)
 
     # (d) the group drain
     gprompts = _moe_group_prompts(args.seed)
@@ -3708,6 +3808,804 @@ def phase_moe(torch, dev, args):
     torch.cuda.empty_cache()
     out["wall_s"] = time.time() - t_phase
     log(f"[moe] phase 10: {out['wall_s']:.1f} s")
+    return out
+
+
+MOE_EXPERT_LEAVES = ("blocks/0/mlp/wi", "blocks/0/mlp/wg", "blocks/0/mlp/wo")
+
+
+def _moe_direct(torch, dev, cfg, params, prompts, arrivals, plain_tokens,
+                kw):
+    """Phase 10 (c'): the staggered trace under the Direct engine. Gated:
+    every request completes with the plaintext engine's tokens bit for bit
+    (the Direct view is the plaintext weights, rounded at each use as the
+    plaintext engine stores them), and one ``aes128_lines_decrypt`` a leaf
+    a dispatch. A tick with every slot decoding is timed (events, host
+    clock, profiler), and so is the AES decrypt of the stacked expert
+    leaves and of the whole view by events (the profiler drops records of
+    long launches); peak memory over the drain."""
+    from repro_torch.config import SealConfig
+    from repro_torch.kernels import aes128 as AES
+    from repro_torch.serve.engine import ServeEngine
+    torch.cuda.reset_peak_memory_stats(dev)
+    direct = ServeEngine(cfg, params, seal=SealConfig(mode="direct"), **kw)
+    handles, launches, secs = _drive_counted(torch, direct, prompts,
+                                             arrivals)
+    st = dict(direct.stats)
+    disp = st["prefills"] + st["decode_steps"]
+    want = _direct_launches(direct, disp, True)
+    same = [h.out for h in handles] == plain_tokens
+    out = {"launches": launches, "stats": st, "serve_s": secs,
+           "tokens_equal_plaintext": same,
+           "peak_drain_gib": _gib(torch.cuda.max_memory_allocated(dev))}
+    log(f"[moe] Direct run: {secs:.2f} s, {disp} dispatches "
+        f"({st['prefill_chunks']} chunk rows in {st['prefills']} chunk "
+        f"dispatches), tokens equal to plaintext: {same}; peak allocated "
+        f"{out['peak_drain_gib']:.2f} GiB; launches {_nonzero(launches)}")
+    if not same:
+        raise AssertionError("Direct MoE tokens differ from plaintext")
+    _gate("Direct MoE", {k: launches[k] for k in want}, want)
+    _fill_slots(direct, prompts)
+    tick = _time_stats(torch, direct._decode_tick, 3)
+    t0 = time.time()
+    direct._decode_tick()
+    host = 1e3 * (time.time() - t0)
+    prof = _profile(torch, direct._decode_tick, 1, "Direct MoE decode tick",
+                    top=10, launches_of="aes128")
+    eng = direct.sealed.engine(bytes(range(32)))
+    experts = [direct.sealed.tensors[p] for p in MOE_EXPERT_LEAVES]
+    ex = _time_stats(torch, lambda: [AES.lines_decrypt_cuda(
+        eng.round_keys, t.payload, t.counters, t.meta.orig_len)
+        for t in experts], 3)
+    view = _time_stats(torch, direct.params, 3)
+    ex_lines = sum(t.payload.shape[0] for t in experts)
+    ex_bytes = sum(t.payload.numel() * 4 + t.counters.numel() * 4
+                   + t.meta.orig_len * 4 for t in experts)
+    b_ms, b_by = _aes_bound(ex_lines, sum(t.meta.orig_len for t in experts),
+                            sum(int((t.counters & 1).sum()) for t in experts))
+    out["tick"] = {"ms": tick["ms"], "median_ms": tick["median_ms"],
+                   "host_ms": host, "profile": prof,
+                   "expert_decrypt_ms": ex["ms"],
+                   "expert_decrypt_bound_ms": b_ms,
+                   "expert_decrypt_bound_by": b_by,
+                   "expert_bytes": ex_bytes, "view_ms": view["ms"]}
+    log(f"[moe] Direct decode tick, {direct.slots} slots: "
+        f"{_stats_text(tick)}; host clock {host:.2f} ms; the AES decrypt "
+        f"of the 3 stacked expert leaves ({ex_bytes / 1e9:.2f} GB moved): "
+        f"{_stats_text(ex)}, bound {b_ms:.3f} ms ({b_by}); the whole view "
+        f"(one decrypt a leaf): {_stats_text(view)}")
+    direct.queue.clear()
+    del direct, experts, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 11: the remaining token families at full width
+# --------------------------------------------------------------------------
+
+# (arch, layers run: 0 for the full depth) of the dense families served
+# through the continuous engine, and of the recurrent ones served through
+# the group engine (the reference serves them only there)
+FAMILY_DENSE = (("granite_3_2b", 0), ("gemma2_2b", 0),
+                ("deepseek_coder_33b", 4))
+FAMILY_RECURRENT = (("recurrentgemma_9b", 6), ("mamba2_130m", 0))
+# the dense families that also run the Direct engine
+FAMILY_DIRECT = ("granite_3_2b", "gemma2_2b")
+# the dense trace's mean gap between arrivals (scheduler steps)
+FAMILY_STAGGER = 2.0
+# RecurrentGemma's trace: 4 prompts of 512-1024 tokens, then 2 of
+# 2100-2300 (past its 2048-slot ring); Mamba2's: groups of 4 whose longest
+# prompt is 128, 512 and 1024 tokens (SSD takes no other length over 128)
+RG_PROMPTS = ((4, 512, 1024), (2, 2100, 2300))
+MAMBA_GROUPS = (128, 512, 1024)
+FAMILY_SLOTS = 4
+# teacher-forced decode steps of the recurrent families' f32 gate
+FAMILY_TF_STEPS = 6
+
+
+def _family_trace(arch, seed, vocab):
+    """(prompts, arrivals, max_len) of a family's trace: the dense families
+    8 prompts of 64-200 tokens at Poisson arrivals; the recurrent ones
+    their groups (all arriving at once)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    if arch == "recurrentgemma_9b":
+        prompts = [rng.randint(0, vocab, rng.randint(lo, hi + 1))
+                   .astype(np.int32) for n, lo, hi in RG_PROMPTS
+                   for _ in range(n)]
+    elif arch == "mamba2_130m":
+        prompts = []
+        for top in MAMBA_GROUPS:     # the group's longest prompt is ``top``
+            lens = [top] + [rng.randint(64, top + 1) for _ in range(3)]
+            prompts += [rng.randint(0, vocab, n).astype(np.int32)
+                        for n in lens]
+    else:
+        prompts = _prompts(seed, REQUESTS, vocab)
+        arrivals = np.cumsum(rng.exponential(FAMILY_STAGGER, REQUESTS))
+        return prompts, arrivals, 256
+    longest = max(len(p) for p in prompts)
+    return prompts, np.zeros((len(prompts),)), longest + NEW_TOKENS + 16
+
+
+def _group_launch_want(torch, eng, prompts):
+    """Launches of each fused-matmul and flash kernel a sealed group
+    engine's drain of ``prompts`` (groups of ``eng.slots`` in order, each
+    decoding ``NEW_TOKENS - 1`` steps) must show, by ``_variant``: a
+    prefill's contractions have (members x longest prompt) rows, its head
+    and each step one row a member; one flash launch a prefill and
+    attention layer."""
+    from repro_torch.kernels import flash_attention as FA
+    cfg = eng.cfg
+    attn = cfg.n_superblocks() * sum(k in ("attn", "local_attn")
+                                     for k in cfg.pattern)
+    flash = FA._variant(getattr(torch, cfg.dtype), cfg.head_dim)
+    want = {"sealed_matmul": 0, "sealed_matmul_tc": 0,
+            "sealed_matmul_dec": 0, "flash_attention": 0,
+            "flash_attention_tc": 0}
+    for i in range(0, len(prompts), eng.slots):
+        g = prompts[i:i + eng.slots]
+        want[flash] += attn
+        if eng.sealed is None or not eng.sealed.fused_paths():
+            continue
+        for rows, head_rows, times in ((len(g) * max(len(p) for p in g),
+                                        len(g), 1),
+                                       (len(g), len(g), NEW_TOKENS - 1)):
+            for name, n in _fused_launches(eng, rows, head_rows).items():
+                want[name] += n * times
+    return want
+
+
+def _direct_launches(eng, dispatches, paged):
+    """A Direct engine's run: one AES decrypt a leaf a dispatch, no ChaCha
+    line kernel and no fused matmul; over a paged cache, its view and
+    splice."""
+    cfg = eng.cfg
+    return {"aes128_lines_decrypt": dispatches * len(eng.sealed.tensors),
+            "aes128_lines_encrypt": 0, "chacha20": 0,
+            "chacha20_lines_unseal": 0, "chacha20_lines_gather": 0,
+            "chacha20_cache_view": dispatches * cfg.num_layers if paged else 0,
+            "chacha20_cache_splice":
+                dispatches * len(cfg.pattern) if paged else 0,
+            "sealed_matmul": 0, "sealed_matmul_dec": 0,
+            "sealed_matmul_tc": 0}
+
+
+def _check_image(torch, SS, sp, params, key):
+    """Every leaf of ``params`` unseals from ``sp`` bit for bit."""
+    eng = sp.engine(key)
+    for path, leaf in flatten_paths(params):      # one leaf at a time
+        back = SS._unseal_tensor(eng, sp.tensors[path])
+        if back.dtype != leaf.dtype or not torch.equal(
+                back.view(torch.int32), leaf.view(torch.int32)):
+            raise AssertionError(f"unsealing {path} lost bits")
+        del back
+
+
+def _gate(label, got, want):
+    if got != want:
+        raise AssertionError(f"{label} launches {got}, expected {want}")
+
+
+def _drive_counted(torch, eng, prompts, arrivals):
+    """``launch.serve.drive`` of the trace with every launch count set to
+    0 just before and read just after; returns (handles, counts, s)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import drive
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    handles = drive(eng, prompts, arrivals, dict(max_tokens=NEW_TOKENS))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if not all(h.done and len(h.out) == NEW_TOKENS for h in handles):
+        raise AssertionError(f"not every {eng.cfg.name} request completed")
+    return handles, counts, time.time() - t0
+
+
+def _fill_slots(eng, prompts):
+    """Submit a long request per slot and step until every one of them
+    decodes (no prompt left pending), so that a timed tick decodes in every
+    slot."""
+    for p in prompts[:eng.slots]:
+        eng.submit(p, max_tokens=64)
+    while eng.queue or any(p is not None for p in eng._pending):
+        eng.step()
+
+
+def _nonzero(d):
+    return {k: v for k, v in d.items() if v}
+
+
+def _time_each(torch, label, fns, reps=3):
+    """Events, host clock and the profiler's split of each of ``fns``
+    ({label: fn}), sealed beside plaintext in one call."""
+    out = {}
+    for name, fn in fns.items():
+        st = _time_stats(torch, fn, reps)
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        host = 1e3 * (time.time() - t0)
+        prof = _profile(torch, fn, 1, f"{name} {label}", top=8)
+        out[name] = {"ms": st["ms"], "median_ms": st["median_ms"],
+                     "host_ms": host, "idle_share": prof["idle_share"],
+                     "device_busy_ms": prof["device_busy_ms"],
+                     "top": prof["top"]}
+        log(f"[family] {label} {name}: {_stats_text(st)}; host clock "
+            f"{host:.2f} ms; profiler: device busy "
+            f"{prof['device_busy_ms']:.2f} ms, idle share "
+            f"{prof['idle_share']:.3f}")
+    return out
+
+
+def _dense_family(torch, dev, args, arch, layers):
+    from repro_torch.config import SealConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core import sealed_store as SS
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+
+    t_fam = time.time()
+    cfg = get_config(arch)
+    full = cfg.num_layers
+    if layers:
+        cfg = cfg.with_(num_layers=layers)
+    key = bytes(range(32))
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = T.init_params(cfg, seed=args.seed, device=dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    out = {"layers": cfg.num_layers, "of": full,
+           "params_gib": _gib(4 * n_params)}
+    log(f"[family] {cfg.name}: {cfg.num_layers} of {full} layers, d_model "
+        f"{cfg.d_model}, {cfg.heads_eff}/{cfg.num_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, pattern "
+        f"{cfg.pattern}, window {cfg.window}, softcaps {cfg.attn_softcap}/"
+        f"{cfg.logit_softcap}, tied {cfg.tie_embeddings}: "
+        f"{n_params / 1e9:.3f} B params ({out['params_gib']:.2f} GiB f32)")
+    kw = dict(batch_slots=FAMILY_SLOTS, max_len=256, chunk_tokens=32,
+              device=dev)
+    prompts, arrivals, _ = _family_trace(arch, args.seed + 31, cfg.vocab_size)
+
+    # the image
+    eng = ServeEngine(cfg, params, seal=SealConfig(), **kw)
+    _check_image(torch, SS, eng.sealed, params, key)
+    log(f"[family] {cfg.name}: sealed (ColoE, SE 0.5), "
+        f"{len(eng.sealed.fused_paths())} tile leaves; every leaf unseals "
+        f"bit for bit")
+
+    # f32 teacher-forced logits, sealed vs plaintext: a chunked prefill and
+    # a decode tick, a one-shot prefill and its step
+    cfg32 = cfg.with_(dtype="float32")
+    tf = prompts[:FAMILY_SLOTS]
+    toks = _group_tokens(torch, tf, dev)
+    pre, dec, f1 = first_tick_logits(torch, cfg32, params, None, tf, None,
+                                     dev)
+    gpre, gdec, f2 = group_logits(torch, cfg32, params, toks, None, 256)
+    spre, sdec, _ = first_tick_logits(torch, cfg32, eng.params(),
+                                      eng.cache_seal, tf, f1, dev)
+    sgpre, sgdec, _ = group_logits(torch, cfg32, eng.params(), toks, f2, 256)
+    errs = [_rel_err(torch, a, b) for a, b in ((spre, pre), (sdec, dec),
+                                               (sgpre, gpre), (sgdec, gdec))]
+    out["f32_rel_err"] = errs
+    log(f"[family] {cfg.name} f32 teacher-forced, sealed vs plaintext: max "
+        f"rel err chunked prefill {errs[0]:.3e}, tick {errs[1]:.3e}, "
+        f"one-shot prefill {errs[2]:.3e}, step {errs[3]:.3e} (gate 1e-4)")
+    if max(errs) > 1e-4:
+        raise AssertionError(f"{cfg.name}: sealed f32 logits disagree")
+    del pre, dec, gpre, gdec, spre, sdec, sgpre, sgdec
+
+    # the staggered trace, launches gated per dispatch
+    handles, launches, secs = _drive_counted(torch, eng, prompts, arrivals)
+    st = dict(eng.stats)
+    disp = st["prefills"] + st["decode_steps"]
+    want = {k: v * disp for k, v in _fused_launches(eng, 64, 64).items()}
+    want.update(_chacha_launches(eng, disp, paged=True))
+    want.update(flash_attention=0, flash_attention_tc=0)
+    log(f"[family] {cfg.name} sealed trace: {secs:.2f} s, {st['tokens']} "
+        f"tokens, {st['prefills']} chunk dispatches + {st['decode_steps']} "
+        f"ticks; launches {_nonzero(launches)}")
+    _gate(cfg.name, {k: launches[k] for k in want}, want)
+    eng.check_device_mirror()
+    tokens = [h.out for h in handles]
+    out.update(launches=launches, stats=st, serve_s=secs)
+
+    # a tick with every slot decoding, sealed, and the one-shot prefill
+    _fill_slots(eng, prompts)
+    timing = {"tick": _time_each(torch, "decode tick", {
+        "sealed": eng._decode_tick})}
+    timing["prefill"] = _time_each(torch, f"one-shot prefill of "
+                                    f"{tuple(toks.shape)}", {
+        "sealed": lambda: T.prefill(cfg, eng.params(), toks, 256)})
+    if cfg.tie_embeddings:
+        timing["embed_unseal"] = _time_embed_unseal(torch, eng.sealed, key)
+    eng.queue.clear()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    plain = ServeEngine(cfg, params, seal=None, **kw)
+    ph, plaunch, psecs = _drive_counted(torch, plain, prompts, arrivals)
+    same = sum(a == b for h, g in zip(tokens, ph) for a, b in zip(h, g.out))
+    total = sum(len(h) for h in tokens)
+    out["greedy_agreement"] = same / total
+    log(f"[family] {cfg.name} plaintext trace {psecs:.2f} s; sealed greedy "
+        f"tokens equal to plaintext: {same}/{total} (bf16 near-ties; "
+        f"reported)")
+    _fill_slots(plain, prompts)
+    timing["tick"].update(_time_each(torch, "decode tick", {
+        "plaintext": plain._decode_tick}))
+    timing["prefill"].update(_time_each(torch, "one-shot prefill", {
+        "plaintext": lambda: T.prefill(cfg, plain.params(), toks, 256)}))
+    plain.queue.clear()
+    plain_tokens = [h.out for h in ph]
+    del plain, ph
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # verified: the same tokens, its MAC launches gated
+    ver = ServeEngine(cfg, params, seal=SealConfig(), verify=True, **kw)
+    vh, vl, _ = _drive_counted(torch, ver, prompts, arrivals)
+    if [h.out for h in vh] != tokens:
+        raise AssertionError(f"{cfg.name}: verified tokens differ")
+    vst = ver.stats
+    if vst["mac_failures"] or vst["mac_checks"] != 1 + st["prefill_chunks"] \
+            + st["tokens"] - len(prompts):
+        raise AssertionError(f"{cfg.name}: verified MAC stats {vst}")
+    vd = vst["prefills"] + vst["decode_steps"]
+    layouts = [t.meta.layout for t in ver.sealed.tensors.values()]
+    vwant = {k: v * vd for k, v in _fused_launches(ver, 64, 64).items()}
+    vwant.update(_chacha_launches(ver, vd, paged=True))
+    vwant.update(chacha20_cache_copy=0,
+                 chacha20_cache_tags=vd * len(cfg.pattern),
+                 chacha20_cache_verify=vd * len(cfg.pattern),
+                 chacha20_weight_tile_tags=layouts.count("tiles"),
+                 chacha20_weight_line_tags=layouts.count("lines"))
+    _gate(f"{cfg.name} verified", {k: vl[k] for k in vwant}, vwant)
+    out["verify_launches"] = vl
+    log(f"[family] {cfg.name} verified run: tokens equal, mac_checks "
+        f"{vst['mac_checks']}, launches gated")
+    del ver, vh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    if arch in FAMILY_DIRECT:
+        direct = ServeEngine(cfg, params, seal=SealConfig(mode="direct"),
+                             **kw)
+        dh, dl, dsecs = _drive_counted(torch, direct, prompts, arrivals)
+        dd = direct.stats["prefills"] + direct.stats["decode_steps"]
+        _gate(f"{cfg.name} Direct", {k: dl[k] for k in _direct_launches(
+            direct, dd, True)}, _direct_launches(direct, dd, True))
+        dsame = [h.out for h in dh] == plain_tokens
+        log(f"[family] {cfg.name} Direct trace {dsecs:.2f} s, one AES "
+            f"decrypt a leaf a dispatch; tokens equal to plaintext: {dsame}")
+        if not dsame:
+            raise AssertionError(f"{cfg.name}: Direct tokens differ from "
+                                 f"plaintext")
+        out["direct_launches"] = dl
+        del direct, dh
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["timing"] = timing
+    out["peak_gib"] = _gib(torch.cuda.max_memory_allocated(dev))
+    out["wall_s"] = time.time() - t_fam
+    log(f"[family] {cfg.name}: tick sealed "
+        f"{timing['tick']['sealed']['ms']:.2f} / plaintext "
+        f"{timing['tick']['plaintext']['ms']:.2f} ms, prefill sealed "
+        f"{timing['prefill']['sealed']['ms']:.2f} / plaintext "
+        f"{timing['prefill']['plaintext']['ms']:.2f} ms (events); peak "
+        f"allocated {out['peak_gib']:.2f} GiB; {out['wall_s']:.1f} s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _time_embed_unseal(torch, sp, key):
+    """One dispatch's unseal of a tied embedding (the serving view decrypts
+    it whole to serve as the head), by events, beside its bound."""
+    from repro_torch.core import sealed_store as SS
+    from repro_torch.kernels import chacha20 as CC
+    st = sp.tensors[SS.EMBED]
+    eng = sp.engine(key)
+    args = (eng.key_words, st.payload, st.counters, st.meta.orig_len,
+            st.meta.nonce)
+    enc = int((st.payload[:, 33] & 1).sum()) if st.counters is None else \
+        st.payload.shape[0]
+    nbytes = st.payload.numel() * 4 + st.meta.orig_len * 4
+    b_ms, b_by = _pad_bound(nbytes, 2 * enc)
+    ts = _time_stats(torch, lambda: CC.lines_unseal_cuda(*args), 5)
+    rec = {"lines": st.payload.shape[0], "bytes": nbytes, "ms": ts["ms"],
+           "median_ms": ts["median_ms"], "bound_ms": b_ms, "bound_by": b_by}
+    log(f"[family] tied embedding {tuple(st.meta.shape)} unsealed whole a "
+        f"dispatch: {_stats_text(ts)}; {nbytes / 1e9:.2f} GB moved, bound "
+        f"{b_ms:.3f} ms ({b_by})")
+    return rec
+
+
+def _recurrent_family(torch, dev, args, arch, layers):
+    from repro_torch.config import SealConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core import sealed_store as SS
+    from repro_torch.models import blocks as B
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import GroupServeEngine
+
+    t_fam = time.time()
+    cfg = get_config(arch)
+    full = cfg.num_layers
+    if layers:
+        cfg = cfg.with_(num_layers=layers)
+    key = bytes(range(32))
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = T.init_params(cfg, seed=args.seed, device=dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    out = {"layers": cfg.num_layers, "of": full,
+           "params_gib": _gib(4 * n_params)}
+    geometry = (f"RG-LRU width {cfg.rglru_block_width}, {cfg.heads_eff}/"
+                f"{cfg.num_kv_heads} heads of {cfg.head_dim}, window "
+                f"{cfg.window}, d_ff {cfg.d_ff}" if "rglru" in cfg.pattern
+                else f"SSD {cfg.ssm_heads} heads of {cfg.ssm_head_dim}, "
+                     f"state {cfg.ssm_state}, conv {cfg.ssm_conv}")
+    log(f"[family] {cfg.name}: {cfg.num_layers} of {full} layers, d_model "
+        f"{cfg.d_model}, pattern {cfg.pattern}, {geometry}, vocab "
+        f"{cfg.vocab_size}: {n_params / 1e9:.3f} B params "
+        f"({out['params_gib']:.2f} GiB f32)")
+    prompts, arrivals, max_len = _family_trace(arch, args.seed + 41,
+                                               cfg.vocab_size)
+    kw = dict(batch_slots=FAMILY_SLOTS, max_len=max_len, device=dev)
+    groups = [prompts[i:i + FAMILY_SLOTS]
+              for i in range(0, len(prompts), FAMILY_SLOTS)]
+    out["groups"] = [[len(p) for p in g] for g in groups]
+
+    eng = GroupServeEngine(cfg, params, seal=SealConfig(), **kw)
+    _check_image(torch, SS, eng.sealed, params, key)
+    log(f"[family] {cfg.name}: sealed (ColoE, SE 0.5), "
+        f"{len(eng.sealed.fused_paths())} tile leaves; every leaf unseals "
+        f"bit for bit; groups {out['groups']}, max_len {max_len}")
+
+    # f32: a one-shot prefill and 6 decode steps, sealed vs plaintext on
+    # the plaintext run's tokens
+    cfg32 = cfg.with_(dtype="float32")
+    toks = _group_tokens(torch, groups[0][:2], dev)
+    errs = []
+    lp, cp = T.prefill(cfg32, params, toks, max_len)
+    ls, cs = T.prefill(cfg32, eng.params(), toks, max_len)
+    errs.append(_rel_err(torch, ls, lp))
+    for i in range(FAMILY_TF_STEPS):
+        nxt = lp.argmax(dim=-1)[:, None]
+        lp, cp, _ = T.decode_step(cfg32, params, cp, nxt, toks.shape[1] + i)
+        ls, cs, _ = T.decode_step(cfg32, eng.params(), cs, nxt,
+                                  toks.shape[1] + i)
+        errs.append(_rel_err(torch, ls, lp))
+    state_err = max(_rel_err(torch, a[k], b[k]) for a, b in zip(cs, cp)
+                    for k in a if a[k].is_floating_point())
+    out["f32_rel_err"] = errs
+    out["f32_state_rel_err"] = state_err
+    log(f"[family] {cfg.name} f32, sealed vs plaintext: prefill "
+        f"{errs[0]:.3e}, decode steps {[f'{e:.3e}' for e in errs[1:]]}, "
+        f"caches {state_err:.3e} (gate 1e-4)")
+    if max(errs) > 1e-4:
+        raise AssertionError(f"{cfg.name}: sealed f32 logits disagree")
+
+    # one decode step's recurrence on the card against the CPU, f32
+    kind = cfg.pattern[0]
+    lp0 = {k: v[0] for k, v in params["blocks"][0][
+        "rec" if kind == "rglru" else "ssd"].items()}
+    gen = torch.Generator().manual_seed(args.seed + 42)
+    if kind == "rglru":
+        w = cfg.rglru_block_width
+        xa = torch.randn((FAMILY_SLOTS, 1, w), generator=gen)
+        h0 = torch.randn((FAMILY_SLOTS, w), generator=gen)
+        fn = lambda p, *a: B.rglru_step(p, *a)
+        ins = (xa, h0)
+    else:
+        h, ph, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        b = FAMILY_SLOTS
+        ins = (torch.randn((b, h, ph), generator=gen),
+               torch.rand((b, h), generator=gen) * 0.1,
+               -torch.exp(lp0["A_log"].cpu()),
+               torch.randn((b, n), generator=gen),
+               torch.randn((b, n), generator=gen),
+               torch.randn((b, h, ph, n), generator=gen))
+        fn = lambda p, *a: B.ssd_step(*a)
+    cpu_p = {k: v.cpu() for k, v in lp0.items()}
+    want = fn(cpu_p, *ins)
+    got = fn(lp0, *[t.to(dev) for t in ins])
+    card_err = max(_rel_err(torch, g, w_) for g, w_ in zip(got, want))
+    out["step_card_vs_cpu"] = card_err
+    log(f"[family] {cfg.name} one {kind} decode step on the card vs the "
+        f"CPU, f32: {card_err:.3e} of scale (gate 1e-5)")
+    if card_err > 1e-5:
+        raise AssertionError(f"{cfg.name}: the {kind} step on the card "
+                             f"differs from the CPU")
+    del lp, cp, ls, cs
+
+    # the drains under ColoE, Counter and Direct, launches gated
+    drains = {}
+    tokens = None
+    for mode in ("coloe", "counter", "direct"):
+        if eng is None:
+            eng = GroupServeEngine(cfg, params, seal=SealConfig(mode=mode),
+                                   **kw)
+        handles, launches, secs = _drive_counted(torch, eng, prompts,
+                                                 arrivals)
+        st = dict(eng.stats)
+        disp = st["prefills"] + st["decode_steps"]
+        if mode == "direct":
+            want = _direct_launches(eng, disp, False)
+        else:
+            want = _chacha_launches(eng, disp, paged=False)
+        want.update(_group_launch_want(torch, eng, prompts))
+        _gate(f"{cfg.name} {mode}", {k: launches[k] for k in want}, want)
+        toks_ = [h.out for h in handles]
+        if tokens is None:
+            tokens = toks_
+        if mode == "direct":
+            direct_tokens = toks_
+        drains[mode] = {"launches": launches, "stats": st, "serve_s": secs,
+                        "tokens_equal_coloe": toks_ == tokens}
+        log(f"[family] {cfg.name} {mode} drain: {secs:.2f} s, "
+            f"{st['prefills']} prefills + {st['decode_steps']} steps; "
+            f"tokens equal to ColoE's: {toks_ == tokens}; launches "
+            f"{_nonzero(launches)}")
+        if mode == "coloe":      # timed at the largest group's shape
+            gtoks = _group_tokens(torch, max(
+                groups, key=lambda g: len(g) * max(map(len, g))), dev)
+            timing = {"prefill": _time_each(torch, f"group prefill of "
+                                             f"{tuple(gtoks.shape)}", {
+                "sealed": lambda: T.prefill(cfg, eng.params(), gtoks,
+                                            max_len)})}
+            _, cache = T.prefill(cfg, eng.params(), gtoks, max_len)
+            nxt = gtoks[:, -1:]
+            timing["tick"] = _time_each(torch, "decode step", {
+                "sealed": lambda: T.decode_step(cfg, eng.params(), cache,
+                                                nxt, gtoks.shape[1])})
+            timing["embed_unseal"] = _time_embed_unseal(torch, eng.sealed,
+                                                        key)
+            del cache
+        eng = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["drains"] = drains
+
+    plain = GroupServeEngine(cfg, params, seal=None, **kw)
+    ph, plaunch, psecs = _drive_counted(torch, plain, prompts, arrivals)
+    _gate(f"{cfg.name} plaintext", {k: plaunch[k] for k in (
+        "flash_attention", "flash_attention_tc")}, {
+        k: v for k, v in _group_launch_want(torch, plain, prompts).items()
+        if k.startswith("flash")})
+    same = sum(a == b for h, g in zip(tokens, ph) for a, b in zip(h, g.out))
+    total = sum(len(h) for h in tokens)
+    out["greedy_agreement"] = same / total
+    dsame = direct_tokens == [h.out for h in ph]
+    log(f"[family] {cfg.name} plaintext drain {psecs:.2f} s; sealed greedy "
+        f"tokens equal to plaintext: {same}/{total} (bf16; reported); "
+        f"Direct's equal to plaintext: {dsame}")
+    if not dsame:
+        raise AssertionError(f"{cfg.name}: Direct tokens differ from "
+                             f"plaintext")
+    timing["prefill"].update(_time_each(torch, "group prefill", {
+        "plaintext": lambda: T.prefill(cfg, plain.params(), gtoks,
+                                       max_len)}))
+    _, cache = T.prefill(cfg, plain.params(), gtoks, max_len)
+    timing["tick"].update(_time_each(torch, "decode step", {
+        "plaintext": lambda: T.decode_step(cfg, plain.params(), cache, nxt,
+                                           gtoks.shape[1])}))
+    del cache, plain, ph
+
+    # the recurrences alone, by events, at the group prefill's shape
+    if kind == "rglru":
+        xa = torch.randn((gtoks.shape[0], gtoks.shape[1],
+                          cfg.rglru_block_width), device=dev,
+                         dtype=torch.bfloat16)
+        a, b_ = B._rglru_coeffs(lp0, xa)
+        ts = _time_stats(torch, lambda: B.linear_scan(a, b_), 5)
+        nbytes = 3 * a.numel() * 4
+        label = f"RG-LRU doubling scan over {tuple(a.shape)} f32"
+        del xa, a, b_
+    else:
+        bb, s = gtoks.shape
+        xh = torch.randn((bb, s, cfg.ssm_heads, cfg.ssm_head_dim),
+                         device=dev)
+        dt = torch.rand((bb, s, cfg.ssm_heads), device=dev) * 0.1
+        A = -torch.exp(lp0["A_log"])
+        Bm = torch.randn((bb, s, cfg.ssm_state), device=dev)
+        Cm = torch.randn((bb, s, cfg.ssm_state), device=dev)
+        ts = _time_stats(torch, lambda: B.ssd_chunked(xh, dt, A, Bm, Cm), 5)
+        nbytes = 4 * (2 * xh.numel() + dt.numel() + Bm.numel() + Cm.numel())
+        label = f"SSD chunked pass over x {tuple(xh.shape)} f32"
+        del xh, dt, Bm, Cm
+    b_ms, b_by = bound_ms(nbytes)
+    timing["recurrence"] = {"what": label, "ms": ts["ms"],
+                            "median_ms": ts["median_ms"],
+                            "bound_ms": b_ms, "bound_by": b_by}
+    log(f"[family] {cfg.name} {label}: {_stats_text(ts)}; bytes bound "
+        f"{b_ms:.4f} ms")
+    out["timing"] = timing
+    out["peak_gib"] = _gib(torch.cuda.max_memory_allocated(dev))
+    out["wall_s"] = time.time() - t_fam
+    log(f"[family] {cfg.name}: decode step sealed "
+        f"{timing['tick']['sealed']['ms']:.2f} / plaintext "
+        f"{timing['tick']['plaintext']['ms']:.2f} ms, prefill sealed "
+        f"{timing['prefill']['sealed']['ms']:.2f} / plaintext "
+        f"{timing['prefill']['plaintext']['ms']:.2f} ms (events); peak "
+        f"allocated {out['peak_gib']:.2f} GiB; {out['wall_s']:.1f} s")
+    del params, lp0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _family_flash(torch, dev, seed):
+    """The flash kernel that ``_variant`` picks at this phase's bf16
+    prefill shapes (head dim 256 on the CUDA cores: gemma2, RecurrentGemma;
+    64 and 128 on the tensor cores: granite, deepseek), beside its bound
+    and SDPA (causal only: SDPA takes no softcap, and a window only as a
+    mask, so where those bind it is a yardstick, not the same function)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device=dev).manual_seed(seed + 43)
+    scratch = torch.empty((64 * 2**20,), dtype=torch.int32, device=dev)
+    flush = lambda: scratch.zero_()
+    out = []
+    shapes = [(f"{prefix} prefill {i + 1}", shape)
+              for prefix, group in _family_attention(seed).items()
+              for i, shape in enumerate(group)]
+    for label, (b, s, hq, hkv, dh, win, cap) in shapes:
+        q, k, v = _flash_inputs(torch, gen, dev, b, s, s, hq, hkv, dh,
+                                torch.bfloat16)
+        q = q.contiguous()
+        kw = dict(scale=dh ** -0.5, softcap=cap, window=win)
+        span = min(win, s) if win else s
+        pairs = b * hq * sum(min(i + 1, span) for i in range(s))
+        nbytes = 2 * (2 * b * s * hq * dh + 2 * b * s * hkv * dh)
+        b_ms, b_by = bound_ms(nbytes, bf16_flops=4.0 * dh * pairs)
+        kern = FA._variant(q.dtype, dh)
+        launch = {"flash_attention": FA.flash_attention_cuda,
+                  "flash_attention_tc": FA.flash_attention_tc_cuda}[kern]
+        ms = _time_ms(torch, lambda: launch(q, k, v, **kw), 5, flush)
+        lib_ms, lib_name, lib_all, _ = _time_sdpa(
+            torch, F, q, k, v, dh ** -0.5, flush,
+            FA.flash_attention_plain(q, k, v, scale=dh ** -0.5))
+        rec = {"shape": label, "kernel": kern, "b": b, "s": s, "hq": hq,
+               "hkv": hkv, "dh": dh, "window": win, "softcap": cap,
+               "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+               "sdpa_causal_ms": lib_ms, "sdpa": lib_name,
+               "sdpa_backends_ms": lib_all}
+        out.append(rec)
+        log(f"[family] {kern} {label} b={b} s={s} heads {hq}/{hkv} dh={dh} "
+            f"window {win} softcap {cap} bf16: {ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}; {b_ms / ms:.3f}), SDPA causal "
+            f"{lib_ms:.4f} ms ({lib_name}; {lib_all})")
+        del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def _family_matmul(torch, dev, seed):
+    """The fused matmul kernels at phase 11's new leaf shapes, SE 0.5 bf16:
+    the decode kernel at a tick's M (4 slots) and the prefill kernel at
+    the family's prefill M, each beside its bound."""
+    from repro_torch.core.sealed_store import _pick_block
+    from repro_torch.kernels import sealed_matmul as SMK
+    gen = torch.Generator(device=dev).manual_seed(seed + 44)
+    scratch = torch.empty((64 * 2**20,), dtype=torch.int32, device=dev)
+    flush = lambda: scratch.zero_()
+    rows = _family_prefill_rows(seed)
+    out = []
+    for name, (k, n) in _family_shapes().items():
+        bk, bn = _pick_block(k), _pick_block(n)
+        w, mask, key, nonce, ct, wcw = _sealed_operands(
+            torch, dev, gen, k, n, 0.5, 5, bk, bn)
+        enc = int(mask.sum())
+        runs = [("sealed_matmul_dec", FAMILY_SLOTS)]
+        if not name.endswith("head"):
+            runs.append(("sealed_matmul_tc", max(rows[name.split("_")[0]])))
+        for kern, m in runs:
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            launch = {"sealed_matmul_dec": SMK.sealed_matmul_dec_cuda,
+                      "sealed_matmul_tc": SMK.sealed_matmul_tc_cuda}[kern]
+            ms = _time_ms(torch, lambda: launch(
+                x, ct, mask, key, nonce, wcw, bk=bk, bn=bn,
+                compute_dtype="bfloat16"), 5, flush)
+            b_ms, b_by = _sealed_bound(m, k, n, enc, 2)
+            out.append({"kernel": kern, "leaf": name, "M": m, "K": k,
+                        "N": n, "ms": ms, "bound_ms": b_ms,
+                        "bound_by": b_by})
+            log(f"[family] {kern} {name} M={m} K={k} N={n} SE 0.5 bf16: "
+                f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+                f"{b_ms / ms:.3f} of the kernel's time)")
+            del x
+        del w, ct
+        torch.cuda.empty_cache()
+    return out
+
+
+def _family_attention(seed):
+    """(b, s, hq, hkv, dh, window, softcap) of phase 11's bf16 one-shot
+    prefills, by family prefix: granite's, gemma2's and deepseek's of the
+    trace's first 4 prompts (GQA 32:8 at head dim 64; 256 with window and
+    softcaps; GQA 64:8 at 128), RecurrentGemma's two groups (MQA 16:1 at
+    256, the second past its window)."""
+    from repro_torch.configs import get_config
+    out = {}
+    for prefix, arch, seed_off in (("granite", "granite_3_2b", 31),
+                                   ("gemma2", "gemma2_2b", 31),
+                                   ("deepseek", "deepseek_coder_33b", 31),
+                                   ("rg", "recurrentgemma_9b", 41)):
+        c = get_config(arch)
+        p, _, _ = _family_trace(arch, seed + seed_off, c.vocab_size)
+        groups = ([p[:FAMILY_SLOTS]] if prefix != "rg" else
+                  [p[i:i + FAMILY_SLOTS]
+                   for i in range(0, len(p), FAMILY_SLOTS)])
+        out[prefix] = [(len(g), max(len(x) for x in g), c.heads_eff,
+                        c.num_kv_heads, c.head_dim, c.window,
+                        c.attn_softcap) for g in groups]
+    return out
+
+
+def _family_flash_cases(seed):
+    """Phase 3's cases of ``_family_attention`` (as FLASH_CASES rows)."""
+    return [(b, s, s, hq, hkv, dh, win, cap)
+            for shapes in _family_attention(seed).values()
+            for b, s, hq, hkv, dh, win, cap in shapes]
+
+
+def phase_families(torch, dev, args):
+    """Phase 11: the remaining token families at their published widths,
+    random weights from ``--seed``, bf16 unless said, ColoE SE 0.5 fused.
+
+    (a) granite-3-2b (40 layers), gemma2-2b (26 layers; local/global
+    attention with a 4096 window, softcaps 50/30, head dim 256, tied head)
+    and deepseek-coder-33b (4 of its 62 layers; 56 query heads padded to
+    64, GQA 8:1) through the continuous engine: the image sealed and
+    unsealed bit for bit; f32 teacher-forced logits (a chunked prefill and
+    a tick, a one-shot prefill and a step), sealed vs plaintext within
+    1e-4 of scale; a staggered trace (4 slots, 8 requests of 64-200
+    prompt tokens, 16 new) completing with each kernel's launches per
+    dispatch as ``_variant`` predicts; a verified run with the same tokens
+    and its MAC launches gated; greedy tokens against plaintext reported;
+    granite and gemma2 also under Direct, tokens equal to plaintext.
+    (b) RecurrentGemma-9B (6 of 39 layers: 2 super-blocks of RG-LRU,
+    RG-LRU, local attention with a 2048 window, MQA 16:1, head dim 256)
+    and Mamba2-130M (24 SSD layers) through the group engine: the image
+    bit for bit; f32 prefill and 6 decode steps sealed vs plaintext within
+    1e-4; one decode step's RG-LRU or SSD state update on the card against
+    the CPU at 1e-5; drains under ColoE, Counter and Direct completing
+    with their launches gated (Direct's tokens equal to the plaintext
+    baseline's), and the plaintext baseline's.
+    (c) Each family's decode tick (or group decode step) and prefill,
+    sealed beside plaintext: events, host clock, the profiler's idle share
+    and top kernels; the tied models' per-dispatch unseal of the
+    embedding; the RG-LRU scan and SSD chunked pass alone; flash at head
+    dim 256 beside SDPA; each family's peak memory, and the phase's wall
+    time. One model is held at a time."""
+    t_phase = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"held_before_gib": _gib(torch.cuda.memory_allocated(dev))}
+    for arch, layers in FAMILY_DENSE:
+        out[arch] = _dense_family(torch, dev, args, arch, layers)
+    for arch, layers in FAMILY_RECURRENT:
+        out[arch] = _recurrent_family(torch, dev, args, arch, layers)
+    out["flash"] = _family_flash(torch, dev, args.seed)
+    out["matmul"] = _family_matmul(torch, dev, args.seed)
+    # the phase's launches: every gated run
+    runs = []
+    for arch, _ in FAMILY_DENSE + FAMILY_RECURRENT:
+        fam = out[arch]
+        runs += [fam[k] for k in ("launches", "verify_launches",
+                                  "direct_launches") if k in fam]
+        runs += [d["launches"] for d in fam.get("drains", {}).values()]
+    out["launches"] = {n: sum(r[n] for r in runs) for n in runs[0]}
+    out["wall_s"] = time.time() - t_phase
+    log(f"[family] phase 11: {out['wall_s']:.1f} s; peak allocated by "
+        f"family (GiB): "
+        + ", ".join(f"{a} {out[a]['peak_gib']:.2f}"
+                    for a, _ in FAMILY_DENSE + FAMILY_RECURRENT))
     return out
 
 

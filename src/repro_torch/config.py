@@ -62,6 +62,16 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
 
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        if not self.ssm_head_dim:
+            return 0
+        return self.ssm_d_inner // self.ssm_head_dim
+
     def n_superblocks(self) -> int:
         if self.num_layers % len(self.pattern):
             raise ValueError(

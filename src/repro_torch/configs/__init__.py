@@ -1,10 +1,20 @@
-"""Architecture registry. Port of ``repro/configs/__init__.py``, holding only
-the architectures the port covers so far."""
+"""Architecture registry. Port of ``repro/configs/__init__.py``, holding the
+token architectures the reference serves, in the reference's order (its
+frontend configs and CNNs are not ported yet)."""
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["qwen3_moe_30b_a3b", "dbrx_132b", "internlm2_1_8b"]
+ARCH_IDS = [
+    "qwen3_moe_30b_a3b",
+    "dbrx_132b",
+    "internlm2_1_8b",
+    "granite_3_2b",
+    "deepseek_coder_33b",
+    "gemma2_2b",
+    "recurrentgemma_9b",
+    "mamba2_130m",
+]
 
 _ALIAS = {i.replace("_", "-"): i for i in ARCH_IDS}
 

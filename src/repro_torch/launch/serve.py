@@ -158,8 +158,13 @@ def main(argv=None) -> int:
 
     def build(seal_cache_override=None):
         if engine != "continuous":
+            if verify and seal is None:
+                print("FAIL: --verify needs sealed weights with the group "
+                      "engine", file=sys.stderr)
+                sys.exit(2)
             return GroupServeEngine(cfg, params, batch_slots=args.slots,
-                                    max_len=max_len, seal=seal, device=dev)
+                                    max_len=max_len, seal=seal,
+                                    verify=verify, device=dev)
         seal_cache = {"auto": None, "on": True, "off": False}[args.seal_cache]
         if seal_cache_override is not None:
             seal_cache = seal_cache_override
@@ -200,10 +205,11 @@ def main(argv=None) -> int:
                  f" shared_blocks={eng.stats['shared_prefix_blocks']}"
                  f" shared_tokens={eng.stats['shared_prefix_tokens']}"
                  f" cow={eng.stats['cow_copies']}")
-        if verify:
-            extra += (f" mac_checks={eng.stats['mac_checks']}"
-                      f" mac_failures={eng.stats['mac_failures']}"
-                      f" retries={eng.stats['retries']}")
+    if verify:
+        extra += (f" mac_checks={eng.stats['mac_checks']}"
+                  f" mac_failures={eng.stats['mac_failures']}")
+        if engine == "continuous":
+            extra += f" retries={eng.stats['retries']}"
     print(f"[{engine}] completed {n_done}/{len(reqs)} requests in {dt:.2f}s "
           f"— {eng.stats['tokens'] / max(dt, 1e-9):.1f} tok/s "
           f"(seal={args.seal}, device={dev}){extra} stats={eng.stats}")

@@ -1,5 +1,6 @@
-"""KV caches: the contiguous per-request caches of the one-shot prefill
-and its decode (``attn_cache_spec``/``attn_cache_init``,
+"""Decode-time state: the contiguous per-request caches of the one-shot
+prefill and its decode (``attn_cache_spec``, the RG-LRU and SSD states
+``rglru_cache_spec`` and ``ssd_cache_spec``, ``block_cache_spec``,
 ``block_cache_init``, ``model_cache_init``), the paged block pools and the
 host-side block accounting (``kv_words_per_token``,
 ``kv_to_words``/``words_to_kv``, ``paged_pool_init``, ``BlockAllocator``,
@@ -7,7 +8,9 @@ host-side block accounting (``kv_words_per_token``,
 
 A contiguous cache is one (batch, cache_len, kv_heads, head_dim) buffer per
 attention layer, with ``pos`` (cache_len,) the position each slot holds
-(``INVALID_POS`` while empty, which the causal mask hides).
+(``INVALID_POS`` while empty, which the causal mask hides); a recurrent
+layer keeps its f32 state and the last K-1 pre-conv rows in the compute
+dtype.
 
 Pools hold raw u32 words (int32 bit patterns), so the sealed and plaintext
 paths share every byte of layout. Block 0 is the scratch block: inactive
@@ -25,10 +28,6 @@ INVALID_POS = 2**30
 
 SCRATCH_BLOCK = 0
 
-# recurrent caches come with the slice that ports their blocks
-_RECURRENT_SLICE = ("{} caches come with the RG-LRU / SSD slice of the port "
-                    "(MoE, RG-LRU and SSD blocks)")
-
 
 def attn_cache_spec(cfg: ModelConfig, batch: int, cache_len: int, kind: str):
     """{"k", "v", "pos": (shape, dtype)} of one attention layer's cache; a
@@ -40,31 +39,51 @@ def attn_cache_spec(cfg: ModelConfig, batch: int, cache_len: int, kind: str):
     return {"k": kv, "v": kv, "pos": ((cache_len,), torch.int32)}
 
 
-def attn_cache_init(cfg: ModelConfig, batch: int, cache_len: int, kind: str,
-                    device=None):
-    spec = attn_cache_spec(cfg, batch, cache_len, kind)
-    kv_shape, dt = spec["k"]
-    pos_shape, pos_dt = spec["pos"]
-    return {"k": torch.zeros(kv_shape, dtype=dt, device=device),
-            "v": torch.zeros(kv_shape, dtype=dt, device=device),
-            "pos": torch.full(pos_shape, INVALID_POS, dtype=pos_dt,
-                              device=device)}
+def rglru_cache_spec(cfg: ModelConfig, batch: int):
+    """The RG-LRU state h (batch, width) f32 and the conv tail (batch, 3,
+    width) in the compute dtype."""
+    w = cfg.rglru_block_width or cfg.d_model
+    return {"h": ((batch, w), torch.float32),
+            "conv": ((batch, 3, w), getattr(torch, cfg.dtype))}
+
+
+def ssd_cache_spec(cfg: ModelConfig, batch: int):
+    """The SSD state (batch, heads, head_dim, state) f32 and the conv tail
+    (batch, conv - 1, d_inner + 2 state) in the compute dtype."""
+    di, n = cfg.ssm_d_inner, cfg.ssm_state
+    return {"state": ((batch, cfg.ssm_heads, cfg.ssm_head_dim, n),
+                      torch.float32),
+            "conv": ((batch, cfg.ssm_conv - 1, di + 2 * n),
+                     getattr(torch, cfg.dtype))}
+
+
+def block_cache_spec(cfg: ModelConfig, kind: str, batch: int,
+                     cache_len: int):
+    if kind in ("attn", "local_attn"):
+        return attn_cache_spec(cfg, batch, cache_len, kind)
+    if kind == "rglru":
+        return rglru_cache_spec(cfg, batch)
+    if kind == "ssd":
+        return ssd_cache_spec(cfg, batch)
+    raise ValueError(kind)
 
 
 def block_cache_init(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
                      device=None):
-    if kind in ("attn", "local_attn"):
-        return attn_cache_init(cfg, batch, cache_len, kind, device)
-    if kind in ("rglru", "ssd"):
-        raise NotImplementedError(_RECURRENT_SLICE.format(kind))
-    raise ValueError(kind)
+    """``block_cache_spec`` allocated: zeros, and every ``pos`` slot
+    ``INVALID_POS``."""
+    return {k: torch.full(shape, INVALID_POS if k == "pos" else 0, dtype=dt,
+                          device=device)
+            for k, (shape, dt) in
+            block_cache_spec(cfg, kind, batch, cache_len).items()}
 
 
 def model_cache_init(cfg: ModelConfig, batch: int, cache_len: int,
                      device=None):
     """Tuple over pattern positions of the layer cache stacked over
     super-blocks: k, v (n_super, batch, cache_len, kv_heads, head_dim), pos
-    (n_super, cache_len)."""
+    (n_super, cache_len); a recurrent layer's leaves (n_super, batch,
+    ...)."""
     n = cfg.n_superblocks()
     out = []
     for kind in cfg.pattern:

@@ -1,6 +1,7 @@
 """Top-level LM: init, the one-shot prefill and the contiguous-cache decode
-step. Port of ``init_params``, ``_embed``, ``_unembed``, ``_run_layers``
-(modes ``prefill`` and ``decode``), ``prefill_hidden``, ``prefill``,
+step, for attention, MoE, RG-LRU and SSD patterns. Port of
+``init_params``, ``_embed``, ``_unembed``, ``_run_layers`` (modes
+``prefill`` and ``decode``), ``prefill_hidden``, ``prefill``,
 ``apply_cache_updates`` and ``decode_step`` from
 ``repro/models/transformer.py``.
 
@@ -26,8 +27,6 @@ from repro_torch.tree import map_leaves
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     """Random f32 params, shaped like the reference's ``init_params``."""
-    if any(k not in ("attn", "local_attn") for k in cfg.pattern):
-        raise NotImplementedError("only attention models are ported")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     n = cfg.n_superblocks()
@@ -63,17 +62,56 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
                 "wg": normal((n, d, f), d ** -0.5),
                 "wo": normal((n, f, d), f ** -0.5)}
 
+    def const(row):                  # one row per super-block
+        return row.to(dev)[None].repeat(n, 1)
+
+    def rec():                       # RG-LRU (Griffin)
+        w = cfg.rglru_block_width or d
+        ramp = torch.linspace(0.9, 0.999, w, dtype=torch.float32)
+        lam = torch.log(torch.expm1(ramp ** -(1 / B._RGLRU_C) - 1 + 1e-8))
+        return {"w_x": normal((n, d, w), d ** -0.5),
+                "w_gate": normal((n, d, w), d ** -0.5),
+                "conv_w": normal((n, 4, w), 0.1),
+                "conv_b": torch.zeros((n, w), device=dev),
+                "w_rg": normal((n, w, w), w ** -0.5),
+                "b_rg": torch.zeros((n, w), device=dev),
+                "w_ig": normal((n, w, w), w ** -0.5),
+                "b_ig": torch.zeros((n, w), device=dev),
+                "lam": const(lam),
+                "w_out": normal((n, w, d), w ** -0.5)}
+
+    def ssd():                       # Mamba2 SSD
+        di, ns, h = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
+        lo, hi = torch.log(torch.tensor(1e-3)), torch.log(torch.tensor(1e-1))
+        u = torch.rand((n, h), generator=gen, device=dev) * (hi - lo) + lo
+        return {"w_in": normal((n, d, 2 * di + 2 * ns + h), d ** -0.5),
+                "conv_w": normal((n, cfg.ssm_conv, di + 2 * ns), 0.1),
+                "conv_b": torch.zeros((n, di + 2 * ns), device=dev),
+                "A_log": const(torch.log(torch.arange(
+                    1, h + 1, dtype=torch.float32))),
+                "D": torch.ones((n, h), device=dev),
+                "dt_bias": torch.log(torch.expm1(torch.exp(u))),
+                "norm_scale": torch.zeros((n, di), device=dev),
+                "w_out": normal((n, di, d), di ** -0.5)}
+
     blocks = []
-    for _ in cfg.pattern:
-        blocks.append({
-            "norm1": norm(),
-            "attn": {"wq": normal((n, d, hq, dh), d ** -0.5),
-                     "wk": normal((n, d, hkv, dh), d ** -0.5),
-                     "wv": normal((n, d, hkv, dh), d ** -0.5),
-                     "wo": normal((n, hq, dh, d), (hq * dh) ** -0.5)},
-            "norm2": norm(),
-            "mlp": mlp(),
-        })
+    for kind in cfg.pattern:
+        blk = {"norm1": norm()}
+        if kind in ("attn", "local_attn"):
+            blk["attn"] = {"wq": normal((n, d, hq, dh), d ** -0.5),
+                           "wk": normal((n, d, hkv, dh), d ** -0.5),
+                           "wv": normal((n, d, hkv, dh), d ** -0.5),
+                           "wo": normal((n, hq, dh, d), (hq * dh) ** -0.5)}
+        elif kind == "rglru":
+            blk["rec"] = rec()
+        elif kind == "ssd":
+            blk["ssd"] = ssd()
+        else:
+            raise ValueError(kind)
+        if kind != "ssd" and cfg.d_ff:
+            blk["norm2"] = norm()
+            blk["mlp"] = mlp()
+        blocks.append(blk)
     params["blocks"] = tuple(blocks)
     return params
 
@@ -106,8 +144,10 @@ def layer_params(params, j: int, i: int):
 def _run_layers(cfg: ModelConfig, params, x, positions, mode, cache):
     """The super-block stack. prefill: ``cache`` is the empty contiguous
     cache that gives each layer its slot count; returns (x, filled cache).
-    decode: returns (x, per pattern position {"k_new", "v_new"} stacked
-    (n_super, B, 1, kv_heads, head_dim)) for ``apply_cache_updates``."""
+    decode: returns (x, per pattern position the update stacked over
+    super-blocks, as the reference's scan emits it: an attention layer's
+    {"k_new", "v_new"} (n_super, B, 1, kv_heads, head_dim), a recurrent
+    layer's whole new state) for ``apply_cache_updates``."""
     outs = [[] for _ in cfg.pattern]
     for i in range(cfg.n_superblocks()):
         for j, kind in enumerate(cfg.pattern):
@@ -139,10 +179,15 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache_len: int):
 
 def apply_cache_updates(cfg: ModelConfig, cache, updates, pos: int):
     """Write each attention layer's new K/V at slot ``pos % cache_len`` (the
-    ring of a sliding window) and mark the slot with ``pos``. Updates
-    ``cache`` IN PLACE, where the reference builds a new one, so a decode
-    step copies one token's K/V per layer and not the cache; returns it."""
-    for cj, uj in zip(cache, updates):
+    ring of a sliding window) and mark the slot with ``pos``; a recurrent
+    layer's state is replaced wholesale. Updates ``cache`` IN PLACE, where
+    the reference builds a new one, so a decode step copies one token's K/V
+    per layer and not the cache; returns it."""
+    for kind, cj, uj in zip(cfg.pattern, cache, updates):
+        if kind not in ("attn", "local_attn"):
+            for key, t in cj.items():
+                t.copy_(uj[key])
+            continue
         slot = pos % cj["k"].shape[2]
         cj["k"][:, :, slot] = uj["k_new"][:, :, 0]
         cj["v"][:, :, slot] = uj["v_new"][:, :, 0]

@@ -20,10 +20,11 @@ embedding up to the gather of each dispatch's rows
 the compute dtype (``_plain_weights``): the roundings every use makes anyway.
 
 ``GroupServeEngine`` is the group-drain baseline: prefill a group of
-prompts in one shot (self-attention through the flash kernel), then decode
-over a contiguous, plaintext KV cache until every member finishes. The
-reference keeps it for benchmark comparison and for recurrent/SSD
-architectures.
+prompts in one shot (self-attention through the flash kernel, the RG-LRU
+and SSD recurrences over the whole prompt), then decode over a contiguous,
+plaintext cache until every member finishes. The reference keeps it for
+benchmark comparison and serves recurrent/SSD architectures only through
+it.
 
 With ``prefix_share`` identical prompt prefixes share cache blocks
 copy-on-write (``models.cache.PrefixRegistry``): a block's pad derives from
@@ -60,9 +61,13 @@ from repro_torch.serve import step as ST
 from repro_torch.tree import flatten_with_path, leaves, map_leaves, unflatten
 
 # leaves read only through a rounding to the compute dtype: every weight
-# contraction (the experts' and the router's too), and the embedding table's
-# gather
-_ROUNDED_LEAVES = ("w", "wq", "wk", "wv", "wo", "wi", "wg", "router")
+# contraction (the experts', the router's and the recurrent blocks' too),
+# the embedding table's gather, and the recurrent blocks' conv taps and
+# gate biases; the RG-LRU's ``lam`` and SSD's ``A_log``, ``D``, ``dt_bias``
+# and ``norm_scale`` are read in f32 and stay f32
+_ROUNDED_LEAVES = ("w", "wq", "wk", "wv", "wo", "wi", "wg", "router",
+                   "w_x", "w_gate", "w_rg", "w_ig", "w_out", "w_in",
+                   "conv_w", "conv_b", "b_rg", "b_ig")
 
 
 def _plain_weights(cfg: ModelConfig, params):
@@ -74,6 +79,19 @@ def _plain_weights(cfg: ModelConfig, params):
     flat = flatten_with_path(params)
     return unflatten(params, [t.to(dt) if p[-1] in _ROUNDED_LEAVES else t
                               for p, t in flat])
+
+
+def _sweep_weights(eng) -> None:
+    """One MAC sweep of a verifying engine's sealed weight image, counted as
+    a ``mac_check``; a failure raises ``SealedIntegrityError("weights")``."""
+    if not (eng.verify and eng.sealed is not None):
+        return
+    eng.stats["mac_checks"] += 1
+    if not bool(SS.verify_params(eng.sealed, eng.key_bytes)):
+        eng.stats["mac_failures"] += 1
+        raise SealedIntegrityError(
+            "weights", "sealed weight image failed its MAC sweep: "
+            "fail-stop, the model is not trustworthy")
 
 
 @dataclasses.dataclass
@@ -129,7 +147,8 @@ class ServeEngine:
         bad = [k for k in cfg.pattern if k not in ("attn", "local_attn")]
         if bad:
             raise ValueError(f"continuous batching needs attention-only "
-                             f"patterns (got {bad})")
+                             f"patterns (got {bad}); use GroupServeEngine "
+                             f"for recurrent/SSD archs")
         weights_sealed = seal is not None and seal.mode != "none"
         if seal_cache is None:
             seal_cache = weights_sealed
@@ -525,14 +544,7 @@ class ServeEngine:
         lazily from ``step()``. A failure is fail-stop: the model is not
         trustworthy and no request can be recovered."""
         self._wswept = True
-        if not (self.verify and self.sealed is not None):
-            return
-        self.stats["mac_checks"] += 1
-        if not bool(SS.verify_params(self.sealed, self.key_bytes)):
-            self.stats["mac_failures"] += 1
-            raise SealedIntegrityError(
-                "weights", "sealed weight image failed its MAC sweep: "
-                "fail-stop, the model is not trustworthy")
+        _sweep_weights(self)
 
     def _count_checks(self, n_checked: int) -> None:
         """A verified dispatch checked the cache reads of ``n_checked``
@@ -608,16 +620,32 @@ class GroupServeEngine:
     Prompts of a group are right-aligned with token-0 left padding at
     positions ``arange(plen)`` and no padding mask, as in the reference.
     Sealed: the weights are sealed once and every dispatch reads them
-    through ``serving_params`` (norm leaves decrypted, the embedding's rows
-    decrypted inside their gather, tile leaves inside the fused matmul).
-    The contiguous KV cache is never sealed.
+    through ``serving_params`` (norm leaves and the recurrent blocks' line
+    leaves decrypted, the embedding's rows decrypted inside their gather,
+    tile leaves inside the fused matmul). The contiguous cache is never
+    sealed. The engine serves every token pattern: attention, MoE, RG-LRU
+    and SSD, the last two only here, as in the reference.
+
+    ``verify`` over sealed weights seals them with MACs and sweeps the
+    image once per drain (``_sweep_weights``, the continuous engine's
+    fail-stop sweep, counted in a ``mac_checks`` stat). The reference's
+    group engine has no such option; the recurrent models, which only this
+    engine serves, are verified through it.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, batch_slots: int = 4,
                  max_len: int = 256, seal: Optional[SealConfig] = None,
-                 key_bytes: bytes = bytes(range(32)), device=None):
+                 key_bytes: bytes = bytes(range(32)), verify: bool = False,
+                 device=None):
         if cfg.frontend is not None:
             raise ValueError("serving targets token architectures")
+        weights_sealed = seal is not None and seal.mode != "none"
+        if verify and not weights_sealed:
+            raise ValueError("verify=True needs sealed weights: the group "
+                             "engine's cache is never sealed")
+        if verify and not seal.verify:
+            seal = dataclasses.replace(seal, verify=True)
+        self.verify = verify
         self.device = resolve_device(device)
         params = map_leaves(lambda t: t.to(self.device), params)
         self.cfg = cfg
@@ -625,7 +653,6 @@ class GroupServeEngine:
         self.max_len = max_len
         self.seal = seal
         self.key_bytes = key_bytes
-        weights_sealed = seal is not None and seal.mode != "none"
         self.sealed = (SS.seal_params(params, seal, key_bytes)
                        if weights_sealed else None)
         self._plain_params = (None if weights_sealed
@@ -647,6 +674,8 @@ class GroupServeEngine:
                       "weights_plaintext_bytes_per_step": w_pt,
                       "kv_plaintext_bytes_per_step": kv_pt,
                       "plaintext_bytes_per_step": w_pt + kv_pt}
+        if verify:
+            self.stats.update(mac_checks=0, mac_failures=0)
 
     def params(self):
         """The serving view for one dispatch (see ``ServeEngine.params``)."""
@@ -671,7 +700,10 @@ class GroupServeEngine:
         return bool(self.queue)
 
     def run(self) -> List[Request]:
-        """Drain the queue; returns completed requests."""
+        """Drain the queue; returns completed requests. A verifying engine
+        sweeps the weight image first, fail-stop."""
+        if self.queue:
+            _sweep_weights(self)
         done: List[Request] = []
         while self.queue:
             group = self.queue[:self.slots]

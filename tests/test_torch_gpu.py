@@ -848,3 +848,54 @@ def test_moe_serving_on_the_card_matches_cpu(cuda, arch, monkeypatch):
         assert got[:2] == runs[0][:2]
         for p, w in runs[0][2].items():
             assert torch.equal(got[2][p], w), p
+
+
+@pytest.mark.parametrize("arch,engine", [
+    ("gemma2_2b", "continuous"), ("recurrentgemma_9b", "group"),
+    ("mamba2_130m", "group")])
+def test_families_on_the_card_match_cpu(cuda, arch, engine):
+    """One family of each kind, sealed (ColoE) and verified on the card in
+    f32: gemma2 (window, softcaps, tied head) through the continuous
+    engine, RecurrentGemma (RG-LRU and local attention) and Mamba2 (SSD)
+    through the group engine; the CPU plaintext engine's tokens."""
+    cfg = get_reduced(arch).with_(dtype="float32")
+    params = T.init_params(cfg, seed=4, device="cpu")
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (9, 40, 14, 23)]
+    cls = ServeEngine if engine == "continuous" else GroupServeEngine
+    kw = dict(chunk_tokens=8) if engine == "continuous" else {}
+    outs = []
+    for dev, seal in (("cpu", None), (cuda, SealConfig())):
+        eng = cls(cfg, map_leaves(lambda t: t.to(dev), params),
+                  batch_slots=2, max_len=64, seal=seal,
+                  verify=seal is not None, device=dev, **kw)
+        hs = [eng.submit(p, max_tokens=6) for p in prompts]
+        eng.run()
+        outs.append([h.out for h in hs])
+    assert outs[0] == outs[1]
+
+
+def test_recurrences_on_the_card_match_cpu(cuda):
+    """The RG-LRU doubling scan and the SSD chunked pass and step on the
+    card against the same functions on the CPU, f32, at 1e-5 of scale."""
+    from repro_torch.models import blocks as B
+    gen = torch.Generator().manual_seed(3)
+    a = torch.rand((2, 300, 64), generator=gen) * 0.5 + 0.5
+    b = torch.randn((2, 300, 64), generator=gen)
+    xh = torch.randn((2, 256, 3, 8), generator=gen)
+    dt = torch.rand((2, 256, 3), generator=gen) * 0.2
+    A = -torch.rand((3,), generator=gen) - 0.5
+    Bm = torch.randn((2, 256, 16), generator=gen)
+    Cm = torch.randn((2, 256, 16), generator=gen)
+    st = torch.randn((2, 3, 8, 16), generator=gen)
+    cases = [(B.linear_scan, (a, b)),
+             (B.ssd_chunked, (xh, dt, A, Bm, Cm, st)),
+             (B.ssd_step, (xh[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0], st))]
+    for fn, args in cases:
+        want = fn(*args)
+        got = fn(*[t.to(cuda) for t in args])
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        for g, w in zip(got, want):
+            assert float((g.cpu() - w).abs().max()) <= 1e-5 * float(
+                w.abs().max()), fn.__name__

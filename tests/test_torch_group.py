@@ -84,8 +84,14 @@ def test_model_cache_init_matches_reference(model):
                 str(lj[key].dtype)
             np.testing.assert_array_equal(lt[key].numpy(),
                                           np.asarray(lj[key]))
-    with pytest.raises(NotImplementedError, match="RG-LRU / SSD slice"):
-        TMC.block_cache_init(cfg_t, "rglru", 1, 4)
+    # a recurrent layer's cache is its state and conv tail, the reference's
+    for kind in ("rglru", "ssd"):
+        jc = JMC.block_cache_init(cfg_j, kind, 1, 4)
+        tc = TMC.block_cache_init(cfg_t, kind, 1, 4)
+        assert {k: tuple(t.shape) for k, t in tc.items()} == \
+            {k: t.shape for k, t in jc.items()}
+    with pytest.raises(ValueError):
+        TMC.block_cache_init(cfg_t, "conv", 1, 4)
 
 
 @pytest.mark.parametrize("cache_len", [20, 9], ids=["pad", "ring"])

@@ -129,9 +129,18 @@ def test_init_params_tree_matches_reference(model):
 
 
 def test_other_patterns_still_refused():
-    cfg = get_reduced("qwen3_moe_30b_a3b").with_(pattern=("attn", "rglru"))
-    with pytest.raises(NotImplementedError):
-        T.init_params(cfg, device="cpu")
+    """A block kind the reference does not know is refused; the recurrent
+    kinds, ported since, build the reference's subtrees (an SSD block has
+    no MLP)."""
+    cfg = get_reduced("qwen3_moe_30b_a3b")
+    with pytest.raises(ValueError):
+        T.init_params(cfg.with_(pattern=("attn", "conv")), device="cpu")
+    blocks = T.init_params(cfg.with_(pattern=("attn", "rglru")),
+                           device="cpu")["blocks"]
+    assert set(blocks[1]) == {"norm1", "rec", "norm2", "mlp"}
+    blocks = T.init_params(cfg.with_(pattern=("ssd", "attn"), ssm_state=8,
+                                     ssm_head_dim=16), device="cpu")["blocks"]
+    assert set(blocks[0]) == {"norm1", "ssd"}
 
 
 # --------------------------------------------------------------------------
