@@ -158,7 +158,37 @@ runs:
    their launches gated, the plaintext baseline); each family's tick and
    prefill beside plaintext, the tied embeddings' unseal, the scans
    alone, flash at head dim 256 beside SDPA, peak memory, the phase's
-   wall time.
+   wall time;
+12. the paper's own CNNs (``phase_cnn``): VGG-16, ResNet-18 and ResNet-34 at
+   their published widths (13 / 17 / 33 convs of 64-512 channels) on 32 x 32
+   CIFAR geometry, random weights from ``--seed``, f32 (cuDNN with TF32
+   off): (a) ``init_cnn`` on the card against the CPU within 1e-6
+   relative, logits, loss and the gradients with respect to every
+   parameter and the input of a batch of 128 ``image_dataset`` images at
+   1e-4 of each tensor's scale, and ``cnn_channel_masks`` at ratios
+   0.2 / 0.5 / 0.8 equal on both; (b) the security protocol
+   (``evaluate_config`` with ``evaluate``'s defaults: 2,500 training and
+   400 test images, SE ratios 0.2 / 0.4 / 0.5 / 0.8, 15 / 12 epochs) for
+   ResNet-18 and VGG-16 at full width, gated on every SE substitute's
+   plaintext rows equal to the victim's bit for bit at init and after
+   training, its learnt rows differing from the victim's and moved in
+   training, and every accuracy and transfer rate finite in [0, 1]; the
+   report, the victim's loss and each training run's wall time printed;
+   a second witness to the victim (``_plain_cnn``, an independent plain
+   PyTorch statement of the reference's network and loss under
+   ``torch.optim.SGD``) trained from the same init on the same batches,
+   its first loss gated against the port's at 1e-4 and its first epoch's
+   losses, test accuracy and most predicted class's share printed beside
+   the port's (at ``train_cnn``'s default learning rate of 2e-2 the port's
+   victims at these widths predict one class; the victim is also trained
+   at 1e-3, gated on a test accuracy of 0.5 or more); (c) one
+   ``train_cnn`` step (forward,
+   backward, update) of each at batch 128, and VGG-16's forward at the
+   Figure-4 geometry (224 x 224, batch 16) layer by layer beside
+   ``layer_traffic``'s bytes and MACs and each layer's bound (events,
+   median of 20, L2 flushed); peak memory and the phase's wall time. No
+   kernel of the port lies on this path: its convolutions are cuDNN's, as
+   the reference's are XLA's.
 
 Every phase raises on failure, so the script exits non-zero. The line before
 the last is a JSON ``{"kernels": [...]}`` record; the last line is
@@ -199,6 +229,8 @@ ALU_OPS_PER_S = 132 * 64 * 1.98e9
 # ceiling of AES's T-table rounds
 LDS_WORDS_PER_S = 132 * 32 * 1.98e9
 BF16_FLOPS = 989e12
+# f32 outside the tensor cores (the CNNs' convolutions with TF32 off)
+F32_FLOPS = 67e12
 CHACHA_OPS = 976          # 20 rounds x 4 quarter-rounds x 12 ops + 16 adds
 CHACHA_ALU_OPS = 640      # ... of which 320 XORs and 320 rotations
 CHACHA_XOR_OPS = 16       # XOR of one block into 16 ciphertext words
@@ -267,14 +299,17 @@ def log(*a):
     print(*a, flush=True)
 
 
-def bound_ms(nbytes, int_ops=0.0, bf16_flops=0.0, alu_ops=0.0, lookups=0.0):
+def bound_ms(nbytes, int_ops=0.0, bf16_flops=0.0, alu_ops=0.0, lookups=0.0,
+             f32_flops=0.0):
     """Least time for the work: the larger of bytes over the memory rate and
     each kind of operation over its peak rate (``alu_ops``: the integer
     operations that only the ALU pipe issues; ``lookups``: 32-bit
-    shared-memory table reads). Returns (ms, bound_by)."""
+    shared-memory table reads; ``f32_flops``: f32 on the CUDA cores).
+    Returns (ms, bound_by)."""
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = max(int_ops / INT32_OPS_PER_S, alu_ops / ALU_OPS_PER_S,
-                bf16_flops / BF16_FLOPS, lookups / LDS_WORDS_PER_S)
+                bf16_flops / BF16_FLOPS, lookups / LDS_WORDS_PER_S,
+                f32_flops / F32_FLOPS)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -374,6 +409,8 @@ def main(argv=None) -> int:
     report["moe"] = phase_moe(torch, dev, args)
     # phase 11 serves five more, one at a time
     report["families"] = phase_families(torch, dev, args)
+    # phase 12: the paper's CNNs, their attacks and timings
+    report["cnn"] = phase_cnn(torch, dev, args)
 
     kernels = kernel_records(report)
     if args.report:
@@ -4606,6 +4643,568 @@ def phase_families(torch, dev, args):
         f"family (GiB): "
         + ", ".join(f"{a} {out[a]['peak_gib']:.2f}"
                     for a, _ in FAMILY_DENSE + FAMILY_RECURRENT))
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 12: the paper's CNNs, the SE-substitute attacks, per-layer timings
+# --------------------------------------------------------------------------
+
+CNN_IDS = ("vgg16", "resnet18", "resnet34")
+# the protocol's training batch, at the CIFAR geometry of config()
+CNN_BATCH = 128
+# the networks run through the full security protocol
+CNN_PROTOCOL = ("resnet18", "vgg16")
+CNN_RATIOS = (0.2, 0.5, 0.8)
+# card vs CPU: both f32 (TF32 off), only the order of sums differs
+CNN_TOL = 1e-4
+# prng.normal on the card vs the CPU (the same f64 arithmetic; the
+# tolerance it is held to against jax.random.normal)
+NORMAL_TOL = 1e-6
+# train_cnn's default learning rate (2e-2, as the reference's) collapses the
+# published widths to one class; the victim is also trained at this rate,
+# which learns, and gated on this test accuracy
+CNN_LEARNING_LR = 1e-3
+CNN_LEARNING_ACC = 0.5
+# VGG-16's Figure-4 geometry: image size and batch of the layer timings
+FIG4_IMG, FIG4_BATCH = 224, 16
+CNN_TIMING_ITERS = 20
+
+
+def _kink_forward(torch, C, cfg, params, x, pins=None):
+    """``cnn_forward`` with its two kinds of kink made explicit: every ReLU
+    a multiply by a mask, every max pool a gather at argmax indices. With
+    ``pins`` None each mask and index comes from this pass's own values,
+    and the pass computes ``cnn_forward``'s function with its gradients;
+    given another pass's decisions, it takes those. Returns the logits and
+    the pass's decisions, each (mask or indices, the detached tensor it
+    was taken from)."""
+    import torch.nn.functional as F
+    made = []
+
+    def relu(h):
+        m = (h > 0) if pins is None else pins[len(made)][0]
+        made.append((m, h.detach()))
+        return h * m
+
+    def pool(h):
+        # NHWC throughout, as max_pool's channels_last tensors are
+        (hl, hh), (wl, wh) = (C.same_pads(h.shape[1], 2, 2),
+                              C.same_pads(h.shape[2], 2, 2))
+        if hh or wh:
+            h = F.pad(h, (0, 0, wl, wh, hl, hh), value=float("-inf"))
+        if pins is None:    # indices into each (n, c) plane's H x W
+            idx = F.max_pool2d(h.detach().permute(0, 3, 1, 2), 2, 2,
+                               return_indices=True)[1].permute(0, 2, 3, 1)
+        else:
+            idx = pins[len(made)][0]
+        made.append((idx, h.detach()))
+        n, ho, wo, c = idx.shape
+        return h.reshape(n, -1, c).gather(1, idx.reshape(n, -1, c)).view(
+            n, ho, wo, c)
+
+    i, n, flat, stages = 0, len(cfg.stages), None, cfg.stages
+    while i < n:
+        sp, p = stages[i], params[i]
+        if sp.kind == "conv" and sp.residual:
+            sp2, p2 = stages[i + 1], params[i + 1]
+            h = C.conv2d(x, p["w"], sp.stride) + p["b"]
+            h = relu(C.chan_ln(h, p["ln_s"], p["ln_b"]))
+            h = C.conv2d(h, p2["w"], sp2.stride) + p2["b"]
+            h = C.chan_ln(h, p2["ln_s"], p2["ln_b"])
+            skip = x if "proj" not in p else C.conv2d(x, p["proj"], sp.stride)
+            x = relu(h + skip)
+            i += 2
+        elif sp.kind == "conv":
+            h = C.conv2d(x, p["w"], sp.stride) + p["b"]
+            x = relu(C.chan_ln(h, p["ln_s"], p["ln_b"]))
+            i += 1
+        elif sp.kind == "pool":
+            x = pool(x)
+            i += 1
+        else:
+            if flat is None:
+                flat = x.mean(dim=(1, 2))
+            flat = flat @ p["w"] + p["b"]
+            if i < n - 1:
+                flat = relu(flat)
+            i += 1
+    return flat, made
+
+
+def _cnn_grads(torch, C, cfg, p_cpu, x, y, dev, pins="port"):
+    """Logits, loss and the gradients (every parameter, then the input) on
+    ``dev`` from the CPU's initial weights: through the port's
+    ``cnn_loss`` (``pins`` "port"), or ``_kink_forward`` under ``pins``
+    (None: its own decisions). Returns (tensors, names, decisions)."""
+    params = [{k: v.detach().to(dev).requires_grad_(True)
+               for k, v in p.items()} for p in p_cpu]
+    leaves = flatten_paths(params)
+    xt = torch.from_numpy(x).to(dev).requires_grad_(True)
+    yt = torch.from_numpy(y).to(dev).long()
+    made = None
+    if pins == "port":
+        loss = C.cnn_loss(cfg, params, {"x": xt, "y": yt})[0]
+        with torch.no_grad():
+            logits = C.cnn_forward(cfg, params, xt)
+    else:
+        logits, made = _kink_forward(torch, C, cfg, params, xt, pins)
+        loss = (torch.logsumexp(logits, dim=-1)
+                - logits.gather(-1, yt[:, None])[:, 0]).mean()
+    grads = torch.autograd.grad(loss, [t for _, t in leaves] + [xt])
+    names = ["logits", "loss"] + [f"d/d {p}" for p, _ in leaves] + ["d/d x"]
+    return [logits.detach(), loss.detach()] + list(grads), names, made
+
+
+def _cnn_parity(torch, dev, cid, seed):
+    """(a): init, logits, loss, gradients and SE masks, card vs CPU.
+
+    The gradients of ReLU and max pool jump where an input crosses zero or
+    a window's two largest values cross; the card's and the CPU's sums
+    round differently, so an input within rounding of such a kink can fall
+    on either side on either device (a few units a layer at full width).
+    So the card's gradients (through ``cnn_loss``) are held at 1e-4 of
+    scale to the CPU's computed under the card's own ReLU masks and pool
+    indices (``_kink_forward``), each differing decision is checked to lie
+    within 1e-5 of its layer's scale of its kink on the CPU, and
+    ``_kink_forward`` is checked against ``cnn_loss`` on both devices (at a
+    tenth of the tolerance: they differ only in memory layouts). The
+    unpinned gradient differences are reported."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.core.criticality import cnn_channel_masks
+    from repro_torch.data.synthetic import image_dataset
+    from repro_torch.models import cnn as C
+    cfg = get_config(cid)
+    t0 = time.time()
+    p_cpu = C.init_cnn(cfg, prng.key(seed), device="cpu")
+    p_dev = C.init_cnn(cfg, prng.key(seed), device=dev)
+    init_rel, equal, total = 0.0, 0, 0
+    for (path, a), (_, b) in zip(flatten_paths(p_cpu), flatten_paths(p_dev)):
+        b = b.cpu()
+        rel = ((b.double() - a.double()).abs()
+               / a.double().abs().clamp_min(1e-30)).max()
+        init_rel = max(init_rel, float(rel))
+        equal += int((a == b).sum())
+        total += a.numel()
+    if init_rel > NORMAL_TOL:
+        raise AssertionError(f"{cid}: init_cnn on the card is {init_rel:.3g} "
+                             f"relative from the CPU's")
+    mask_rows = {}
+    for r in CNN_RATIOS:
+        want = cnn_channel_masks(cfg, p_cpu, r)
+        got = cnn_channel_masks(cfg, [{k: v.to(dev) for k, v in p.items()}
+                                      for p in p_cpu], r)
+        bad = [i for i in want if not torch.equal(got[i].cpu(), want[i])]
+        if bad:
+            raise AssertionError(f"{cid}: SE masks at ratio {r} differ at "
+                                 f"stages {bad}")
+        mask_rows[r] = sum(int(m.sum()) for m in want.values())
+
+    def errs(got, want):
+        return [_rel_err(torch, g, w) for g, w in zip(got, want)]
+
+    x, y = image_dataset(CNN_BATCH, img=cfg.img_size, seed=seed)
+    card, names, _ = _cnn_grads(torch, C, cfg, p_cpu, x, y, dev)
+    cpu, _, _ = _cnn_grads(torch, C, cfg, p_cpu, x, y, "cpu")
+    card_own, _, card_pins = _cnn_grads(torch, C, cfg, p_cpu, x, y, dev,
+                                        None)
+    cpu_own, _, cpu_pins = _cnn_grads(torch, C, cfg, p_cpu, x, y, "cpu",
+                                      None)
+    pinned, _, _ = _cnn_grads(
+        torch, C, cfg, p_cpu, x, y, "cpu",
+        [(m.cpu(), t.cpu()) for m, t in card_pins])
+    # _kink_forward under its own decisions is cnn_loss's function
+    oracle = [max(errs(card_own, card)), max(errs(cpu_own, cpu))]
+    log(f"[cnn] {cid}: _kink_forward under its own decisions vs cnn_loss: "
+        f"card {oracle[0]:.3g}, CPU {oracle[1]:.3g} of scale")
+    if max(oracle) > CNN_TOL / 10:
+        raise AssertionError(f"{cid}: _kink_forward is {max(oracle):.3g} of "
+                             f"scale from cnn_loss")
+    # every decision the devices take differently lies at its kink
+    flips, worst_kink = [], 0.0
+    for (mc, tc), (md, _) in zip(cpu_pins, card_pins):
+        md = md.cpu()
+        scale = float(tc[torch.isfinite(tc)].abs().max())
+        if mc.dtype == torch.bool:        # a ReLU: |input| at the flips
+            diff = mc != md
+            gap = float(tc[diff].abs().max()) if diff.any() else 0.0
+        else:                             # a pool: the two maxima's gap
+            diff = mc != md
+            n, c = tc.shape[0], tc.shape[-1]
+            flat = tc.reshape(n, -1, c)
+            va = flat.gather(1, mc.reshape(n, -1, c))
+            vb = flat.gather(1, md.reshape(n, -1, c))
+            gap = float((va - vb).abs().max())
+        flips.append(int(diff.sum()))
+        worst_kink = max(worst_kink, gap / scale)
+    if worst_kink > 1e-5:
+        raise AssertionError(f"{cid}: a ReLU or pool decision differs at "
+                             f"{worst_kink:.3g} of its scale from its kink")
+    plain, held = errs(card, cpu), errs(card, pinned)
+    worst = max(range(len(held)), key=held.__getitem__)
+    if max(plain[:2]) > CNN_TOL or held[worst] > CNN_TOL:
+        raise AssertionError(
+            f"{cid}: card vs CPU logits {plain[0]:.3g}, loss {plain[1]:.3g},"
+            f" {names[worst]} {held[worst]:.3g} of scale under the card's "
+            f"decisions")
+    top = sorted(range(len(plain)), key=plain.__getitem__)[-3:]
+    out = {"init_max_rel": init_rel, "init_equal_share": equal / total,
+           "params": total, "logits_rel": plain[0], "loss_rel": plain[1],
+           "max_rel_pinned": held[worst], "worst_pinned": names[worst],
+           "max_rel_unpinned": plain[top[-1]], "worst_unpinned":
+           names[top[-1]], "input_grad_rel_unpinned": plain[-1],
+           "decisions_differing": flips, "kink_gap": worst_kink,
+           "oracle_rel": oracle, "encrypted_rows": mask_rows,
+           "s": time.time() - t0}
+    log(f"[cnn] {cid} ({total:,} params) card vs CPU: init within "
+        f"{init_rel:.3g} relative ({total - equal} of {total:,} values not "
+        f"bitwise equal); SE "
+        f"masks equal at {CNN_RATIOS} (encrypted rows {mask_rows}); logits "
+        f"{plain[0]:.3g}, loss {plain[1]:.3g} of scale; under the card's "
+        f"ReLU and pool decisions every gradient within {held[worst]:.3g} "
+        f"({names[worst]}); {sum(flips)} decisions differ ({flips}), each "
+        f"within {worst_kink:.3g} of its scale of the kink; unpinned "
+        + ", ".join(f"{names[i]} {plain[i]:.3g}" for i in top)
+        + f"; {out['s']:.1f} s")
+    return out
+
+
+def _cnn_protocol(torch, dev, cid, seed):
+    """(b): the security protocol at full width, gated."""
+    import dataclasses
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.core.security.evaluate import evaluate_config
+    rec = {}
+    cfg = get_config(cid)
+    t0 = time.time()
+    rep = evaluate_config(cid, cfg, seed=seed, device=dev, record=rec)
+    wall = time.time() - t0
+    victim = rec["victim"]
+    plain_rows = {}
+    for r, (init, masks, sub) in rec["se"].items():
+        plain_rows[r] = 0
+        for i, m in masks.items():
+            w = victim[i]["w"]
+            enc = (m[None, None, :, None] if w.ndim == 4
+                   else m[:, None]).expand_as(w)
+            if not torch.equal(init[i]["w"][~enc], w[~enc]):
+                raise AssertionError(f"{cid} SE({r}): stage {i}'s plaintext "
+                                     f"rows differ from the victim's at init")
+            if not torch.equal(sub[i]["w"][~enc], w[~enc]):
+                raise AssertionError(f"{cid} SE({r}): stage {i}'s plaintext "
+                                     f"rows moved in training")
+            if torch.equal(sub[i]["w"][enc], w[enc]):
+                raise AssertionError(f"{cid} SE({r}): stage {i}'s learnt "
+                                     f"rows equal the victim's")
+            if torch.equal(sub[i]["w"][enc], init[i]["w"][enc]):
+                raise AssertionError(f"{cid} SE({r}): stage {i}'s learnt "
+                                     f"rows did not move in training")
+            plain_rows[r] += int((~m).sum())
+    rates = ([rep.victim_acc, rep.white_acc, rep.black_acc,
+              rep.white_transfer, rep.black_transfer]
+             + list(rep.se_acc.values()) + list(rep.se_transfer.values()))
+    if not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in rates):
+        raise AssertionError(f"{cid}: a rate outside [0, 1]: {rep}")
+    # the victim's mean loss over its first training batch (ln 10 = 2.3026
+    # for a network that predicts every class alike)
+    from repro_torch.data.synthetic import image_dataset
+    from repro_torch.models import cnn as C
+    xb, yb = image_dataset(CNN_BATCH, img=cfg.img_size, seed=seed, noise=0.45)
+    with torch.no_grad():
+        victim_loss = float(C.cnn_loss(cfg, victim, {
+            "x": torch.from_numpy(xb).to(dev),
+            "y": torch.from_numpy(yb).to(dev)})[0])
+    witness = _cnn_witness(torch, dev, cid, seed, victim)
+    log(f"[cnn] {cid} protocol at full width: {rep}; the victim's loss on "
+        f"its first {CNN_BATCH} images {victim_loss:.4f}")
+    log(f"[cnn] {cid} training runs (s, device work included): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in rec["train_s"].items())
+        + f"; plaintext rows by ratio {plain_rows}; protocol {wall:.1f} s")
+    report = dataclasses.asdict(rep)
+    for k in ("se_acc", "se_transfer"):
+        report[k] = {str(r): v for r, v in report[k].items()}
+    return {"report": report, "train_s": rec["train_s"], "wall_s": wall,
+            "plain_rows": {str(r): n for r, n in plain_rows.items()},
+            "victim_loss": victim_loss, "witness": witness}
+
+
+def _victim_data(cfg, seed):
+    """The protocol's victim training set, test set and epochs, as
+    ``evaluate_config``'s defaults make them."""
+    import inspect
+    from repro_torch.core.security.evaluate import evaluate_config
+    from repro_torch.data.synthetic import image_dataset
+    d = {k: v.default for k, v in
+         inspect.signature(evaluate_config).parameters.items()}
+    n_train = d["n_train"]
+    x, y = image_dataset(n_train + d["n_test"], img=cfg.img_size, seed=seed,
+                         noise=0.45)
+    n_vic = int(0.9 * n_train)
+    return x[:n_vic], y[:n_vic], x[n_train:], y[n_train:], d["epochs"]
+
+
+def _cnn_victim_lr(torch, dev, cid, seed):
+    """(d): the protocol's victim trained at full width with ``train_cnn``
+    at ``CNN_LEARNING_LR`` instead of its default 2e-2 (the protocol's
+    data split, epochs and batch), gated on test accuracy of at least
+    ``CNN_LEARNING_ACC``."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.core.security import attacks as A
+    from repro_torch.models import cnn as C
+    cfg = get_config(cid)
+    xv, yv, xte, yte, epochs = _victim_data(cfg, seed)
+    t0 = time.time()
+    victim = A.train_cnn(cfg, C.init_cnn(cfg, prng.key(seed), device=dev),
+                         xv, yv, epochs=epochs, lr=CNN_LEARNING_LR,
+                         device=dev)
+    acc = A.accuracy(cfg, victim, xte, yte, device=dev)
+    wall = time.time() - t0
+    log(f"[cnn] {cid} victim at lr {CNN_LEARNING_LR:g}: test accuracy "
+        f"{acc:.4f} ({wall:.1f} s)")
+    if acc < CNN_LEARNING_ACC:
+        raise AssertionError(f"{cid}: the victim at lr {CNN_LEARNING_LR:g} "
+                             f"reaches only {acc:.4f} test accuracy")
+    return {"lr": CNN_LEARNING_LR, "test_acc": acc, "s": wall}
+
+
+def _plain_cnn(torch, cfg, params):
+    """The witness's network: an independent plain PyTorch statement of the
+    reference's forward and loss (NCHW through ``torch.nn.functional``;
+    OIHW and (out, in) copies of ``params``; its own "SAME" pads;
+    ``layer_norm`` over channels; ``max_pool2d`` in ceil mode, whose
+    windows past the edge hold -inf; ``cross_entropy``). Returns
+    (loss(x, y), logits(x), its leaves), x NHWC as the port's."""
+    import torch.nn.functional as F
+    ws = [{k: (v.detach().permute(3, 2, 0, 1) if v.ndim == 4
+               else v.detach().t() if k == "w" else v.detach())
+           .contiguous().clone().requires_grad_(True)
+           for k, v in p.items()} for p in params]
+
+    def conv(h, p, stride, w="w"):
+        k, n = p[w].shape[-1], h.shape[-1]
+        total = max((-(-n // stride) - 1) * stride + k - n, 0)
+        h = F.pad(h, (total // 2, total - total // 2) * 2)
+        return F.conv2d(h, p[w], p["b"] if w == "w" else None, stride)
+
+    def norm(h, p):
+        return F.layer_norm(h.permute(0, 2, 3, 1), (h.shape[1],), p["ln_s"],
+                            p["ln_b"], 1e-5).permute(0, 3, 1, 2)
+
+    def logits(x):
+        h, flat, i, st = x.permute(0, 3, 1, 2), None, 0, cfg.stages
+        while i < len(st):
+            sp, p = st[i], ws[i]
+            if sp.kind == "conv" and sp.residual:
+                z = F.relu(norm(conv(h, p, sp.stride), p))
+                z = norm(conv(z, ws[i + 1], st[i + 1].stride), ws[i + 1])
+                skip = h if "proj" not in p else conv(h, p, sp.stride, "proj")
+                h = F.relu(z + skip)
+                i += 2
+            elif sp.kind == "conv":
+                h = F.relu(norm(conv(h, p, sp.stride), p))
+                i += 1
+            elif sp.kind == "pool":
+                h = F.max_pool2d(h, 2, 2, ceil_mode=True)
+                i += 1
+            else:
+                if flat is None:
+                    flat = h.mean(dim=(2, 3))
+                flat = F.linear(flat, p["w"], p["b"])
+                if i < len(st) - 1:
+                    flat = F.relu(flat)
+                i += 1
+        return flat
+
+    return (lambda x, y: F.cross_entropy(logits(x), y), logits,
+            [t for q in ws for t in q.values()])
+
+
+def _top_share(torch, fwd, x, dev):
+    """Test accuracy's companion: the share of ``x`` given the most
+    predicted class by ``fwd``."""
+    with torch.no_grad():
+        pred = torch.cat([fwd(torch.from_numpy(x[i:i + 256]).to(dev))
+                          .argmax(-1) for i in range(0, len(x), 256)])
+    return float(torch.bincount(pred).max()) / len(x), pred.cpu().numpy()
+
+
+def _cnn_witness(torch, dev, cid, seed, victim):
+    """(e): a second witness to the protocol's victim at full width. The
+    port's ``sgd_step`` and ``_plain_cnn`` under ``torch.optim.SGD``
+    (momentum 0.9) train from the same init on the same batches in the
+    same order at ``train_cnn``'s default learning rate and schedule; the
+    first epoch's losses of both are printed, the first step's gated at
+    ``CNN_TOL``. The plain run goes on for all of the victim's epochs; its
+    test accuracy and most predicted class's share are printed beside
+    those of the protocol's victim (``victim``)."""
+    import inspect
+    import numpy as np
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.core.security import attacks as A
+    from repro_torch.models import cnn as C
+    cfg = get_config(cid)
+    xv, yv, xte, yte, epochs = _victim_data(cfg, seed)
+    lr = inspect.signature(A.train_cnn).parameters["lr"].default
+    xs, ys = torch.from_numpy(xv).to(dev), torch.from_numpy(yv).to(dev).long()
+    init = C.init_cnn(cfg, prng.key(seed), device=dev)
+    loss_fn, logits_fn, leaves = _plain_cnn(torch, cfg, init)
+    opt = torch.optim.SGD(leaves, lr=lr, momentum=0.9)
+    port_step = A.sgd_step(cfg, init)
+    rng = np.random.RandomState(seed)
+    t0 = time.time()
+    port, plain = [], []
+    for ep in range(epochs):
+        perm = torch.from_numpy(rng.permutation(len(xv))).to(dev)
+        cur = lr * 0.5 ** (ep // 5)
+        for g in opt.param_groups:
+            g["lr"] = cur
+        for s in range(len(xv) // CNN_BATCH):
+            idx = perm[s * CNN_BATCH:(s + 1) * CNN_BATCH]
+            opt.zero_grad(set_to_none=True)
+            loss = loss_fn(xs[idx], ys[idx])
+            loss.backward()
+            opt.step()
+            if ep == 0:
+                plain.append(float(loss.detach()))
+                port.append(float(port_step(xs[idx], ys[idx], cur)))
+    wall = time.time() - t0
+    first = abs(port[0] - plain[0]) / abs(plain[0])
+    if first > CNN_TOL:
+        raise AssertionError(f"{cid}: the witness's first loss {plain[0]} is "
+                             f"{first:.3g} relative from the port's {port[0]}")
+    share, pred = _top_share(torch, logits_fn, xte, dev)
+    acc = float((pred == yte).mean())
+    vshare, vpred = _top_share(
+        torch, lambda b: C.cnn_forward(cfg, victim, b), xte, dev)
+    out = {"lr": lr, "port_epoch1": port, "plain_epoch1": plain,
+           "first_rel": first, "plain_acc": acc, "plain_top_share": share,
+           "victim_acc": float((vpred == yte).mean()),
+           "victim_top_share": vshare, "s": wall}
+    log(f"[cnn] {cid} witness at lr {lr:g}: first epoch's losses, port "
+        f"{[round(v, 4) for v in port]}, plain {[round(v, 4) for v in plain]}"
+        f" (first step {first:.3g} apart); after {epochs} epochs the plain "
+        f"run's test accuracy {acc:.4f}, most predicted class {share:.4f} of "
+        f"the test set; the protocol's victim {out['victim_acc']:.4f}, "
+        f"{vshare:.4f}; {wall:.1f} s")
+    return out
+
+
+def _cnn_step(torch, dev, cid, seed, flush):
+    """(c): one train_cnn step (forward, backward, update) at batch 128,
+    beside the least time of its f32 work (3 x the forward's MACs: the
+    forward, the input gradients and the weight gradients)."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.core.security import attacks as A
+    from repro_torch.data.synthetic import image_dataset
+    from repro_torch.models import cnn as C
+    cfg = get_config(cid)
+    params = C.init_cnn(cfg, prng.key(seed), device=dev)
+    step = A.sgd_step(cfg, params)
+    x, y = image_dataset(CNN_BATCH, img=cfg.img_size, seed=seed)
+    bx = torch.from_numpy(x).to(dev)
+    by = torch.from_numpy(y).to(dev).long()
+    st = _time_stats(torch, lambda: step(bx, by, 2e-2), CNN_TIMING_ITERS,
+                     flush)
+    macs = CNN_BATCH * sum(t["macs"] for t in C.layer_traffic(cfg)
+                           if t["kind"] != "pool")
+    bound, by_ = bound_ms(0, f32_flops=3 * 2 * macs)
+    log(f"[cnn] {cid} train step, batch {CNN_BATCH}: median "
+        f"{st['median_ms']:.3f} ms, {_stats_text(st)}; bound {bound:.3f} ms "
+        f"({by_}; {3 * 2 * macs / 1e9:.1f} GFLOP)")
+    return {"median_ms": st["median_ms"], "ms": st["ms"],
+            "host_past_sleep": st["host_past_sleep"], "bound_ms": bound,
+            "gflop": 3 * 2 * macs / 1e9}
+
+
+def _vgg_layers(torch, dev, seed, flush):
+    """(c): VGG-16's forward at the Figure-4 geometry, layer by layer (the
+    layer as ``cnn_forward`` runs it: conv + bias + channel norm + ReLU, a
+    pool, an FC; and the conv alone), each beside ``layer_traffic``'s bytes
+    (weights once, feature maps a batch) and 2 x MACs over the f32 peak."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import image_dataset
+    from repro_torch.models import cnn as C
+    cfg = get_config("vgg16").with_(img_size=FIG4_IMG)
+    params = C.init_cnn(cfg, prng.key(seed), device=dev)
+    traffic = C.layer_traffic(cfg)
+    x = torch.from_numpy(image_dataset(FIG4_BATCH, img=FIG4_IMG,
+                                       seed=seed)[0]).to(dev)
+    rows, h, flat = [], x, None
+    median = lambda fn: _time_stats(torch, fn, CNN_TIMING_ITERS,
+                                    flush)["median_ms"]
+    with torch.no_grad():
+        whole = median(lambda: C.cnn_forward(cfg, params, x))
+        for i, (sp, p, t) in enumerate(zip(cfg.stages, params, traffic)):
+            conv_ms = None
+            if sp.kind == "conv":
+                def layer(h=h, p=p, sp=sp):
+                    z = C.conv2d(h, p["w"], sp.stride) + p["b"]
+                    return torch.relu(C.chan_ln(z, p["ln_s"], p["ln_b"]))
+                conv_ms = median(lambda h=h, p=p, sp=sp:
+                                 C.conv2d(h, p["w"], sp.stride))
+            elif sp.kind == "pool":
+                layer = lambda h=h: C.max_pool(h)
+            else:
+                if flat is None:
+                    flat = h.mean(dim=(1, 2))
+                last = i == len(cfg.stages) - 1
+                def layer(f=flat, p=p, last=last):
+                    z = f @ p["w"] + p["b"]
+                    return z if last else torch.relu(z)
+            ms = median(layer)
+            nbytes = t["weight_bytes"] + FIG4_BATCH * (t["in_fm_bytes"]
+                                                       + t["out_fm_bytes"])
+            flops = 2 * FIG4_BATCH * t["macs"]
+            bound, by_ = bound_ms(nbytes, f32_flops=flops)
+            rows.append({"stage": i, "kind": t["kind"], "in_ch": t["in_ch"],
+                         "out_ch": t["out_ch"], "bytes": nbytes,
+                         "flops": flops, "ms": ms, "conv_ms": conv_ms,
+                         "bound_ms": bound, "bound_by": by_})
+            log(f"[cnn] vgg16 {FIG4_IMG}px x{FIG4_BATCH} stage {i:2d} "
+                f"{t['kind']:4s} {t['in_ch']:3d}->{t['out_ch']:3d}: layer "
+                f"{ms:.4f} ms"
+                + (f" (conv {conv_ms:.4f})" if conv_ms is not None else "")
+                + f", bound {bound:.4f} ({by_}; {nbytes / 1e6:.1f} MB, "
+                f"{flops / 1e9:.2f} GFLOP), {bound / ms:.2f} of it")
+            if sp.kind == "fc":
+                flat = layer()
+            else:
+                h = layer()
+    total_bound = sum(r["bound_ms"] for r in rows)
+    log(f"[cnn] vgg16 {FIG4_IMG}px x{FIG4_BATCH} forward: {whole:.3f} ms "
+        f"whole, layers {sum(r['ms'] for r in rows):.3f}, bound "
+        f"{total_bound:.3f}")
+    return {"forward_ms": whole, "layers": rows, "bound_ms": total_bound}
+
+
+def phase_cnn(torch, dev, args):
+    """Phase 12: the paper's CNNs at their published widths (module
+    docstring, 12)."""
+    t_phase = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {"parity": {c: _cnn_parity(torch, dev, c, args.seed)
+                      for c in CNN_IDS},
+           "protocol": {c: _cnn_protocol(torch, dev, c, args.seed)
+                        for c in CNN_PROTOCOL},
+           "victim_lr": {c: _cnn_victim_lr(torch, dev, c, args.seed)
+                         for c in CNN_PROTOCOL}}
+    scratch = torch.empty((64 * 2**20,), dtype=torch.int32, device=dev)
+    flush = lambda: scratch.zero_()           # 256 MB > the 50 MB L2
+    out["step"] = {c: _cnn_step(torch, dev, c, args.seed, flush)
+                   for c in CNN_IDS}
+    out["vgg_layers"] = _vgg_layers(torch, dev, args.seed, flush)
+    out["peak_gib"] = _gib(torch.cuda.max_memory_allocated(dev))
+    out["wall_s"] = time.time() - t_phase
+    log(f"[cnn] phase 12: {out['wall_s']:.1f} s; peak allocated "
+        f"{out['peak_gib']:.2f} GiB")
     return out
 
 

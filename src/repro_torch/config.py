@@ -1,9 +1,11 @@
 """Model and SEAL configuration. Port of ``repro/config.py``
-(``MoEConfig``, ``ModelConfig``, ``SealConfig``).
+(``MoEConfig``, ``ModelConfig``, ``ConvSpec``, ``CNNConfig``, ``SealConfig``,
+``PAPER_GPU``).
 
 A copy, not an import: the port imports nothing from ``repro``. The TPU
-hardware table and the paper's GPU constants are left out; the port states
-no hardware number it did not measure.
+hardware table is left out. ``PAPER_GPU`` is the paper's modelled GTX480
+(the analytic ``core.perfmodel``'s inputs), not a measurement of any card
+the port runs on.
 """
 from __future__ import annotations
 
@@ -83,6 +85,31 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+# --------------------------------------------------------------------------
+# The paper's own CNNs (VGG-16 / ResNet-18 / ResNet-34)
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ConvSpec:
+    kind: str            # "conv" | "pool" | "fc"
+    out_ch: int = 0
+    kernel: int = 3
+    stride: int = 1
+    residual: bool = False   # start of a residual block (resnets)
+
+
+@dataclass(frozen=True)
+class CNNConfig:
+    name: str
+    stages: Tuple[ConvSpec, ...]
+    num_classes: int = 10
+    img_size: int = 32      # CIFAR-10 for security eval; 224 for traffic model
+    in_ch: int = 3
+
+    def with_(self, **kw) -> "CNNConfig":
+        return dataclasses.replace(self, **kw)
+
+
 @dataclass(frozen=True)
 class SealConfig:
     """The paper's technique.
@@ -101,3 +128,14 @@ class SealConfig:
     fuse_decrypt: bool = True
     verify: bool = False
     protect_boundary_layers: bool = True
+
+
+# The paper's modelled GPU (GTX480-class) for the analytic perfmodel
+PAPER_GPU = {
+    "gddr_bw": 177.4e9,          # 384-bit * 3696 MT/s
+    "aes_bw_per_engine": 8e9,    # state-of-the-art pipelined AES engine
+    "n_mem_controllers": 6,
+    "line_bytes": 128,
+    "counter_bytes": 8,
+    "ctr_cache_hit": {1536: 0.98, 384: 0.78, 96: 0.67, 24: 0.55},  # KB -> hit
+}

@@ -1,6 +1,6 @@
 """Architecture registry. Port of ``repro/configs/__init__.py``, holding the
 token architectures the reference serves, in the reference's order (its
-frontend configs and CNNs are not ported yet)."""
+frontend configs are not ported yet), and the paper's own CNNs."""
 from __future__ import annotations
 
 import importlib
@@ -16,14 +16,15 @@ ARCH_IDS = [
     "mamba2_130m",
 ]
 
-_ALIAS = {i.replace("_", "-"): i for i in ARCH_IDS}
+CNN_IDS = ["vgg16", "resnet18", "resnet34"]
+
+_ALIAS = {i.replace("_", "-"): i for i in ARCH_IDS + CNN_IDS}
 
 
 def _module(arch_id: str):
     arch_id = _ALIAS.get(arch_id, arch_id)
-    if arch_id not in ARCH_IDS:
-        raise KeyError(f"unknown or not yet ported arch {arch_id!r}; "
-                       f"ported: {ARCH_IDS}")
+    if arch_id not in ARCH_IDS + CNN_IDS:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS + CNN_IDS}")
     return importlib.import_module(f"repro_torch.configs.{arch_id}")
 
 

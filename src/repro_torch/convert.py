@@ -1,10 +1,14 @@
 """Weights from the JAX package into the port.
 
-``jax.random`` cannot be reproduced in PyTorch, so the tests make params with
-the reference's ``init_params``, take them to numpy
-(``jax.tree.map(np.asarray, params)``) and hand both packages the same
-numbers through ``params_from_numpy``. Only numpy crosses the boundary; this
-module imports neither JAX nor the reference package.
+The tests make params with the reference's ``init_params`` or ``init_cnn``,
+take them to numpy (``jax.tree.map(np.asarray, params)``) and hand both
+packages the same numbers through ``params_from_numpy``: the port's own
+draws (``prng.py`` reproduces jax's threefry bit for bit, and its
+``normal`` to within 3 ulp) are not needed for a comparison of what a
+model computes. Trees of dicts, tuples and lists cross as they are: a
+CNN's list of per-stage dicts keeps its ``{}`` for a pool. Only numpy
+crosses the boundary; this module imports neither JAX nor the reference
+package.
 """
 from __future__ import annotations
 

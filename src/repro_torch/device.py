@@ -18,7 +18,8 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     On the card this also turns off TF32 and bf16 reduced-precision
     reductions in cuBLAS, so plaintext matmuls accumulate in full f32 as the
     sealed kernel does and a sealed-vs-plaintext comparison measures the
-    kernel, not cuBLAS settings.
+    kernel, not cuBLAS settings; and TF32 in cuDNN, whose default is on, so
+    the CNNs' convolutions compute in the reference's f32.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
@@ -29,6 +30,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             False
+        torch.backends.cudnn.allow_tf32 = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev

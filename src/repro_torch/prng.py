@@ -18,14 +18,24 @@ what that path reaches, so a sampled token stream is the reference's:
 * ``gumbel``: ``-log(-log(u))`` with u uniform on [tiny, 1) (the "low"
   mode, jax's default);
 * ``categorical``: the argmax of logits plus gumbel noise along the last
-  axis, the first maximal index on ties.
+  axis, the first maximal index on ties;
+* ``normal``: ``sqrt(2) * erf_inv(u)`` with u uniform on
+  [nextafter(-1, 0), 1) (``jax._src.random._normal_real``), ``erf_inv``
+  XLA's single-precision polynomial (Giles, two branches split at
+  w = -log1p(-u^2) = 5).
 
 Keys carry a leading batch axis: key data (B, 2) with one row per draw, as
 ``jax.vmap`` over the reference's functions gives. u32 words are int32 bit
 patterns (``repro_torch.u32``); the arithmetic is int64 masked to 32 bits,
 so the same code runs on the CPU and on the card and gives the same bits.
 ``torch.log`` may differ from XLA's ``log`` by an ulp, so gumbel noise (not
-the bits or the uniforms) can differ in its last bits.
+the bits or the uniforms) can differ in its last bits. Likewise ``normal``:
+XLA fuses each Horner step of ``erf_inv`` into one fused multiply-add, which
+the port reproduces by summing in f64 and rounding once to f32, but its
+``log1p`` is its own. The port takes ``log1p`` in f64 rounded to f32: on 8M
+draws under three seeds 99.06% of ``normal``'s values equal the reference's,
+the rest within 3 ulp (2.4e-7 relative). The same f64 arithmetic runs on
+the card, so the card's draws are the CPU's.
 """
 from __future__ import annotations
 
@@ -111,3 +121,43 @@ def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """(B,) int64 draws from the rows of ``logits`` (B, V) f32, row b under
     key ``keys[b]``: ``jax.vmap(jax.random.categorical)``."""
     return torch.argmax(gumbel(keys, logits.shape[-1]) + logits, dim=-1)
+
+
+# XLA's single-precision erf_inv (Giles): Horner coefficients, highest first,
+# for w < 5 and for w >= 5
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+# f32(nextafter(-1, 0)): the open lower end of normal's uniforms
+_NEXT_ABOVE_MINUS_ONE = -1.0 + 2.0 ** -24
+_SQRT2_F32 = 1.41421353816986083984375       # f32(sqrt(2))
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``lax.erf_inv`` for |x| < 1: XLA's polynomial, each Horner step
+    one rounding to f32 (XLA fuses it into an FMA)."""
+    w = (-torch.log1p(-(x * x).double())).float()
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()
+    lo = torch.tensor(_ERFINV_LT5, dtype=torch.float32, device=x.device)
+    hi = torch.tensor(_ERFINV_GE5, dtype=torch.float32, device=x.device)
+    p = torch.where(lt, lo[0], hi[0])
+    for i in range(1, len(_ERFINV_LT5)):
+        p = (torch.where(lt, lo[i], hi[i]).double() + p.double() * w).float()
+    return p * x
+
+
+def normal(key_: torch.Tensor, shape) -> torch.Tensor:
+    """f32 standard normals of ``shape`` under one key (2,), as
+    ``jax.random.normal(key, shape)``: element i (row-major) from the i-th
+    uniform."""
+    shape = tuple(shape)
+    n = 1
+    for d in shape:
+        n *= d
+    u = uniform(key_[None], n, _NEXT_ABOVE_MINUS_ONE, 1.0)[0]
+    return (torch.tensor(_SQRT2_F32, device=u.device) * erf_inv(u)
+            ).reshape(shape)

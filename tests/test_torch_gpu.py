@@ -21,7 +21,13 @@ head dim 64 or 128, probabilities rounded to bf16 before ``p @ v``) under
 ``flash_attention.bf16_gate``; the card's sealed logits and the group
 engine's tokens against the CPU's plain f32 path at 1e-4 relative and
 exactly; the AES kernel (FIPS-197, blocks, Direct lines) bitwise against
-its plain version, and Direct serving on the card equal to the CPU's.
+its plain version, and Direct serving on the card equal to the CPU's;
+the paper's CNNs (reduced VGG-16, ResNet-18, ResNet-34) on the card
+against the CPU: ``init_cnn`` within 1e-6 relative (``prng.normal``'s
+tolerance), logits, loss and the gradients with respect to every parameter
+and the input at 1e-4 of each tensor's scale, ``cnn_channel_masks`` equal,
+a full-width VGG-16 conv (cuDNN with TF32 off) at 1e-5 of its scale, and a
+tiny ``evaluate(device=None)`` report within 0.05 of the CPU's.
 """
 import numpy as np
 import pytest
@@ -899,3 +905,86 @@ def test_recurrences_on_the_card_match_cpu(cuda):
         for g, w in zip(got, want):
             assert float((g.cpu() - w).abs().max()) <= 1e-5 * float(
                 w.abs().max()), fn.__name__
+
+
+CNN_IDS = ("vgg16", "resnet18", "resnet34")
+
+
+def _scale_err(got, want):
+    want = want.double()
+    return float((got.cpu().double() - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def test_resolve_device_turns_off_cudnn_tf32(cuda):
+    """``resolve_device(None)`` leaves cuDNN's TF32 off, so a VGG-16 conv
+    (256 -> 256 channels, 3x3, at 28x28) on the card is the CPU's f32."""
+    from repro_torch.device import resolve_device
+    from repro_torch.models import cnn as C
+    torch.backends.cudnn.allow_tf32 = True
+    assert resolve_device(None) == torch.device("cuda")
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((8, 28, 28, 256), generator=gen)
+    w = torch.randn((3, 3, 256, 256), generator=gen) * (2 / 2304) ** 0.5
+    for stride in (1, 2):
+        want = C.conv2d(x, w, stride)
+        got = C.conv2d(x.to(cuda), w.to(cuda), stride)
+        assert _scale_err(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("cid", CNN_IDS)
+def test_cnn_on_the_card_matches_cpu(cuda, cid):
+    """Phase 12 (a) at the reduced configs, batch 32 (and an odd 15 x 15
+    image): init, logits, loss, gradients and SE masks, card vs CPU."""
+    from repro_torch import prng
+    from repro_torch.core.criticality import cnn_channel_masks
+    from repro_torch.data.synthetic import image_dataset
+    from repro_torch.models import cnn as C
+    from repro_torch.tree import flatten_with_path
+    for cfg in (get_reduced(cid), get_reduced(cid).with_(img_size=15)):
+        p_cpu = C.init_cnn(cfg, prng.key(1), device="cpu")
+        p_dev = C.init_cnn(cfg, prng.key(1), device=cuda)
+        for (_, a), (_, b) in zip(flatten_with_path(p_cpu),
+                                  flatten_with_path(p_dev)):
+            rel = (b.cpu().double() - a.double()).abs() / \
+                a.double().abs().clamp_min(1e-30)
+            assert float(rel.max()) <= 1e-6
+        x, y = image_dataset(32, img=cfg.img_size, seed=2)
+        runs = []
+        for dev in ("cpu", cuda):
+            params = [{k: v.detach().to(dev).requires_grad_(True)
+                       for k, v in p.items()} for p in p_cpu]
+            leaves = [t for _, t in flatten_with_path(params)]
+            xt = torch.from_numpy(x).to(dev).requires_grad_(True)
+            loss = C.cnn_loss(cfg, params, {"x": xt, "y": torch.from_numpy(
+                y).to(dev)})[0]
+            logits = C.cnn_forward(cfg, params, xt)
+            runs.append([logits, loss] + list(torch.autograd.grad(
+                loss, leaves + [xt])))
+            if dev != "cpu":
+                for r in (0.2, 0.5, 0.8):
+                    want = cnn_channel_masks(cfg, p_cpu, r)
+                    got = cnn_channel_masks(cfg, params, r)
+                    assert all(torch.equal(got[i].cpu(), want[i])
+                               for i in want)
+        for got, want in zip(runs[1], runs[0]):
+            assert _scale_err(got.detach(), want.detach()) <= 1e-4
+
+
+def test_evaluate_on_the_card(cuda):
+    """``evaluate(device=None)`` runs on the card; a tiny report within
+    0.05 of the CPU's, every rate in [0, 1]."""
+    import dataclasses
+    from repro_torch.core.security.evaluate import evaluate
+    kw = dict(n_train=200, n_test=64, epochs=2, sub_epochs=1, ratios=(0.5,))
+    got = dataclasses.asdict(evaluate("resnet18", **kw))
+    want = dataclasses.asdict(evaluate("resnet18", device="cpu", **kw))
+    for k, v in want.items():
+        if isinstance(v, dict):
+            assert abs(got[k][0.5] - v[0.5]) <= 0.05, k
+            assert 0.0 <= got[k][0.5] <= 1.0
+        elif k != "model":
+            assert abs(got[k] - v) <= 0.05, k
+            assert 0.0 <= got[k] <= 1.0
