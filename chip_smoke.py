@@ -188,7 +188,33 @@ runs:
    ``layer_traffic``'s bytes and MACs and each layer's bound (events,
    median of 20, L2 flushed); peak memory and the phase's wall time. No
    kernel of the port lies on this path: its convolutions are cuDNN's, as
-   the reference's are XLA's.
+   the reference's are XLA's;
+13. training (``phase_train``): (a) every ``ARCH_ID``'s reduced config,
+   one ``make_train_step`` step in f32 (microbatches 2, remat ``"full"``,
+   batch 4, seq 16 of ``lm_batch``) and its full-batch gradients on the
+   card against the CPU from the same params: loss, ce, aux and grad_norm
+   within 1e-5 relative, every gradient within 1e-4 of its scale, params
+   after the step within ``2·lr + 1e-4·scale`` and at least 99.9% of each
+   tensor's within ``1e-4·scale``, of the elements whose gradient is 0 or
+   far enough from 0 that the gradient gate's allowance cannot move
+   AdamW's first step ``lr·g/(|g|+eps)`` by that much; (b) internlm2-1.8B at full width, all
+   24 layers, through ``train`` for 12 steps (batch 8, seq 512,
+   microbatches 2, remat ``"save_carries"``), gated on finite losses whose
+   last three average at least 1 nat below the first, with the step time
+   (events), tokens/s, the share of the bf16 peak, ``adamw.update`` alone
+   beside its byte bound, one step profiled and peak memory; (c) (a)'s
+   gates at full width with 2 of the 24 layers; (d) sealed ColoE
+   checkpoints of those 2 layers at full width: 6 steps saving every 3
+   (async), the stored leaf ciphertext, a flipped byte caught, a fresh
+   ``train`` resuming at step 3 (the restored state the saved one bit for
+   bit, its losses the straight run's within 1e-5), the ChaCha kernel at
+   every save (one launch or more a leaf), one ``lines_unseal`` a restored
+   leaf, no plain sealing version called; the reduced config sealed under
+   ColoE, Counter and Direct on the card and on the CPU with equal
+   manifests; (e) internvl2-1b and musicgen-medium at their published
+   widths, 3 steps each on ``lm_batch``'s embeds, gated on finite losses,
+   with step times and peak memory. Training attention is ``_sdpa``, as in
+   the reference; the flash kernel has no backward and refuses autograd.
 
 Every phase raises on failure, so the script exits non-zero. The line before
 the last is a JSON ``{"kernels": [...]}`` record; the last line is
@@ -201,7 +227,9 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -411,6 +439,8 @@ def main(argv=None) -> int:
     report["families"] = phase_families(torch, dev, args)
     # phase 12: the paper's CNNs, their attacks and timings
     report["cnn"] = phase_cnn(torch, dev, args)
+    # phase 13: training, its optimizer and its sealed checkpoints
+    report["train"] = phase_train(torch, dev, args)
 
     kernels = kernel_records(report)
     if args.report:
@@ -502,6 +532,8 @@ def kernel_records(report):
            for name, *_ in rows}
     # phase 11's: every gated run of the five families
     family = report["families"]["launches"]
+    # phase 13's: the sealed-checkpoint runs of (d), saves and restores
+    train = report["train"]["launches"]
     kernels = []
     for name, replaces, launches, err in rows:
         tk = t[name]
@@ -510,7 +542,8 @@ def kernel_records(report):
             "source": f"src/repro_torch/csrc/{SOURCE.get(name, name)}.cu",
             "replaces": replaces, "launches": launches,
             "moe_launches": moe[name],
-            "family_launches": family.get(name, 0), "max_abs_err": err,
+            "family_launches": family.get(name, 0),
+            "train_launches": train.get(name, 0), "max_abs_err": err,
             "ms": tk["ms"], "plain_ms": tk["plain_ms"],
             "bound_ms": tk["bound_ms"], "bound_by": tk["bound_by"],
             "library_ms": tk.get("library_ms"),
@@ -5205,6 +5238,552 @@ def phase_cnn(torch, dev, args):
     out["wall_s"] = time.time() - t_phase
     log(f"[cnn] phase 12: {out['wall_s']:.1f} s; peak allocated "
         f"{out['peak_gib']:.2f} GiB")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 13: training — the step, AdamW, the loop, sealed checkpoints
+# --------------------------------------------------------------------------
+
+TRAIN_ARCH = "internlm2_1_8b"
+# (b): internlm2-1.8B at full width, all 24 layers
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 512, 2, 12
+# (b)'s gate on learning: the mean of the last 3 losses below the first by
+# at least this many nats (PERF.md §6 holds the prediction it comes from)
+TRAIN_LOSS_DROP = 1.0
+# (c) and (d): 2 of internlm2's 24 layers at full width
+TRAIN_CUT_LAYERS = 2
+CKPT_STEPS, CKPT_EVERY = 6, 3
+# (e): the frontend-stub architectures at their published widths
+FRONTEND_ARCHS = ("internvl2_1b", "musicgen_medium")
+FRONTEND_BATCH, FRONTEND_SEQ, FRONTEND_STEPS = 4, 512, 3
+# (a) and (c), card vs CPU in f32: only the order of sums differs
+TRAIN_REL = 1e-5          # loss, ce, aux, grad_norm
+TRAIN_GRAD_TOL = 1e-4     # of each tensor's scale (gradients, params)
+TRAIN_SHARE = 0.999       # params within TRAIN_GRAD_TOL of scale, of the
+                          # elements whose step rounding cannot move
+                          # (``_step_gates``)
+# AdamW reads params, m, v and the gradient once and writes params, m, v
+ADAMW_PASSES = 7
+
+
+def _train_tc(**kw):
+    from repro_torch.config import TrainConfig
+    return TrainConfig(**kw)
+
+
+def _host_leaves(torch, tree):
+    """[(path, f32 CPU tensor)] of a tree of tensors."""
+    return [(p, t.detach().float().cpu()) for p, t in flatten_paths(tree)]
+
+
+def _step_gates(torch, label, cpu, card, eps):
+    """(a)'s gates: card against CPU. ``cpu`` and ``card``: (grads, params
+    after the step, metrics, step count), the trees as ``_host_leaves``.
+    Raises past a gate; returns the worst of each measure."""
+    g_cpu, p_cpu, m_cpu, s_cpu = cpu
+    g_dev, p_dev, m_dev, s_dev = card
+    if s_cpu != 1 or s_dev != 1:
+        raise AssertionError(f"[train] {label}: step count {s_dev}/{s_cpu}")
+    out = {"metric_rel": {}, "accuracy": (m_dev["accuracy"],
+                                          m_cpu["accuracy"])}
+    for k in ("loss", "ce", "aux", "grad_norm"):
+        rel = abs(m_dev[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-30)
+        out["metric_rel"][k] = rel
+        if not rel <= TRAIN_REL:
+            raise AssertionError(f"[train] {label}: {k} {m_dev[k]} on the "
+                                 f"card, {m_cpu[k]} on the CPU ({rel:.2e})")
+    worst_g = 0.0
+    for (path, want), (path2, got) in zip(g_cpu, g_dev):
+        assert path == path2
+        err = float((got - want).abs().max() / want.abs().max().clamp(
+            min=1e-30))
+        worst_g = max(worst_g, err)
+        if not err <= TRAIN_GRAD_TOL:
+            raise AssertionError(f"[train] {label}: gradient of {path} "
+                                 f"{err:.2e} of its scale")
+    lr = m_cpu["lr"]
+    worst_p, least_share, least_all, near0 = 0.0, 1.0, 1.0, 0
+    grads = dict(g_cpu)
+    for (path, want), (path2, got) in zip(p_cpu, p_dev):
+        assert path == path2
+        tol = TRAIN_GRAD_TOL * float(want.abs().max())
+        diff = (got - want).abs()
+        worst_p = max(worst_p, float(diff.max()) / (2 * lr + tol))
+        within = diff <= tol
+        least_all = min(least_all, float(within.float().mean()))
+        # AdamW's first step is lr * g / (|g| + eps), whose slope in g is
+        # lr * eps / (|g| + eps)^2: where the gradient gate's allowance
+        # (TRAIN_GRAD_TOL of the gradient's scale) can move the step by
+        # more than tol, g is within rounding of 0 and the two devices'
+        # steps may part by up to 2 lr. The share counts the other elements
+        # and those whose gradient is exactly 0 (a token absent from the
+        # batch: 0 on both)
+        g = grads[path].abs()
+        slack = TRAIN_GRAD_TOL * float(g.max())
+        far = (g == 0) | (lr * eps * slack / (g + eps) ** 2 <= tol)
+        near0 += int((~far).sum())
+        share = float(within[far].float().mean()) if bool(far.any()) else 1.0
+        least_share = min(least_share, share)
+        if not (float(diff.max()) <= 2 * lr + tol and share >= TRAIN_SHARE):
+            raise AssertionError(
+                f"[train] {label}: {path} after the step: max diff "
+                f"{float(diff.max()):.3e} (2 lr + tol = {2 * lr + tol:.3e}), "
+                f"{share:.5f} of the elements whose gradient is not near 0 "
+                f"within tol")
+    out.update(grad_err=worst_g, param_err=worst_p, param_share=least_share,
+               param_share_all=least_all, near0=near0)
+    log(f"[train] {label}: card vs CPU, loss {m_dev['loss']:.6f} / "
+        f"{m_cpu['loss']:.6f}, metrics rel "
+        + ", ".join(f"{k} {v:.1e}" for k, v in out["metric_rel"].items())
+        + f"; gradients {worst_g:.2e} of scale; params after the step "
+        f"{worst_p:.3f} of (2 lr + 1e-4 scale), least share within 1e-4 "
+        f"scale {least_share:.5f} ({least_all:.5f} counting the {near0} "
+        f"elements whose gradient is within rounding of 0); accuracy "
+        f"{m_dev['accuracy']:.4f} / "
+        f"{m_cpu['accuracy']:.4f}")
+    return out
+
+
+def _train_parity(torch, dev, cfg, seed, label):
+    """One ``make_train_step`` step (microbatches 2, remat ``"full"``,
+    batch 4, seq 16 of ``lm_batch``) and ``make_grad_fn``'s full-batch
+    gradients, on the card and on the CPU from the same params, held to
+    (a)'s gates."""
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_grad_fn, make_train_step
+    from repro_torch.tree import map_leaves
+    tc = _train_tc(microbatches=2, remat="full", total_steps=10)
+    t0 = time.time()
+    nb = lm_batch(cfg, 4, 16, seed)
+    res = {}
+    for name, where in (("cpu", torch.device("cpu")), ("card", dev)):
+        params = T.init_params(cfg, seed, "cpu")
+        if where.type == "cuda":
+            params = map_leaves(lambda t: t.to(where), params)
+        batch = {k: torch.from_numpy(v).to(where) for k, v in nb.items()}
+        _, grads = make_grad_fn(cfg, "full")(params, batch)
+        grads = _host_leaves(torch, grads)
+        params, opt, m = make_train_step(cfg, tc)(params,
+                                                 adamw.init(params), batch)
+        res[name] = (grads, _host_leaves(torch, params),
+                     {k: float(v) for k, v in m.items()}, int(opt["step"]))
+        del params, opt, batch
+    out = _step_gates(torch, label, res["cpu"], res["card"], tc.eps)
+    out["wall_s"] = time.time() - t0
+    return out
+
+
+def _timed_train(torch, cfg, tc, dev, **kw):
+    """``train_loop.train`` with CUDA events around each step (the loop's
+    step factory wrapped for the call). Returns (train's result, each
+    step's event ms, the log's records)."""
+    from repro_torch.train import loop as TL
+    made, events = TL.make_train_step, []
+
+    def factory(cfg_, tc_):
+        fn = made(cfg_, tc_)
+
+        def timed(params, opt, batch):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(params, opt, batch)
+            b.record()
+            events.append((a, b))
+            return out
+        return timed
+
+    TL.make_train_step = factory
+    try:
+        out = TL.train(cfg, tc, dev, **kw)
+    finally:
+        TL.make_train_step = made
+    torch.cuda.synchronize()
+    recs = []
+    if kw.get("log_path"):
+        with open(kw["log_path"]) as f:
+            recs = [json.loads(x) for x in f]
+    return out, [a.elapsed_time(b) for a, b in events], recs
+
+
+def _param_counts(torch, cfg):
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
+    n = sum(p.numel() for p in leaves(T.param_spec(cfg)))
+    return n, cfg.vocab_size * cfg.d_model
+
+
+def _train_flops(cfg, n_non_embed, batch, seq):
+    """A step's FLOPs: 6 N T of the forward and backward, 2 N T of the
+    remat forward, and attention's s x s scores and values (``_sdpa``
+    computes the whole rectangle): 4 s dh per query head, layer and token
+    a pass, four passes (forward, remat forward, two in the backward)."""
+    tokens = batch * seq
+    attn = 16 * seq * cfg.head_dim * cfg.heads_eff * cfg.num_layers * tokens
+    return 8 * n_non_embed * tokens + attn
+
+
+def _train_full(torch, dev, args, tmp):
+    """(b): internlm2-1.8B at full width, all 24 layers, through ``train``;
+    then ``adamw.update`` alone and one step profiled."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import map_leaves
+    cfg = get_config(TRAIN_ARCH)
+    n, n_embed = _param_counts(torch, cfg)
+    tc = _train_tc(learning_rate=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS,
+                   microbatches=TRAIN_MICRO, remat="save_carries",
+                   checkpoint_every=10 * TRAIN_STEPS,
+                   checkpoint_dir=os.path.join(tmp, "full"), seed=args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    (params, opt, _), ms, recs = _timed_train(
+        torch, cfg, tc, dev, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        log_path=os.path.join(tmp, "full.log"))
+    wall = time.time() - t0
+    losses = [r["loss"] for r in recs if "loss" in r]
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"[train] full width: losses {losses}")
+    drop = losses[0] - statistics.fmean(losses[-3:])
+    log(f"[train] internlm2-1.8B, {cfg.num_layers} layers, {n:,} params: "
+        f"losses {[round(x, 4) for x in losses]}; the last 3 below the "
+        f"first by {drop:.3f} nats (gate {TRAIN_LOSS_DROP})")
+    if not drop >= TRAIN_LOSS_DROP:
+        raise AssertionError(f"[train] full width learnt {drop:.3f} nats in "
+                             f"{TRAIN_STEPS} steps, under {TRAIN_LOSS_DROP}")
+    step_ms = statistics.median(ms[2:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = _train_flops(cfg, n - n_embed, TRAIN_BATCH, TRAIN_SEQ)
+    share = flops / (step_ms / 1e3) / BF16_FLOPS
+    peak = _gib(torch.cuda.max_memory_allocated(dev))
+    host = [r["sec"] for r in recs if "sec" in r]
+    log(f"[train] step (events) {[round(x, 2) for x in ms]} ms; median of "
+        f"steps 3-{TRAIN_STEPS} {step_ms:.2f} ms, "
+        f"{tokens / step_ms * 1e3:,.0f} tokens/s; {flops / 1e12:.2f} TFLOP "
+        f"a step, {share:.4f} of the bf16 peak; host clock a step "
+        f"{[round(x * 1e3, 1) for x in host]} ms; peak allocated "
+        f"{peak:.2f} GiB; train() {wall:.1f} s")
+    out = {"params": n, "losses": losses, "loss_drop": drop, "step_ms": ms,
+           "median_step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+           "flops": flops, "bf16_share": share, "peak_gib": peak,
+           "host_step_s": host, "wall_s": wall}
+    # adamw.update alone, on the trained state, beside its byte bound
+    grads = map_leaves(lambda p: torch.full_like(p, 1e-3), params)
+    lr = torch.tensor(1e-5, device=dev)
+    st = _time_stats(torch, lambda: adamw.update(params, opt, grads, lr, tc),
+                     3)
+    b_ms, b_by = bound_ms(ADAMW_PASSES * 4 * n)
+    prof = _profile(torch, lambda: adamw.update(params, opt, grads, lr, tc),
+                    1, "adamw.update", top=6)
+    log(f"[train] adamw.update over {n:,} f32 elements: {_stats_text(st)}; "
+        f"bound {b_ms:.3f} ms ({b_by}: {ADAMW_PASSES} passes, "
+        f"{ADAMW_PASSES * 4 * n / 1e9:.1f} GB); {prof['kernel_launches']} "
+        f"kernel launches")
+    out["adamw"] = {"ms": st["ms"], "median_ms": st["median_ms"],
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "launches": prof["kernel_launches"],
+                    "top": prof["top"]}
+    del grads
+    # one step profiled: where its time goes
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             lm_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS,
+                      seed=args.seed).items()}
+    step = make_train_step(cfg, tc)
+    prof = _profile(torch, lambda: step(params, opt, batch), 1, "train step",
+                    top=15)
+    out["profile"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                           "idle_share", "kernel_launches",
+                                           "top")}
+    del params, opt, batch
+    return out
+
+
+class _PlainCalls:
+    """Counts calls of the plain versions of the sealing kernels while
+    installed: on the card's path there must be none."""
+    NAMES = (("chacha20", "chacha20_blocks_plain"),
+             ("chacha20", "lines_unseal_plain"),
+             ("aes128", "lines_encrypt_plain"),
+             ("aes128", "lines_decrypt_plain"))
+
+    def __init__(self):
+        import importlib
+        self.calls, self._saved = 0, []
+        for mod, name in self.NAMES:
+            m = importlib.import_module(f"repro_torch.kernels.{mod}")
+            fn = getattr(m, name)
+            self._saved.append((m, name, fn))
+
+            def counted(*a, _fn=fn, **k):
+                self.calls += 1
+                return _fn(*a, **k)
+            setattr(m, name, counted)
+
+    def close(self):
+        for m, name, fn in self._saved:
+            setattr(m, name, fn)
+
+
+def _recording_manager(record):
+    """The checkpoint manager with its save (the blocking snapshot), its
+    background write and its restore timed; a host copy of what step
+    ``record["keep"]`` saved and of each restore's result kept."""
+    from repro_torch.checkpoint.manager import CheckpointManager, _flatten
+
+    class Recording(CheckpointManager):
+        def save(self, step, params, opt_state=None, extra=None,
+                 blocking=False):
+            if step == record["keep"]:
+                record["saved"] = {"params": _flatten(params),
+                                   "opt": _flatten(opt_state)}
+            t0 = time.perf_counter()
+            super().save(step, params, opt_state, extra, blocking)
+            record["save_s"].append(time.perf_counter() - t0)
+
+        def _write(self, step, host, meta):
+            t0 = time.perf_counter()
+            super()._write(step, host, meta)
+            record["write_s"].append(time.perf_counter() - t0)
+
+        def restore(self, step=None, verify=True):
+            t0 = time.perf_counter()
+            out = super().restore(step, verify)
+            record["restore_s"].append(time.perf_counter() - t0)
+            record["restored"] = out[1]
+            return out
+    return Recording
+
+
+def _dir_bytes(d):
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
+
+def _checkpoint_full(torch, dev, args, tmp):
+    """(d): sealed ColoE checkpoints of 2 of internlm2's 24 layers at full
+    width: a straight run of 6 steps saving every 3 (async), the step-6
+    checkpoint checked and dropped, and a fresh ``train`` resuming at 3."""
+    from repro_torch.config import SealConfig
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.train import loop as TL
+    import numpy as np
+    cfg = get_config(TRAIN_ARCH).with_(num_layers=TRAIN_CUT_LAYERS)
+    n, _ = _param_counts(torch, cfg)
+    need = 2 * 3 * 4 * n * 34 // 32 + 2**30   # two checkpoints, m and v
+    free = shutil.disk_usage(tmp).free
+    log(f"[train] checkpoints under {tmp}: {free / 1e9:.1f} GB free, "
+        f"{need / 1e9:.1f} GB needed")
+    if free < need:
+        raise AssertionError(f"[train] {free / 1e9:.1f} GB free under {tmp}, "
+                             f"{need / 1e9:.1f} GB needed")
+    d = os.path.join(tmp, "ckpt")
+    tc = _train_tc(learning_rate=3e-4, warmup_steps=2, total_steps=CKPT_STEPS,
+                   microbatches=TRAIN_MICRO, remat="save_carries",
+                   checkpoint_every=CKPT_EVERY, checkpoint_dir=d,
+                   async_checkpoint=True, seed=args.seed)
+    seal = SealConfig(mode="coloe")
+    record = {"keep": CKPT_EVERY, "save_s": [], "write_s": [],
+              "restore_s": []}
+    made = TL.CheckpointManager
+    TL.CheckpointManager = _recording_manager(record)
+    plain = _PlainCalls()
+    try:
+        ops.reset_launch_counts()
+        (params, opt, _), ms_a, recs_a = _timed_train(
+            torch, cfg, tc, dev, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seal=seal,
+            log_path=os.path.join(tmp, "straight.log"))
+        straight = ops.launch_counts()
+        n_leaves = 3 * len(flatten_paths(params)) + 1
+        del params, opt
+        step_dir = os.path.join(d, f"step_{CKPT_STEPS:08d}")
+        written = _dir_bytes(step_dir)
+        leaf = np.load(os.path.join(step_dir, "params__embed.w.npy"),
+                       mmap_mode="r")
+        if leaf.dtype != np.uint32 or leaf.shape[1] != 34:
+            raise AssertionError(f"[train] stored embedding {leaf.dtype} "
+                                 f"{leaf.shape}: not ColoE ciphertext lines")
+        del leaf
+        # a flipped byte in the first leaf the restore reads
+        with open(os.path.join(step_dir, "manifest.json")) as f:
+            first = next(iter(json.load(f)["leaves"].values()))["file"]
+        with open(os.path.join(step_dir, first), "r+b") as f:
+            f.seek(-7, os.SEEK_END)
+            b = f.read(1)
+            f.seek(-7, os.SEEK_END)
+            f.write(bytes([b[0] ^ 0x20]))
+        try:
+            made(d, seal=seal, device=dev).restore(CKPT_STEPS)
+        except IOError as e:
+            corrupt = str(e)
+        else:
+            raise AssertionError("[train] a flipped byte went unnoticed")
+        shutil.rmtree(step_dir)
+        ops.reset_launch_counts()
+        (params, opt, _), ms_b, recs_b = _timed_train(
+            torch, cfg, tc, dev, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seal=seal,
+            log_path=os.path.join(tmp, "resumed.log"))
+        resumed = ops.launch_counts()
+        del params, opt
+    finally:
+        TL.CheckpointManager = made
+        plain.close()
+    la = {r["step"]: r["loss"] for r in recs_a if "loss" in r}
+    lb = {r["step"]: r["loss"] for r in recs_b if "loss" in r}
+    events = [r["event"] for r in recs_b if "event" in r]
+    if events != ["resumed"] or sorted(lb) != list(range(CKPT_EVERY,
+                                                         CKPT_STEPS)):
+        raise AssertionError(f"[train] the second run: events {events}, "
+                             f"steps {sorted(lb)}")
+    rel = max(abs(lb[s] - la[s]) / abs(la[s]) for s in lb)
+    bitwise = all(lb[s] == la[s] for s in lb)
+    if not rel <= TRAIN_REL:
+        raise AssertionError(f"[train] resumed losses {lb} against the "
+                             f"straight run's {la} ({rel:.2e})")
+    saved, restored = record["saved"], record["restored"]
+    for group in saved:
+        if saved[group].keys() != restored[group].keys():
+            raise AssertionError(f"[train] restored {group} leaves differ")
+        for k, v in saved[group].items():
+            r = restored[group][k]
+            if r.dtype != v.dtype or r.shape != v.shape or \
+                    r.tobytes() != v.tobytes():
+                raise AssertionError(f"[train] restored {group}/{k} is not "
+                                     f"the saved one bit for bit")
+    if not straight["chacha20"] >= 2 * n_leaves or \
+            straight["chacha20_lines_unseal"] != 0:
+        raise AssertionError(f"[train] straight run's launches {straight}")
+    if resumed["chacha20_lines_unseal"] != n_leaves or \
+            not resumed["chacha20"] >= n_leaves:
+        raise AssertionError(f"[train] resumed run's launches {resumed}")
+    if plain.calls:
+        raise AssertionError(f"[train] {plain.calls} calls of a plain "
+                             f"sealing version on the card's path")
+    out = {"params": n, "leaves": n_leaves, "bytes_written": written,
+           "save_s": record["save_s"], "write_s": record["write_s"],
+           "restore_s": record["restore_s"], "losses": la, "resumed": lb,
+           "resumed_rel": rel, "resumed_bitwise": bitwise,
+           "launches": {k: straight[k] + resumed[k] for k in straight},
+           "straight_launches": straight, "resumed_launches": resumed,
+           "step_ms": ms_a, "resumed_step_ms": ms_b, "corrupt": corrupt}
+    log(f"[train] checkpoints, {TRAIN_CUT_LAYERS} of 24 layers, {n:,} "
+        f"params, {n_leaves} sealed leaves: {written / 1e9:.3f} GB a "
+        f"checkpoint; save (blocking snapshot) "
+        f"{[round(x, 3) for x in record['save_s']]} s, background seal and "
+        f"write {[round(x, 3) for x in record['write_s']]} s, restore "
+        f"{[round(x, 3) for x in record['restore_s']]} s; launches: straight "
+        f"{_nonzero(straight)}, resumed {_nonzero(resumed)}; restored state "
+        f"bit for bit the saved one; resumed losses {lb} against {la}: "
+        f"{rel:.2e} relative, bitwise {bitwise}; a flipped byte: {corrupt}")
+    return out
+
+
+def _checkpoint_parity(torch, dev, args, tmp):
+    """(d): the reduced config's params and AdamW state sealed under ColoE,
+    Counter and Direct on the card and on the CPU: the manifests (their
+    SHA-256 digests of every file) equal."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.config import SealConfig
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.tree import map_leaves
+    cfg = get_reduced(TRAIN_ARCH)
+    p_cpu = T.init_params(cfg, args.seed, "cpu")
+    o_cpu = adamw.init(p_cpu)
+    p_dev, o_dev = (map_leaves(lambda t: t.to(dev), t) for t in (p_cpu,
+                                                                 o_cpu))
+    out = {}
+    for mode in ("coloe", "counter", "direct"):
+        manifests = {}
+        for name, where, p, o in (("cpu", "cpu", p_cpu, o_cpu),
+                                  ("card", dev, p_dev, o_dev)):
+            d = os.path.join(tmp, f"reduced_{mode}_{name}")
+            ops.reset_launch_counts()
+            CheckpointManager(d, seal=SealConfig(mode=mode),
+                              device=where).save(1, p, o, blocking=True)
+            counts = ops.launch_counts()
+            with open(os.path.join(d, "step_00000001",
+                                   "manifest.json")) as f:
+                manifests[name] = json.load(f)["leaves"]
+            shutil.rmtree(d)
+        if manifests["card"] != manifests["cpu"]:
+            raise AssertionError(f"[train] reduced checkpoint under {mode}: "
+                                 f"the card's manifest is not the CPU's")
+        kernel = "aes128_lines_encrypt" if mode == "direct" else "chacha20"
+        if not counts[kernel] >= len(manifests["card"]):
+            raise AssertionError(f"[train] {mode} on the card: {counts}")
+        out[mode] = {"leaves": len(manifests["card"]), "launches": counts}
+    log("[train] reduced checkpoints: manifests (every file's SHA-256) on "
+        "the card equal the CPU's under "
+        + ", ".join(f"{m} ({v['leaves']} leaves)" for m, v in out.items()))
+    return out
+
+
+def _train_frontend(torch, dev, args, tmp, arch):
+    """(e): a frontend-stub architecture at its published widths through
+    ``train``, ``lm_batch``'s embeds for its inputs."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    n, _ = _param_counts(torch, cfg)
+    tc = _train_tc(learning_rate=3e-4, warmup_steps=2,
+                   total_steps=FRONTEND_STEPS,
+                   checkpoint_every=10 * FRONTEND_STEPS,
+                   checkpoint_dir=os.path.join(tmp, arch), seed=args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, ms, recs = _timed_train(torch, cfg, tc, dev, batch=FRONTEND_BATCH,
+                               seq=FRONTEND_SEQ,
+                               log_path=os.path.join(tmp, f"{arch}.log"))
+    losses = [r["loss"] for r in recs if "loss" in r]
+    if len(losses) != FRONTEND_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"[train] {arch}: losses {losses}")
+    peak = _gib(torch.cuda.max_memory_allocated(dev))
+    log(f"[train] {cfg.name} ({cfg.num_layers} layers, {n:,} params, "
+        f"heads {cfg.num_heads}->{cfg.heads_eff}/{cfg.num_kv_heads}, "
+        f"{cfg.norm}, {cfg.act}): losses {[round(x, 4) for x in losses]}; "
+        f"step (events) {[round(x, 2) for x in ms]} ms; peak allocated "
+        f"{peak:.2f} GiB")
+    return {"params": n, "losses": losses, "step_ms": ms, "peak_gib": peak}
+
+
+def phase_train(torch, dev, args):
+    """Phase 13: training (module docstring, 13)."""
+    import tempfile
+    t_phase = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.configs import ARCH_IDS, get_config, get_reduced
+    out = {"parity": {}}
+    for arch in ARCH_IDS:
+        out["parity"][arch] = _train_parity(
+            torch, dev, get_reduced(arch).with_(dtype="float32"), args.seed,
+            f"(a) {arch} reduced")
+    cut = get_config(TRAIN_ARCH).with_(num_layers=TRAIN_CUT_LAYERS,
+                                       dtype="float32")
+    out["parity_full_width"] = _train_parity(
+        torch, dev, cut, args.seed,
+        f"(c) internlm2-1.8B full width, {TRAIN_CUT_LAYERS} layers, f32")
+    tmp = tempfile.mkdtemp(prefix="repro_train_")
+    try:
+        out["full"] = _train_full(torch, dev, args, tmp)
+        out["checkpoint"] = _checkpoint_full(torch, dev, args, tmp)
+        out["checkpoint_parity"] = _checkpoint_parity(torch, dev, args, tmp)
+        out["frontend"] = {a: _train_frontend(torch, dev, args, tmp, a)
+                           for a in FRONTEND_ARCHS}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = out["checkpoint"]["launches"]
+    out["wall_s"] = time.time() - t_phase
+    log(f"[train] phase 13: {out['wall_s']:.1f} s")
     return out
 
 

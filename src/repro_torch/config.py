@@ -1,6 +1,6 @@
-"""Model and SEAL configuration. Port of ``repro/config.py``
+"""Model, training and SEAL configuration. Port of ``repro/config.py``
 (``MoEConfig``, ``ModelConfig``, ``ConvSpec``, ``CNNConfig``, ``SealConfig``,
-``PAPER_GPU``).
+``TrainConfig``, ``PAPER_GPU``).
 
 A copy, not an import: the port imports nothing from ``repro``. The TPU
 hardware table is left out. ``PAPER_GPU`` is the paper's modelled GTX480
@@ -128,6 +128,25 @@ class SealConfig:
     fuse_decrypt: bool = True
     verify: bool = False
     protect_boundary_layers: bool = True
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1_000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    microbatches: int = 1            # gradient accumulation factor
+    remat: str = "save_carries"      # none | save_carries | full
+    grad_compress_pod: bool = False  # int8 EF compression on the pod axis
+    seed: int = 0
+    checkpoint_every: int = 200
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    async_checkpoint: bool = True
 
 
 # The paper's modelled GPU (GTX480-class) for the analytic perfmodel

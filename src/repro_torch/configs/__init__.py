@@ -1,6 +1,7 @@
-"""Architecture registry. Port of ``repro/configs/__init__.py``, holding the
-token architectures the reference serves, in the reference's order (its
-frontend configs are not ported yet), and the paper's own CNNs."""
+"""Architecture registry. Port of ``repro/configs/__init__.py``: the
+reference's ten token architectures in its order (the two frontend-stub
+configs, ``internvl2_1b`` and ``musicgen_medium``, are trained and never
+served) and the paper's own CNNs."""
 from __future__ import annotations
 
 import importlib
@@ -12,7 +13,9 @@ ARCH_IDS = [
     "granite_3_2b",
     "deepseek_coder_33b",
     "gemma2_2b",
+    "internvl2_1b",
     "recurrentgemma_9b",
+    "musicgen_medium",
     "mamba2_130m",
 ]
 
@@ -34,3 +37,7 @@ def get_config(arch_id: str):
 
 def get_reduced(arch_id: str):
     return _module(arch_id).reduced()
+
+
+def all_configs() -> dict:
+    return {i: get_config(i) for i in ARCH_IDS}

@@ -70,6 +70,16 @@ aes128_lines_encrypt = _aes.lines_encrypt
 aes128_lines_decrypt = _aes.lines_decrypt
 
 
+def _refuse_autograd(kernel: str, route: str, *tensors) -> None:
+    """A CUDA kernel has no backward: with grad mode on and an input that
+    requires grad, its output would carry no gradient and training would
+    silently not move the weights behind it, so refuse."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward; inputs that require "
+            f"grad take the differentiable route ({route})")
+
+
 def keystream(key_words, nonce_words, n_blocks: int, *,
               counter0: int = 0) -> torch.Tensor:
     """(16, n_blocks) int32 ChaCha20 keystream, word-major as the
@@ -86,11 +96,16 @@ def sealed_matmul(x, w_ct, row_mask, key_words, nonce_words,
                   ) -> torch.Tensor:
     """Fused decrypt + matmul: ``x @ f32(w_ct ^ pad)``, (M, N) f32.
 
-    K and N must be multiples of the seal's (bk, bn). On the CPU, M is
+    K and N must be multiples of the seal's (bk, bn). The CUDA route
+    refuses an ``x`` that requires grad under grad mode
+    (``_refuse_autograd``). On the CPU, M is
     padded as the reference pads it: not at all when M < bm, else up to a
     multiple of bm. The CUDA kernels mask a ragged M themselves, so a CUDA
     tensor goes in unpadded (no copy of the activations, no rows of thrown
     away products)."""
+    if x.is_cuda:
+        _refuse_autograd("sealed_matmul", "plaintext weights through "
+                         "layers.dense", x)
     if not torch.is_tensor(write_counter):
         write_counter = torch.tensor(u32.const(int(write_counter)),
                                      dtype=torch.int32, device=x.device)
@@ -112,8 +127,12 @@ def flash_attention(q, k, v, *, scale: float, softcap: float = 0.0,
     sliding window, GQA by ``h // (hq // hkv)``; output in q's dtype. A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel
     ``_variant`` names (tensor cores for bf16 with head dim 64 or 128), or
-    raises."""
+    raises; with grad mode on, a CUDA input that requires grad raises
+    (``_refuse_autograd``)."""
     if q.is_cuda:
+        _refuse_autograd("flash_attention", 'layers.attention_apply(..., '
+                         'impl="naive"), the _sdpa of block mode "train"',
+                         q, k, v)
         fn = (_fa.flash_attention_tc_cuda
               if _fa._variant(q.dtype, q.shape[-1]) == "flash_attention_tc"
               else _fa.flash_attention_cuda)

@@ -136,6 +136,8 @@ def main(argv=None) -> int:
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch) if args.production else get_reduced(args.arch)
+    if cfg.frontend is not None:        # the engines' refusal, before init
+        raise AssertionError("serving demo targets token archs")
     params = T.init_params(cfg, seed=0, device=dev)
     seal = None if args.seal == "none" else SealConfig(
         mode=args.seal, smart_ratio=args.smart_ratio)

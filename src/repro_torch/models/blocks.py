@@ -1,6 +1,9 @@
 """Residual blocks: attention (global / local), RG-LRU (Griffin) and
-Mamba2's SSD. Port of ``repro/models/blocks.py`` in three modes:
+Mamba2's SSD. Port of ``repro/models/blocks.py`` in four modes:
 
+* ``train``: the differentiable pass over the whole sequence
+  (self-attention through ``layers._sdpa``, the recurrences as at
+  prefill), with no cache and no update;
 * ``prefill``: one-shot pass over the prompt (self-attention through the
   flash kernel, the recurrences over the whole sequence), which returns the
   contiguous layer cache it fills;
@@ -14,8 +17,8 @@ An MoE layer's MLP is ``layers.moe_apply_dense`` at decode and
 ``layers.moe_apply`` (capacity routing) in the other two modes. The
 recurrences are jnp in the reference (``lax.associative_scan``,
 ``lax.scan``) and plain PyTorch here: the RG-LRU scan a log-depth doubling
-scan, SSD's chunked dual form as the reference's einsums in f32. The train
-mode comes with a later slice.
+scan, SSD's chunked dual form as the reference's einsums in f32; both
+are out of place, so autograd differentiates them as they stand.
 """
 from __future__ import annotations
 
@@ -31,12 +34,18 @@ from repro_torch.models import layers as L
 
 def attn_block_sub_apply(cfg: ModelConfig, kind: str, p, h, positions, mode,
                          cache):
-    """prefill: self-attention of the prompt at positions ``arange(s)``;
-    returns (out, new layer cache). decode: attend into [cache view ++ new
+    """train: self-attention at positions ``arange(s)`` through the
+    differentiable ``_sdpa``; returns (out, None). prefill: self-attention
+    of the prompt at positions ``arange(s)``; returns (out, new layer
+    cache). decode: attend into [cache view ++ new
     kv]; chunk: scatter the chunk's new K/V into the dense view at their
     absolute positions (view index == position), then attend. Both return
     (out, {"k_new", "v_new"})."""
     window = cfg.window if kind == "local_attn" else 0
+    if mode == "train":
+        out, _ = L.attention_apply(cfg, p, h, positions, window=window,
+                                   impl="naive")
+        return out, None
     if mode == "prefill":
         return _prefill_sub_apply(cfg, p, h, positions, window, cache)
     k_new, v_new = L.project_kv(cfg, p, h, positions)
@@ -203,14 +212,16 @@ def rglru_block_apply(cfg: ModelConfig, p, x, mode, cache):
                                             p["conv_b"])
         h_seq, h_last = rglru_step(p, xa, cache["h"])
         new_cache = {"h": h_last, "conv": conv_cache}
-    elif mode == "prefill":
+    elif mode in ("prefill", "train"):
         pre_tail = xa[:, -3:]                 # conv width 4: keep 3 rows
         xa = causal_conv1d(xa, p["conv_w"], p["conv_b"])
         h_seq, h_last = rglru_scan(p, xa, None)
-        pad = 3 - pre_tail.shape[1]
-        if pad > 0:
-            pre_tail = F.pad(pre_tail, (0, 0, pad, 0))
-        new_cache = {"h": h_last, "conv": pre_tail.to(dt)}
+        new_cache = None
+        if mode == "prefill":
+            pad = 3 - pre_tail.shape[1]
+            if pad > 0:
+                pre_tail = F.pad(pre_tail, (0, 0, pad, 0))
+            new_cache = {"h": h_last, "conv": pre_tail.to(dt)}
     else:
         raise NotImplementedError(f"RG-LRU mode {mode!r} is not ported yet")
     y = h_seq.to(dt) * F.gelu(xg, approximate="tanh")
@@ -303,13 +314,14 @@ def ssd_block_apply(cfg: ModelConfig, p, x, mode, cache):
     if mode == "decode":
         xbc, new_conv = causal_conv1d_step(xbc, cache["conv"], p["conv_w"],
                                            p["conv_b"])
-    elif mode == "prefill":
+    elif mode in ("prefill", "train"):
         tail = xbc[:, -(cfg.ssm_conv - 1):]
         xbc = causal_conv1d(xbc, p["conv_w"], p["conv_b"])
-        pad = (cfg.ssm_conv - 1) - tail.shape[1]
-        if pad > 0:
-            tail = F.pad(tail, (0, 0, pad, 0))
-        new_conv = tail.to(dt_)
+        if mode == "prefill":
+            pad = (cfg.ssm_conv - 1) - tail.shape[1]
+            if pad > 0:
+                tail = F.pad(tail, (0, 0, pad, 0))
+            new_conv = tail.to(dt_)
     else:
         raise NotImplementedError(f"SSD mode {mode!r} is not ported yet")
     xbc = F.silu(xbc)
@@ -328,6 +340,8 @@ def ssd_block_apply(cfg: ModelConfig, p, x, mode, cache):
     # gated RMSNorm (mamba2): norm(y * silu(z))
     y = L.rmsnorm(y * F.silu(z), p["norm_scale"])
     out = L.dense(y, p["w_out"], "bse,ed->bsd", dt_)
+    if mode == "train":
+        return out, None
     return out, {"state": state, "conv": new_conv}
 
 
@@ -337,9 +351,10 @@ def ssd_block_apply(cfg: ModelConfig, p, x, mode, cache):
 
 def block_apply(cfg: ModelConfig, kind: str, p, x, positions, mode, cache):
     """Returns (x_out, cache update, aux_loss). An MoE layer routes as the
-    reference's does: ``decode`` through the dropless dense path, ``chunk``
-    and ``prefill`` through the capacity dispatch. A recurrent layer's
-    update is its whole new state; an SSD block has no MLP."""
+    reference's does: ``decode`` through the dropless dense path,
+    ``chunk``, ``prefill`` and ``train`` through the capacity dispatch. A
+    recurrent layer's update is its whole new state; an SSD block has no
+    MLP."""
     aux = 0.0
     h = L.apply_norm(cfg, p["norm1"], x)
     if kind in ("attn", "local_attn"):

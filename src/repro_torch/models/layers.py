@@ -1,8 +1,12 @@
 """Layer math: dense contractions (plain or sealed), norms, RoPE, attention
-(self-attention through the flash kernel, cache attention through
-``_sdpa``), the dense MLP and the MoE layers (router, the dropless decode
-path, the capacity dispatch). Port of the serving half of
-``repro/models/layers.py``.
+(a prefill's self-attention through the flash kernel; cache attention and
+training's self-attention through the differentiable ``_sdpa``, with
+``blockwise_attention`` as its forward-only online-softmax oracle), the
+dense MLP and the MoE layers (router, the dropless decode path, the
+capacity dispatch). Port of ``repro/models/layers.py``; its ``init_*``
+functions live in ``models/transformer.py::init_params``, and its ``pin``
+(an optimization barrier with a gradient rule) has no counterpart, see
+``_moe_apply_block``.
 
 Conventions as in the reference: params are f32, compute is ``cfg.dtype``
 with f32 softmax and norm accumulation; activations (batch, seq, d_model)
@@ -21,6 +25,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.sealed_tensor import SealedTensor
@@ -143,12 +148,18 @@ def _attn_mask(q_pos, k_pos, window: int):
     return m
 
 
-def _sdpa(q, k, v, mask, attn_softcap: float, scale: float):
+def _sdpa(q, k, v, mask, attn_softcap: float, scale: float,
+          q_chunk: int = 0):
     """q:(b,s,hq,dh) k,v:(b,t,hkv,dh) mask:(s,t) or (b,s,t) -> (b,s,hq,dh).
 
     GQA repeats k/v to the full head count, as the reference does. Scores
     and softmax in f32, probabilities rounded to q's dtype before the value
-    contraction (f32 accumulation)."""
+    contraction (f32 accumulation). Differentiable: the training route.
+
+    q_chunk: queries in chunks of this size, each under
+    ``torch.utils.checkpoint`` as the reference's are under
+    ``jax.checkpoint``, which bounds the live score buffer to (b, h,
+    q_chunk, t) in the forward and the backward."""
     hq, hkv = q.shape[2], k.shape[2]
     g = hq // hkv
     if g > 1:
@@ -156,28 +167,99 @@ def _sdpa(q, k, v, mask, attn_softcap: float, scale: float):
         v = v.repeat_interleave(g, dim=2)
     if mask.ndim == 2:
         mask = mask[None]
-    scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
-    scores = softcap(scores, attn_softcap)
-    scores = torch.where(mask[:, None], scores,
-                         torch.full((), -1e30, device=scores.device))
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bhst,bthd->bshd", probs.float(), v.float())
-    return out.to(q.dtype)
+    kf, vf = k.float(), v.float()
+
+    def attend(qc, mc):
+        scores = torch.einsum("bshd,bthd->bhst", qc.float(), kf) * scale
+        scores = softcap(scores, attn_softcap)
+        scores = torch.where(mc[:, None], scores,
+                             torch.full((), -1e30, device=scores.device))
+        probs = torch.softmax(scores, dim=-1).to(qc.dtype)
+        out = torch.einsum("bhst,bthd->bshd", probs.float(), vf)
+        return out.to(qc.dtype)
+
+    s = q.shape[1]
+    if q_chunk and s > q_chunk and s % q_chunk == 0:
+        return torch.cat([checkpoint(attend, q[:, a:a + q_chunk],
+                                     mask[:, a:a + q_chunk],
+                                     use_reentrant=False)
+                          for a in range(0, s, q_chunk)], dim=1)
+    return attend(q, mask)
+
+
+def blockwise_attention(q, k, v, q_positions, k_positions, window: int,
+                        attn_softcap: float, scale: float,
+                        q_block: int = 512, kv_block: int = 1024):
+    """FlashAttention-style online-softmax attention (forward only), the
+    reference's: per q block, only the kv blocks that can be live under the
+    causal (+window) mask, the running max, denominator and f32 accumulator
+    carried across them. The block bounds are host integers here (the
+    reference's ``fori_loop`` bounds are traced). The port's prefills run
+    the flash kernel instead; this is the oracle both are held to."""
+    b, s, hq, dh = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    nq = -(-s // q_block)
+    nk = -(-t // kv_block)
+    qpad, tpad = nq * q_block - s, nk * kv_block - t
+    if qpad:
+        q = F.pad(q, (0, 0, 0, 0, 0, qpad))
+        q_positions = F.pad(q_positions, (0, qpad), value=-1)
+    if tpad:
+        k = F.pad(k, (0, 0, 0, 0, 0, tpad))
+        v = F.pad(v, (0, 0, 0, 0, 0, tpad))
+        k_positions = F.pad(k_positions, (0, tpad), value=2**30)
+    q = q.reshape(b, nq, q_block, hkv, g, dh)
+    qpos = q_positions.reshape(nq, q_block)
+    outs = []
+    for qi in range(nq):
+        qb, qp = q[:, qi].float(), qpos[qi]
+        hi = int(qp.max())
+        lo = max(int(qp.min()) - window + 1, 0) if window > 0 else 0
+        acc = torch.zeros((b, hkv, g, q_block, dh), dtype=torch.float32,
+                          device=q.device)
+        m_run = torch.full((b, hkv, g, q_block), float("-inf"),
+                           device=q.device)
+        d_run = torch.zeros((b, hkv, g, q_block), device=q.device)
+        for j in range(lo // kv_block, min(hi // kv_block + 1, nk)):
+            blk = slice(j * kv_block, (j + 1) * kv_block)
+            vb = v[:, blk]
+            sc = torch.einsum("bqkgd,btkd->bkgqt", qb,
+                              k[:, blk].float()) * scale
+            sc = softcap(sc, attn_softcap)
+            msk = _attn_mask(qp, k_positions[blk], window)
+            sc = torch.where(msk[None, None, None], sc,
+                             torch.full((), -1e30, device=sc.device))
+            m_new = torch.maximum(m_run, sc.amax(dim=-1))
+            alpha = torch.exp(m_run - m_new)
+            p = torch.exp(sc - m_new[..., None])
+            d_run = d_run * alpha + p.sum(dim=-1)
+            pv = torch.einsum("bkgqt,btkd->bkgqd", p.to(vb.dtype).float(),
+                              vb.float())
+            acc = acc * alpha[..., None] + pv
+            m_run = m_new
+        out = acc / torch.clamp(d_run, min=1e-30)[..., None]
+        outs.append(out.to(q.dtype))                  # (b, hkv, g, Qb, dh)
+    out = torch.stack(outs, dim=1).permute(0, 1, 4, 2, 3, 5)
+    return out.reshape(b, nq * q_block, hq, dh)[:, :s]
 
 
 def attention_apply(cfg: ModelConfig, p, x, positions, *, window: int,
-                    kv_override=None):
+                    impl: str = "flash", kv_override=None):
     """Attention of x's queries; returns (out, (k, v)).
 
-    Without ``kv_override`` (the one-shot prefill): self-attention over x's
-    own k and v at 1-D ``positions`` that must be ``arange(s)``, through the
-    flash kernel (``kernels/ops.py::flash_attention``: the Pallas kernel's
-    function). The reference's ``impl="naive"`` (``_sdpa``) and
-    ``impl="blockwise"`` (above 8192 tokens) compute that same function and
-    both route here. With ``kv_override = (k, v, k_positions)`` (the paged
-    view with the new keys already in it, or the contiguous cache at decode):
-    masked attention into that view through ``_sdpa``, since its query
-    positions are per row, not the kernel's ``arange``."""
+    Without ``kv_override``: self-attention over x's own k and v at 1-D
+    ``positions`` that must be ``arange(s)``. ``impl="flash"`` (a prefill)
+    runs the flash kernel (``kernels/ops.py::flash_attention``: the Pallas
+    kernel's function; the reference's ``impl="naive"`` and its
+    ``"blockwise"`` above 8192 tokens compute that same function, and both
+    route here). ``impl="naive"`` (training) runs the differentiable
+    ``_sdpa``, in query chunks of 512 from 4,096 tokens on, the reference's
+    rule with the heads unsharded on one card. The kernel has no backward
+    and refuses autograd. With ``kv_override = (k, v, k_positions)`` (the
+    paged view with the new keys already in it, or the contiguous cache at
+    decode): masked attention into that view through ``_sdpa``, since its
+    query positions are per row, not the kernel's ``arange``."""
     dt = cdtype(cfg)
     xb = x.to(dt)
     q = dense(xb, p["wq"], "bsd,dhk->bshk", dt)
@@ -187,8 +269,15 @@ def attention_apply(cfg: ModelConfig, p, x, positions, *, window: int,
         if positions.ndim != 1:
             raise ValueError("self-attention takes 1-D positions arange(s)")
         k, v = project_kv(cfg, p, x, positions)
-        out = ops.flash_attention(q, k, v, scale=scale,
-                                  softcap=cfg.attn_softcap, window=window)
+        if impl == "flash":
+            out = ops.flash_attention(q, k, v, scale=scale,
+                                      softcap=cfg.attn_softcap, window=window)
+        elif impl == "naive":
+            mask = _attn_mask(positions, positions, window)
+            qc = 512 if x.shape[1] >= 4096 else 0
+            out = _sdpa(q, k, v, mask, cfg.attn_softcap, scale, q_chunk=qc)
+        else:
+            raise ValueError(f"unknown attention impl {impl!r}")
     else:
         k, v, k_positions = kv_override
         mask = _attn_mask(positions, k_positions, window)
@@ -341,6 +430,10 @@ def _moe_apply_block(cfg: ModelConfig, p, x, *, capacity_factor=None):
     cap = int(t * k / e * cf + 0.999)
     cap = max(min(cap, t), 1)
 
+    # the reference pins its bf16 casts here and below (``pin``: an
+    # optimization barrier with a gradient rule) so that XLA keeps the
+    # scatters and their collectives in the compute dtype; eager PyTorch
+    # runs each op in the dtype it is given, so nothing needs pinning
     xb = x.reshape(t, d).to(dt)
     gate_vals, gate_idx, aux = moe_router(cfg, p, xb)
     keep, slot = capacity_slots(gate_idx, e, cap)

@@ -1,20 +1,23 @@
-"""Top-level LM: init, the one-shot prefill and the contiguous-cache decode
-step, for attention, MoE, RG-LRU and SSD patterns. Port of
-``init_params``, ``_embed``, ``_unembed``, ``_run_layers`` (modes
-``prefill`` and ``decode``), ``prefill_hidden``, ``prefill``,
-``apply_cache_updates`` and ``decode_step`` from
-``repro/models/transformer.py``.
+"""Top-level LM: init, the training forward, the one-shot prefill and the
+contiguous-cache decode step, for attention, MoE, RG-LRU and SSD patterns.
+Port of ``init_params``, ``param_spec``, ``_embed``, ``_unembed``,
+``_run_layers`` (modes ``train``, ``prefill`` and ``decode``), ``forward``,
+``prefill_hidden``, ``prefill``, ``apply_cache_updates`` and
+``decode_step`` from ``repro/models/transformer.py``.
 
 ``init_params`` builds the reference's tree (same paths, shapes and scales)
 from a ``torch.Generator``; its numbers differ from ``jax.random``'s, so the
 tests feed both packages converted JAX weights instead
 (``repro_torch.convert``). The reference's ``lax.scan`` over super-blocks is
-a Python loop over layers (here and in ``models/paged.py``), and the
-reference's ``batch`` dict is the token tensor itself.
+a Python loop over layers (here and in ``models/paged.py``). The serving
+paths take the token tensor itself where the reference takes a ``batch``
+dict; ``forward`` takes the reference's dict (``tokens`` or, for a
+frontend-stub config, ``embeds``, and ``targets``).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.sealed_tensor import SealedTensor, slice_layer
@@ -22,13 +25,23 @@ from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import cache as MC
 from repro_torch.models import layers as L
-from repro_torch.tree import map_leaves
+from repro_torch.tree import leaves, map_leaves, unflatten
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     """Random f32 params, shaped like the reference's ``init_params``."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    return _init(cfg, dev, torch.Generator(device=dev).manual_seed(seed))
+
+
+def param_spec(cfg: ModelConfig):
+    """Shape/dtype tree of the params without allocating: the same tree as
+    ``init_params`` of tensors on the ``meta`` device (the reference's
+    ``jax.eval_shape``)."""
+    return _init(cfg, torch.device("meta"), None)
+
+
+def _init(cfg: ModelConfig, dev: torch.device, gen):
     n = cfg.n_superblocks()
     d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
     hq, hkv, dh = cfg.heads_eff, cfg.num_kv_heads, cfg.head_dim
@@ -94,14 +107,27 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
                 "norm_scale": torch.zeros((n, di), device=dev),
                 "w_out": normal((n, di, d), di ** -0.5)}
 
+    def attention():
+        wq = normal((n, d, hq, dh), d ** -0.5)
+        wk = normal((n, d, hkv, dh), d ** -0.5)
+        wv = normal((n, d, hkv, dh), d ** -0.5)
+        wo = normal((n, hq, dh, d), (cfg.num_heads * dh) ** -0.5)
+        if hq > cfg.num_heads:
+            # heads padded WITHIN each GQA group (zero heads at each
+            # group's tail), as the reference pads them: the q-head ->
+            # kv-head assignment is unchanged and the padded heads start
+            # as exact no-ops
+            live = (torch.arange(hq // hkv, device=dev)
+                    < cfg.num_heads // hkv).repeat(hkv)
+            wq = torch.where(live[:, None], wq, 0.0)
+            wo = torch.where(live[:, None, None], wo, 0.0)
+        return {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
+
     blocks = []
     for kind in cfg.pattern:
         blk = {"norm1": norm()}
         if kind in ("attn", "local_attn"):
-            blk["attn"] = {"wq": normal((n, d, hq, dh), d ** -0.5),
-                           "wk": normal((n, d, hkv, dh), d ** -0.5),
-                           "wv": normal((n, d, hkv, dh), d ** -0.5),
-                           "wo": normal((n, hq, dh, d), (hq * dh) ** -0.5)}
+            blk["attn"] = attention()
         elif kind == "rglru":
             blk["rec"] = rec()
         elif kind == "ssd":
@@ -116,11 +142,22 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     return params
 
 
-def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(cfg: ModelConfig, params, batch) -> torch.Tensor:
+    """The input activations in the compute dtype. ``batch``: the token
+    tensor (B, S) of the serving paths (the embedding's rows gathered, then
+    cast; a sealed embedding's through the gather kernel), or the training
+    batch dict: a frontend-stub config's ``embeds``, else the rows of the
+    embedding cast whole to the compute dtype, as the reference takes them,
+    so that the backward sums repeated tokens' rows in that dtype too."""
+    dt = L.cdtype(cfg)
+    if isinstance(batch, dict):
+        if cfg.frontend is not None:
+            return batch["embeds"].to(dt)
+        return params["embed"]["w"].to(dt)[batch["tokens"]]
     w = params["embed"]["w"]
     if isinstance(w, SealedTensor):   # the serving view keeps it line-sealed
-        return w.gather_rows(tokens, L.cdtype(cfg))
-    return w[tokens].to(L.cdtype(cfg))
+        return w.gather_rows(batch, dt)
+    return w[batch].to(dt)
 
 
 def _unembed(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
@@ -141,13 +178,30 @@ def layer_params(params, j: int, i: int):
     return map_leaves(lambda t: slice_layer(t, i), params["blocks"][j])
 
 
-def _run_layers(cfg: ModelConfig, params, x, positions, mode, cache):
-    """The super-block stack. prefill: ``cache`` is the empty contiguous
-    cache that gives each layer its slot count; returns (x, filled cache).
-    decode: returns (x, per pattern position the update stacked over
-    super-blocks, as the reference's scan emits it: an attention layer's
-    {"k_new", "v_new"} (n_super, B, 1, kv_heads, head_dim), a recurrent
-    layer's whole new state) for ``apply_cache_updates``."""
+def _unstacked(tree, n: int) -> list:
+    """The n per-layer trees of a stacked tree, by one ``unbind`` a leaf:
+    its backward stacks the n layers' gradients once, where n slices would
+    each scatter into a zero tensor of the whole stack."""
+    cols = [t.unbind(0) for t in leaves(tree)]
+    return [unflatten(tree, [c[i] for c in cols]) for i in range(n)]
+
+
+def _run_layers(cfg: ModelConfig, params, x, positions, mode, cache,
+                remat: str = "none"):
+    """The super-block stack. train: returns (x, aux), the MoE layers'
+    auxiliary loss summed in layer order (f32); ``remat`` "full" and
+    "save_carries" both run each super-block under
+    ``torch.utils.checkpoint``, which keeps only its input (the reference's
+    ``save_only_these_names()`` with no names saves only the scan's carry)
+    and recomputes the rest in the backward. prefill: ``cache`` is the
+    empty contiguous cache that gives each layer its slot count; returns
+    (x, filled cache). decode: returns (x, per pattern position the update
+    stacked over super-blocks, as the reference's scan emits it: an
+    attention layer's {"k_new", "v_new"} (n_super, B, 1, kv_heads,
+    head_dim), a recurrent layer's whole new state) for
+    ``apply_cache_updates``."""
+    if mode == "train":
+        return _run_train_layers(cfg, params, x, positions, remat)
     outs = [[] for _ in cfg.pattern]
     for i in range(cfg.n_superblocks()):
         for j, kind in enumerate(cfg.pattern):
@@ -157,6 +211,48 @@ def _run_layers(cfg: ModelConfig, params, x, positions, mode, cache):
             outs[j].append(out)
     return x, tuple({key: torch.stack([o[key] for o in oj]) for key in oj[0]}
                     for oj in outs)
+
+
+def _run_train_layers(cfg: ModelConfig, params, x, positions, remat: str):
+    if remat not in ("none", "save_carries", "full"):
+        raise ValueError(f"unknown remat {remat!r}")
+    n = cfg.n_superblocks()
+    layers = [_unstacked(blk, n) for blk in params["blocks"]]
+
+    def body(i, h, aux):
+        for j, kind in enumerate(cfg.pattern):
+            h, _, a = B.block_apply(cfg, kind, layers[j][i], h, positions,
+                                    "train", None)
+            aux = aux + a
+        return h, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        if remat == "none":
+            x, aux = body(i, x, aux)
+        else:
+            x, aux = checkpoint(body, i, x, aux, use_reentrant=False)
+    return x, aux
+
+
+def forward(cfg: ModelConfig, params, batch, *, remat: str = "none"):
+    """Training/eval forward. batch: {tokens | embeds, targets}. Returns
+    (loss, metrics) with the CE loss in f32: ``logsumexp`` of the f32
+    logits less the gold logit, averaged, plus the MoE auxiliary loss;
+    ``accuracy`` by argmax (the first of tied maxima, as ``jnp.argmax``)."""
+    x = _embed(cfg, params, batch)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    x, aux = _run_layers(cfg, params, x, positions, "train", None, remat)
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    logits = _unembed(cfg, params, x)
+    targets = batch["targets"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    ce = (logz - gold).mean()
+    loss = ce + aux
+    return loss, {"ce": ce, "aux": aux,
+                  "accuracy": (logits.argmax(dim=-1) == targets).float()
+                  .mean()}
 
 
 def prefill_hidden(cfg: ModelConfig, params, tokens: torch.Tensor,

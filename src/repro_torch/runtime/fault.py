@@ -166,11 +166,21 @@ class PreemptionGuard:
     def __init__(self, install: bool = True):
         self.requested = False
         self._prev = None
+        self._installed = False
         if install:
             try:
                 self._prev = signal.signal(signal.SIGTERM, self._handler)
+                self._installed = True
             except ValueError:          # not in main thread (tests)
                 pass
+
+    def close(self):
+        """Put back the SIGTERM handler this guard replaced (the reference's
+        guard stays installed for the life of the process, so a SIGTERM
+        after its loop ended would only set a flag nobody reads)."""
+        if self._installed:
+            signal.signal(signal.SIGTERM, self._prev)
+            self._installed = False
 
     def _handler(self, signum, frame):
         self.requested = True

@@ -142,8 +142,8 @@ class ServeEngine:
                  verify: bool = False, watchdog=None,
                  max_run_steps: Optional[int] = None, fault_hooks=(),
                  device=None):
-        if cfg.frontend is not None:
-            raise ValueError("serving targets token architectures")
+        if cfg.frontend is not None:      # the reference's assert
+            raise AssertionError("serving demo targets token archs")
         bad = [k for k in cfg.pattern if k not in ("attn", "local_attn")]
         if bad:
             raise ValueError(f"continuous batching needs attention-only "
@@ -637,8 +637,8 @@ class GroupServeEngine:
                  max_len: int = 256, seal: Optional[SealConfig] = None,
                  key_bytes: bytes = bytes(range(32)), verify: bool = False,
                  device=None):
-        if cfg.frontend is not None:
-            raise ValueError("serving targets token architectures")
+        if cfg.frontend is not None:      # the reference's assert
+            raise AssertionError("serving demo targets token archs")
         weights_sealed = seal is not None and seal.mode != "none"
         if verify and not weights_sealed:
             raise ValueError("verify=True needs sealed weights: the group "

@@ -27,7 +27,10 @@ against the CPU: ``init_cnn`` within 1e-6 relative (``prng.normal``'s
 tolerance), logits, loss and the gradients with respect to every parameter
 and the input at 1e-4 of each tensor's scale, ``cnn_channel_masks`` equal,
 a full-width VGG-16 conv (cuDNN with TF32 off) at 1e-5 of its scale, and a
-tiny ``evaluate(device=None)`` report within 0.05 of the CPU's.
+tiny ``evaluate(device=None)`` report within 0.05 of the CPU's; the flash
+kernel and the fused matmul refusing inputs that require grad, and a
+reduced internlm2's training gradients on the card (every attention weight
+reached) against the CPU's at 1e-4 of each tensor's scale.
 """
 import numpy as np
 import pytest
@@ -988,3 +991,47 @@ def test_evaluate_on_the_card(cuda):
         elif k != "model":
             assert abs(got[k] - v) <= 0.05, k
             assert 0.0 <= got[k] <= 1.0
+
+
+def test_kernels_refuse_autograd_and_training_reaches_attention(cuda):
+    """The flash kernel and the fused matmul's CUDA route have no backward:
+    under grad mode an input that requires grad raises, naming the
+    differentiable route (without grad mode the kernel still launches).
+    Training on the card takes that route: every attention weight of a
+    reduced internlm2 gets a nonzero gradient, and the gradients equal the
+    CPU's within 1e-4 of each tensor's scale."""
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.train.step import make_grad_fn
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((1, 64, 4, 64), generator=gen, device=cuda,
+                    dtype=torch.bfloat16).requires_grad_(True)
+    k, v = (torch.randn((1, 64, 2, 64), generator=gen, device=cuda,
+                        dtype=torch.bfloat16) for _ in range(2))
+    with pytest.raises(RuntimeError, match="differentiable route"):
+        ops.flash_attention(q, k, v, scale=0.125)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        ops.flash_attention(q, k, v, scale=0.125)
+    assert ops.launch_counts()["flash_attention_tc"] == 1
+    x = torch.randn((4, 128), generator=gen, device=cuda, requires_grad=True)
+    w_ct = _words(gen, (128, 128), cuda)
+    row_mask = torch.ones((128,), dtype=torch.bool, device=cuda)
+    key, nonce = _words(gen, (8,), cuda), _words(gen, (3,), cuda)
+    with pytest.raises(RuntimeError, match="differentiable route"):
+        ops.sealed_matmul(x, w_ct, row_mask, key, nonce, bk=128, bn=128)
+    cfg = get_reduced("internlm2_1_8b").with_(dtype="float32")
+    p_cpu = T.init_params(cfg, seed=0, device="cpu")
+    batch = {k_: torch.from_numpy(a) for k_, a in
+             lm_batch(cfg, 4, 16, 0).items()}
+    ops.reset_launch_counts()
+    _, g_dev = make_grad_fn(cfg, "full")(
+        map_leaves(lambda t: t.to(cuda), p_cpu),
+        {k_: a.to(cuda) for k_, a in batch.items()})
+    assert not any(ops.launch_counts().values())
+    _, g_cpu = make_grad_fn(cfg, "full")(p_cpu, batch)
+    for name in ("wq", "wk", "wv", "wo"):
+        got = g_dev["blocks"][0]["attn"][name].cpu()
+        want = g_cpu["blocks"][0]["attn"][name]
+        assert bool(got.abs().amax(dim=tuple(range(1, got.ndim))).gt(0).all())
+        assert float((got - want).abs().max()) <= \
+            1e-4 * float(want.abs().max())
