@@ -214,7 +214,40 @@ runs:
    manifests; (e) internvl2-1b and musicgen-medium at their published
    widths, 3 steps each on ``lm_batch``'s embeds, gated on finite losses,
    with step times and peak memory. Training attention is ``_sdpa``, as in
-   the reference; the flash kernel has no backward and refuses autograd.
+   the reference; the flash kernel has no backward and refuses autograd;
+14. the paper's sealed-decode comparison and the step builders
+   (``phase_sealed_decode``): (a) ``launch.sealed_dryrun`` at the reduced
+   granite-3-2b under its five weight-sealing variants (``baseline``,
+   ``counter``, ``coloe``, ``coloe_se``, ``coloe_fused``) in f32 at
+   decode_32k's 32,768 cache slots, batch 2: the card's first-step logits
+   against the CPU's at 1e-4 relative, the unfused variants' bitwise equal
+   to the baseline's, each step's launches gated; (b) granite-3-2b at its
+   published 40 layers (2,533,529,600 parameters by ``param_count``, tied
+   vocabulary 49,155) in bf16 at decode_32k's 32,768 slots filled from
+   ``--seed``, batch 8 in place of 128 (the one cut: 128 rows would make a
+   343.6 GB cache), each variant sealed once, stepped twice to warm up and
+   timed over 10 (CUDA events, the median), one step profiled: gated on
+   the unfused variants' logits bitwise equal to the baseline's, the fused
+   variant's within 1e-4 of scale in f32 (the same model at batch 2; in
+   bf16 its distance is reported beside that of two right plaintext
+   steps, bf16 GEMMs against f32 sums of the same rounded operands, which
+   40 random layers part by about 4.5e-2 on an NVIDIA H100 80GB HBM3 at
+   700 W), the launches of a step equal to those
+   the sealed tree gives (11 ``lines_unseal`` unfused; 280
+   ``sealed_matmul_dec`` and 4 ``lines_unseal`` fused; none for the
+   baseline; no keystream kernel in any step) and the plaintext bytes a
+   step writes equal to the record's count; the kernel the bf16 fused
+   step runs, ``sealed_matmul_dec``, held to ``layers.plain_matmul``
+   within 2e-2 of scale on slice 0 of each of the 7 tile leaves, sealed
+   as the variant seals it, at M = 8 in bf16; each variant's stored,
+   materialized and KV bytes, peak and argument memory, its counted byte
+   and FLOP bound, its ``roofline_row`` and its median step less the
+   baseline's beside the spread of its 10 timed steps printed; (c)
+   ``serve.step.make_paged_prefill`` and 16 ``make_paged_decode_step``s
+   of internlm2-1.8B at full width on phase 4's prompts, sealed weights
+   and sealed pools, teacher-forced on the contiguous plaintext path's
+   greedy tokens: every prompt's logits within 2e-2 of that path's scale,
+   17 splices and 384 views, no keystream kernel; the phase's wall time.
 
 Every phase raises on failure, so the script exits non-zero. The line before
 the last is a JSON ``{"kernels": [...]}`` record; the last line is
@@ -238,7 +271,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet), at the full 700 W
-# power limit. The data sheet gives no integer rate. Its 67 TFLOP/s of f32
+# power limit: the memory rate and the bf16 and f32 FLOP rates are the
+# port's ``repro_torch.config.HW`` (``_hw``). The data sheet gives no
+# integer rate. Its 67 TFLOP/s of f32
 # outside the tensor cores is 132 SMs x 128 lanes x 2 FLOP
 # (an FMA) x 1.98 GHz: one 32-lane warp instruction per clock in each of an
 # SM's four schedulers. No 32-bit operation issues faster than that:
@@ -249,16 +284,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # build time shows the adds as IMAD.IADD, on the FMA pipe). A pad is held to
 # both ceilings: all its operations at the issue rate, its XORs and
 # rotations at the ALU rate.
-HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 128 * 1.98e9
 ALU_OPS_PER_S = 132 * 64 * 1.98e9
 # shared memory serves 32 banks x 4 bytes a clock in each SM: at most
 # 132 x 32 x 1.98e9 = 8.36e12 table lookups (32-bit words) a second, the
 # ceiling of AES's T-table rounds
 LDS_WORDS_PER_S = 132 * 32 * 1.98e9
-BF16_FLOPS = 989e12
-# f32 outside the tensor cores (the CNNs' convolutions with TF32 off)
-F32_FLOPS = 67e12
 CHACHA_OPS = 976          # 20 rounds x 4 quarter-rounds x 12 ops + 16 adds
 CHACHA_ALU_OPS = 640      # ... of which 320 XORs and 320 rotations
 CHACHA_XOR_OPS = 16       # XOR of one block into 16 ciphertext words
@@ -327,17 +358,25 @@ def log(*a):
     print(*a, flush=True)
 
 
+def _hw():
+    """The card's data-sheet constants, ``repro_torch.config.HW`` (the port
+    is on the path once ``main`` has found it)."""
+    from repro_torch.config import HW
+    return HW
+
+
 def bound_ms(nbytes, int_ops=0.0, bf16_flops=0.0, alu_ops=0.0, lookups=0.0,
              f32_flops=0.0):
     """Least time for the work: the larger of bytes over the memory rate and
     each kind of operation over its peak rate (``alu_ops``: the integer
     operations that only the ALU pipe issues; ``lookups``: 32-bit
-    shared-memory table reads; ``f32_flops``: f32 on the CUDA cores).
-    Returns (ms, bound_by)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
+    shared-memory table reads; ``f32_flops``: f32 on the CUDA cores, as the
+    CNNs' convolutions run with TF32 off). Returns (ms, bound_by)."""
+    hw = _hw()
+    t_bytes = nbytes / hw["hbm_bw"]
     t_ops = max(int_ops / INT32_OPS_PER_S, alu_ops / ALU_OPS_PER_S,
-                bf16_flops / BF16_FLOPS, lookups / LDS_WORDS_PER_S,
-                f32_flops / F32_FLOPS)
+                bf16_flops / hw["peak_flops_bf16"], lookups / LDS_WORDS_PER_S,
+                f32_flops / hw["peak_flops_f32"])
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -441,6 +480,8 @@ def main(argv=None) -> int:
     report["cnn"] = phase_cnn(torch, dev, args)
     # phase 13: training, its optimizer and its sealed checkpoints
     report["train"] = phase_train(torch, dev, args)
+    # phase 14: the paper's sealed-decode comparison and the step builders
+    report["sealed_decode"] = phase_sealed_decode(torch, dev, args)
 
     kernels = kernel_records(report)
     if args.report:
@@ -534,6 +575,8 @@ def kernel_records(report):
     family = report["families"]["launches"]
     # phase 13's: the sealed-checkpoint runs of (d), saves and restores
     train = report["train"]["launches"]
+    # phase 14's: a step of each full-width variant and the paged builders
+    sealed = report["sealed_decode"]["launches"]
     kernels = []
     for name, replaces, launches, err in rows:
         tk = t[name]
@@ -543,7 +586,9 @@ def kernel_records(report):
             "replaces": replaces, "launches": launches,
             "moe_launches": moe[name],
             "family_launches": family.get(name, 0),
-            "train_launches": train.get(name, 0), "max_abs_err": err,
+            "train_launches": train.get(name, 0),
+            "sealed_decode_launches": sealed.get(name, 0),
+            "max_abs_err": err,
             "ms": tk["ms"], "plain_ms": tk["plain_ms"],
             "bound_ms": tk["bound_ms"], "bound_by": tk["bound_by"],
             "library_ms": tk.get("library_ms"),
@@ -5461,7 +5506,7 @@ def _train_full(torch, dev, args, tmp):
     step_ms = statistics.median(ms[2:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
     flops = _train_flops(cfg, n - n_embed, TRAIN_BATCH, TRAIN_SEQ)
-    share = flops / (step_ms / 1e3) / BF16_FLOPS
+    share = flops / (step_ms / 1e3) / _hw()["peak_flops_bf16"]
     peak = _gib(torch.cuda.max_memory_allocated(dev))
     host = [r["sec"] for r in recs if "sec" in r]
     log(f"[train] step (events) {[round(x, 2) for x in ms]} ms; median of "
@@ -5784,6 +5829,463 @@ def phase_train(torch, dev, args):
     out["launches"] = out["checkpoint"]["launches"]
     out["wall_s"] = time.time() - t_phase
     log(f"[train] phase 13: {out['wall_s']:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 14: the paper's sealed-decode comparison, and the paged step builders
+# --------------------------------------------------------------------------
+
+SEALED_ARCH = "granite_3_2b"
+SEALED_SHAPE = "decode_32k"
+# decode_32k's global batch of 128 would make a 32,768-slot KV cache of
+# 343.6 GB (about 4.3 cards); 8 rows make 21.5 GB. The one cut of (b).
+SEALED_BATCH = 8
+SEALED_REDUCED_BATCH = 2
+SEALED_WARMUP, SEALED_ITERS = 2, 10
+# granite-3-2b's tree: 7 tile leaves of 40 slices and 4 line leaves (the
+# tied embedding and three norms); 2,533,529,600 parameters by
+# ``param_count``
+GRANITE_PARAMS = 2_533_529_600
+GRANITE_TILE_LEAVES, GRANITE_LINE_LEAVES, GRANITE_LEAVES = 7, 4, 11
+GRANITE_SLICES = GRANITE_TILE_LEAVES * 40
+BF16_GATE = 2e-2          # phase 4's sealed-vs-plaintext gate in bf16
+F32_GATE = 1e-4
+# (b)'s f32 check of the fused variant at full width: batch 2 keeps the f32
+# cache at 10.7 GB
+SEALED_F32_BATCH = 2
+PAGED_ARCH = "internlm2_1_8b"
+PAGED_STEPS = 16
+PAGED_BLOCK = 16
+
+
+def _state_on(state, dev):
+    """A copy of a ``sealed_dryrun.DecodeState`` on ``dev`` (the same
+    params, cache and batch; no logits yet)."""
+    import dataclasses
+    from repro_torch.tree import map_leaves
+    return dataclasses.replace(
+        state, params=map_leaves(lambda t: t.to(dev), state.params),
+        cache=tuple({k: t.to(dev) for k, t in c.items()}
+                    for c in state.cache),
+        batch={k: t.to(dev) for k, t in state.batch.items()}, logits={})
+
+
+def _want_launches(rec, matmul):
+    """The kernels one step launches, from the variant's sealed tree: one
+    ``lines_unseal`` a line leaf holding ciphertext lines and one fused
+    matmul (``matmul``: the variant ``_variant`` takes at the step's shapes)
+    a tile-leaf slice; nothing else, the keystream kernel included."""
+    want = {}
+    if rec["unsealed_line_leaves"]:
+        want["chacha20_lines_unseal"] = rec["unsealed_line_leaves"]
+    if rec["fused_matmul_slices"]:
+        want[matmul] = rec["fused_matmul_slices"]
+    return want
+
+
+def _sealed_reduced(torch, dev, args):
+    """14 (a): the reduced granite under the five variants in f32, the card
+    against the CPU from the same params, cache and tokens."""
+    from repro_torch.launch import sealed_dryrun as SD
+    cpu = SD.decode_state(SEALED_ARCH, SEALED_SHAPE, reduced=True,
+                          batch=SEALED_REDUCED_BATCH, dtype="float32",
+                          device="cpu", seed=args.seed)
+    card = _state_on(cpu, dev)
+    out = {}
+    for v in SD.VARIANTS:
+        kw = dict(reduced=True, warmup=1, iters=1)
+        SD.sealed_decode_variant(SEALED_ARCH, SEALED_SHAPE, v, state=cpu,
+                                 **kw)
+        rec = SD.sealed_decode_variant(SEALED_ARCH, SEALED_SHAPE, v,
+                                       state=card, **kw)
+        err = _rel_err(torch, card.logits[v], cpu.logits[v])
+        err_base = _rel_err(torch, card.logits[v], card.logits["baseline"])
+        want = _want_launches(rec, "sealed_matmul")
+        out[v] = {"card_vs_cpu_rel_err": err, "vs_baseline_rel_err": err_base,
+                  "launches_per_step": rec["launches_per_step"]}
+        log(f"[sealed] (a) {v}: card vs CPU max rel err {err:.3e} (tol "
+            f"{F32_GATE}), vs the card's baseline {err_base:.3e}, launches "
+            f"a step {rec['launches_per_step']} (expected {want})")
+        if not err <= F32_GATE or not err_base <= F32_GATE:
+            raise AssertionError(f"(a) {v}: the card's f32 logits disagree")
+        if v != "coloe_fused" and not torch.equal(card.logits[v],
+                                                  card.logits["baseline"]):
+            raise AssertionError(f"(a) {v}: logits differ from baseline's")
+        if rec["launches_per_step"] != want:
+            raise AssertionError(f"(a) {v}: launches {rec['launches_per_step']}"
+                                 f", expected {want}")
+    return out
+
+
+def _slim_profile(prof):
+    return {k: prof[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
+                                 "kernel_launches", "top")}
+
+
+def _sealed_full(torch, dev, args):
+    """14 (b): granite-3-2b at its published width under the five
+    variants, bf16, decode_32k's 32,768 cache slots at batch 8."""
+    from repro_torch.launch import roofline
+    from repro_torch.launch import sealed_dryrun as SD
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    state = SD.decode_state(SEALED_ARCH, SEALED_SHAPE, batch=SEALED_BATCH,
+                            device=dev, seed=args.seed)
+    torch.cuda.synchronize()
+    cfg = state.cfg
+    n_params = sum(t.numel() for t in _leaves(state.params))
+    n_leaves = len(_leaves(state.params))
+    kv_gb = sum(t.numel() * t.element_size()
+                for c in state.cache for t in c.values()) / 1e9
+    log(f"[sealed] (b) {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params:,} params ({n_leaves} leaves), "
+        f"{cfg.dtype}; cache {state.shape.seq_len} slots x batch "
+        f"{state.shape.global_batch}: {kv_gb:.2f} GB; cut: {state.reduced}; "
+        f"made in {time.time() - t0:.1f} s")
+    # ``param_count`` (the roofline's) leaves out the final norm's d_model
+    if cfg.param_count() != GRANITE_PARAMS or \
+            n_params != GRANITE_PARAMS + cfg.d_model or \
+            n_leaves != GRANITE_LEAVES:
+        raise AssertionError(f"(b) {n_params} params in {n_leaves} leaves")
+    out = {"variants": {}, "cut": state.reduced, "kv_gb": kv_gb}
+    for v in SD.VARIANTS:
+        rec = SD.sealed_decode_variant(
+            SEALED_ARCH, SEALED_SHAPE, v, state=state, warmup=SEALED_WARMUP,
+            iters=SEALED_ITERS,
+            probe=lambda fn, v=v: _slim_profile(
+                _profile(torch, fn, 1, f"(b) {v}: one step")))
+        logits = state.logits[v]
+        want = _want_launches(rec, "sealed_matmul_dec")
+        for_granite = ({} if v == "baseline" else
+                 {"chacha20_lines_unseal": GRANITE_LEAVES}
+                 if v != "coloe_fused" else
+                 {"chacha20_lines_unseal": GRANITE_LINE_LEAVES,
+                  "sealed_matmul_dec": GRANITE_SLICES})
+        bound, by = bound_ms(rec["bytes_per_device"],
+                             bf16_flops=rec["flops_per_device"])
+        row = roofline.roofline_row(rec)
+        err = _rel_err(torch, logits, state.logits["baseline"])
+        agree = float((logits.argmax(-1) == state.logits["baseline"]
+                       .argmax(-1)).float().mean())
+        rec.update(bound_ms=bound, bound_by=by, roofline=row,
+                   vs_baseline_rel_err=err, greedy_agreement=agree)
+        out["variants"][v] = rec
+        prof = rec["probe"]
+        log(f"[sealed] (b) {v}: step median {rec['step_ms']:.3f} ms (mean "
+            f"{statistics.fmean(rec['step_ms_each']):.3f}, "
+            f"{[round(x, 3) for x in rec['step_ms_each']]}); one step "
+            f"profiled: busy {prof['device_busy_ms']:.3f} ms, idle share "
+            f"{prof['idle_share']:.3f}; bound {bound:.3f} ms ({by}: "
+            f"{rec['bytes_per_device'] / 1e9:.3f} GB, "
+            f"{rec['flops_per_device'] / 1e12:.4f} TFLOP)")
+        log(f"[sealed] (b) {v}: stored {rec['stored_param_bytes_global']:,} "
+            f"B, materialized {rec['plaintext_bytes_materialized_per_step']:,}"
+            f" B a step (written {rec['plaintext_bytes_written']:,}), KV "
+            f"{rec['kv_cache_plaintext_bytes_per_step']:,} B; peak "
+            f"{rec['peak_gib']:.2f} GiB, args {rec['arg_gib']:.2f} GiB; "
+            f"sealed in {rec['seal_s']:.2f} s {rec['seal_launches']}; "
+            f"launches a step {rec['launches_per_step']} (expected {want})")
+        log(f"[sealed] (b) {v}: roofline {json.dumps(row)}")
+        log(f"[sealed] (b) {v}: logits vs baseline max rel err {err:.3e}, "
+            f"greedy tokens equal {agree:.3f}")
+        if not bool(torch.isfinite(logits).all()) or \
+                tuple(logits.shape) != (SEALED_BATCH, cfg.vocab_size):
+            raise AssertionError(f"(b) {v}: logits {tuple(logits.shape)} "
+                                 f"not finite of (batch, vocab)")
+        if rec["launches_per_step"] != want or want != for_granite:
+            raise AssertionError(f"(b) {v}: launches a step "
+                                 f"{rec['launches_per_step']}, from the tree "
+                                 f"{want}, for granite {for_granite}")
+        if rec["plaintext_bytes_written"] != \
+                rec["plaintext_bytes_materialized_per_step"]:
+            raise AssertionError(f"(b) {v}: wrote "
+                                 f"{rec['plaintext_bytes_written']} B of "
+                                 f"plaintext, counted "
+                                 f"{rec['plaintext_bytes_materialized_per_step']}")
+        if v != "coloe_fused" and \
+                not torch.equal(logits, state.logits["baseline"]):
+            raise AssertionError(f"(b) {v}: logits differ from baseline's")
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["timing_vs_baseline"] = _vs_baseline(out["variants"])
+    out["fused_kernel"] = _fused_kernel_check(torch, state, args)
+    out["bf16_noise"] = _bf16_noise(torch, state)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["f32"] = _sealed_full_f32(torch, dev, args)
+    return out
+
+
+def _vs_baseline(variants):
+    """Each variant's median step ms less the baseline's, beside the spread
+    (max - min) of its own timed steps: the difference the paper's
+    comparison reads, and whether it stands above the steps' noise."""
+    base = variants["baseline"]["step_ms"]
+    out = {}
+    for v, rec in variants.items():
+        each = rec["step_ms_each"]
+        out[v] = {"diff_ms": rec["step_ms"] - base,
+                  "spread_ms": max(each) - min(each)}
+        log(f"[sealed] (b) {v}: median step - baseline's "
+            f"{out[v]['diff_ms']:+.3f} ms; spread of its {len(each)} timed "
+            f"steps {out[v]['spread_ms']:.3f} ms")
+    return out
+
+
+def _fused_kernel_check(torch, state, args):
+    """(b)'s gate of the fused kernel the bf16 step runs: slice 0 of each of
+    granite's tile leaves, sealed as ``coloe_fused`` seals it (the same
+    structural mask and write counter), times M = 8 bf16 rows, through
+    ``SealedTensor.matmul``, which must launch ``sealed_matmul_dec`` once
+    a leaf; held to ``layers.plain_matmul`` on the same rows and plaintext
+    slice at phase 4's bf16 gate. One product, so no depth amplifies its
+    roundings: a wrong pad, mask or tile lands far outside the gate."""
+    from repro_torch.config import SealConfig
+    from repro_torch.core import engine as E
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sealed_dryrun as SD
+    from repro_torch.models import layers as L
+    from repro_torch.tree import flatten_with_path
+    dev, dt = state.cache[0]["pos"].device, torch.bfloat16
+    seal = SealConfig(mode="coloe", smart_ratio=0.5)
+    eng = E.make_engine("coloe", SD.KEY, dev)
+    ratios = SD.synthetic_masks(state.params, seal)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 14)
+    errs, counts = {}, {}
+    for pt, leaf in flatten_with_path(state.params):
+        path = "/".join(pt)
+        lf = SD._seal_leaf(eng, "coloe_fused", seal, pt, leaf[:1],
+                           ratios[path])
+        if not lf.tiled:
+            continue
+        st = lf.st.slice(0)
+        x = torch.randn((SEALED_BATCH, st.k_size), generator=gen,
+                        device=dev).to(dt)
+        c0 = ops.launch_counts()
+        got = st.matmul(x, compute_dtype="bfloat16")
+        counts[path] = {k: n - c0[k] for k, n in ops.launch_counts().items()
+                        if n != c0[k]}
+        want = L.plain_matmul(x, leaf[0].reshape(st.k_size, st.n_size), dt)
+        errs[path] = _rel_err(torch, got, want)
+        del lf, st
+    log(f"[sealed] (b) sealed_matmul_dec on slice 0 of each tile leaf, M = "
+        f"{SEALED_BATCH}, bf16, vs plain_matmul: max rel err "
+        f"{ {p: f'{e:.3e}' for p, e in errs.items()} } (tol {BF16_GATE}); "
+        f"launches {counts}")
+    if len(errs) != GRANITE_TILE_LEAVES:
+        raise AssertionError(f"(b) {len(errs)} tile leaves checked")
+    if any(c != {"sealed_matmul_dec": 1} for c in counts.values()):
+        raise AssertionError(f"(b) the check ran {counts}, not one "
+                             f"sealed_matmul_dec a leaf")
+    if not max(errs.values()) <= BF16_GATE:
+        raise AssertionError(f"(b) sealed_matmul_dec {errs} of scale from "
+                             f"plain_matmul")
+    return {"rel_err": errs, "launches": counts}
+
+
+class _F32Sums:
+    """Within the block, ``layers.plain_matmul`` on the card multiplies the
+    operands rounded to the compute dtype with f32 sums on cuBLAS's f32
+    path (TF32 off) and rounds the result to it: the fused kernel's
+    arithmetic contract in another order of sums than the bf16 GEMM's."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import layers as L
+        self._layers, self._orig = L, L.plain_matmul
+        L.plain_matmul = lambda x2d, w2d, dt: torch.mm(
+            x2d.to(dt).float(), w2d.to(dt).float()).to(dt)
+
+    def __exit__(self, *exc):
+        self._layers.plain_matmul = self._orig
+
+
+def _bf16_noise(torch, state):
+    """How far two right bf16 computations of (b)'s plaintext step part at
+    40 layers: the baseline's bf16 GEMMs against ``_F32Sums``' on the same
+    params, cache and tokens; beside it the fused variant's distance from
+    both. Reported: any change of the order of a matmul's sums moves a
+    rounding of its bf16 result, and 40 random layers amplify it."""
+    from repro_torch.serve.step import make_decode_step
+    with _F32Sums():
+        witness = make_decode_step(state.cfg)(
+            state.params, state.cache, state.batch, state.pos)[0]
+    state.reset()
+    witness = witness.float().cpu()
+    base, fused = state.logits["baseline"], state.logits["coloe_fused"]
+    out = {"baseline_vs_f32_sums": _rel_err(torch, base, witness),
+           "fused_vs_f32_sums": _rel_err(torch, fused, witness),
+           "fused_vs_baseline": _rel_err(torch, fused, base)}
+    log(f"[sealed] (b) bf16 logits at 40 layers: fused vs baseline "
+        f"{out['fused_vs_baseline']:.3e} of scale; two right plaintext "
+        f"steps apart (bf16 GEMMs vs f32 sums of the same rounded operands) "
+        f"{out['baseline_vs_f32_sums']:.3e}; fused vs f32 sums "
+        f"{out['fused_vs_f32_sums']:.3e} (reported; the gate is in f32)")
+    return out
+
+
+def _sealed_full_f32(torch, dev, args):
+    """(b) in f32 at batch 2: the fused variant's logits within 1e-4 of
+    scale of the baseline's at the published width and depth, where no
+    bf16 rounding separates the two (phase 4's f32 gate)."""
+    from repro_torch.launch import sealed_dryrun as SD
+    state = SD.decode_state(SEALED_ARCH, SEALED_SHAPE,
+                            batch=SEALED_F32_BATCH, dtype="float32",
+                            device=dev, seed=args.seed)
+    launches = {}
+    for v in ("baseline", "coloe_fused"):
+        rec = SD.sealed_decode_variant(SEALED_ARCH, SEALED_SHAPE, v,
+                                       state=state, warmup=1, iters=1)
+        launches[v] = rec["launches_per_step"]
+    err = _rel_err(torch, state.logits["coloe_fused"],
+                   state.logits["baseline"])
+    want = {"chacha20_lines_unseal": GRANITE_LINE_LEAVES,
+            "sealed_matmul": GRANITE_SLICES}
+    log(f"[sealed] (b) f32 at batch {SEALED_F32_BATCH}: fused vs baseline "
+        f"max rel err {err:.3e} (tol {F32_GATE}); launches a fused step "
+        f"{launches['coloe_fused']} (expected {want})")
+    if not err <= F32_GATE:
+        raise AssertionError(f"(b) f32 fused logits {err:.3e} of scale from "
+                             f"baseline's")
+    if launches["coloe_fused"] != want or launches["baseline"]:
+        raise AssertionError(f"(b) f32 launches {launches}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"fused_vs_baseline": err, "launches": launches}
+
+
+def _paged_builders(torch, dev, args):
+    """14 (c): ``make_paged_prefill`` and 16 ``make_paged_decode_step``s of
+    internlm2-1.8B at full width on phase 4's prompts, sealed weights
+    (``serving_params``) and sealed pools, teacher-forced on the contiguous
+    plaintext path's greedy tokens, held to that path's logits."""
+    import numpy as np
+    from repro_torch.config import SealConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core import sealed_store as SS
+    from repro_torch.kernels import ops
+    from repro_torch.models import cache as MC
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import step as ST
+    key = bytes(range(32))
+    cfg = get_config(PAGED_ARCH)
+    params = T.init_params(cfg, seed=args.seed, device=dev)
+    prompts = _prompts(args.seed + 7, REQUESTS, cfg.vocab_size)
+    a, bs = len(prompts), PAGED_BLOCK
+    sb = -(-max(len(p) for p in prompts) // bs) * bs        # the bucket
+    mb = -(-(sb + PAGED_STEPS) // bs)
+    # the contiguous plaintext path, one prompt at a time, as wide as a
+    # slot's paged view
+    t0 = time.time()
+    want, forced = [], np.zeros((a, PAGED_STEPS), np.int64)
+    for i, p in enumerate(prompts):
+        toks = torch.as_tensor(p, dtype=torch.int64, device=dev)[None]
+        logits, cache = T.prefill(cfg, params, toks, mb * bs)
+        seq = [logits[0]]
+        for t in range(PAGED_STEPS):
+            forced[i, t] = int(seq[-1].argmax())
+            logits, cache, _ = T.decode_step(
+                cfg, params, cache, torch.tensor([[forced[i, t]]],
+                                                 device=dev), len(p) + t)
+            seq.append(logits[0])
+        want.append(torch.stack(seq))
+        del cache
+    want = torch.stack(want, dim=1)                         # (1 + S, A, V)
+    contiguous_s = time.time() - t0
+    sp = SS.seal_params(params, SealConfig(), key)
+
+    def materialize(tensors):
+        return SS.serving_params(
+            SS.SealedParams(tensors, sp.plans, sp.skeleton, sp.seal,
+                            sp._engines), key, cfg.tie_embeddings)
+
+    cache_seal = SS.cache_seal_config(key, dev)
+    nb = 1 + a * mb
+    pools = MC.paged_pool_init(cfg, nb, bs, dev)
+    tables = (1 + torch.arange(a, device=dev)[:, None] * mb
+              + torch.arange(mb, device=dev)[None, :])
+    bt = tables[:, :sb // bs]
+    tokens = torch.zeros((a, sb), dtype=torch.int64)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = torch.as_tensor(p, dtype=torch.int64)
+    tokens = tokens.to(dev)
+    lengths = torch.tensor([len(p) for p in prompts], device=dev)
+    wc = torch.zeros((nb,), dtype=torch.int32, device=dev)
+    kd = torch.zeros((a, 2), dtype=torch.int32, device=dev)
+    temp = torch.zeros((a,), device=dev)
+    topk = torch.zeros((a,), dtype=torch.int64, device=dev)
+    topp = torch.ones((a,), device=dev)
+    ones = torch.ones((a * mb,), dtype=torch.int32, device=dev)
+    forced_d = torch.as_tensor(forced, device=dev)
+    prefill = ST.make_paged_prefill(cfg, materialize, cache_seal)
+    step = ST.make_paged_decode_step(cfg, materialize, cache_seal)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()            # the builders' path starts here
+    t0 = time.time()
+    wc.index_add_(0, bt.reshape(-1), ones[:bt.numel()])     # bumped first
+    _, logits, pools = prefill(sp.tensors, pools, tokens, lengths, bt, wc,
+                               kd, temp, topk, topp)
+    got = [logits]
+    for t in range(PAGED_STEPS):
+        _, logits, pools = step(sp.tensors, pools, tables, lengths, wc,
+                                forced_d[:, t:t + 1], kd,
+                                torch.full((a,), t + 1, device=dev), temp,
+                                topk, topp)
+        tail = tables[torch.arange(a, device=dev), lengths // bs]
+        wc.index_add_(0, tail, ones[:a])  # the host's mirror of the bump
+        lengths = lengths + 1
+        got.append(logits)
+    torch.cuda.synchronize()
+    paged_s = time.time() - t0
+    launches = ops.launch_counts()       # ... and ends here
+    got = torch.stack(got)
+    errs = [_rel_err(torch, got[:, i], want[:, i]) for i in range(a)]
+    views = cfg.num_layers * PAGED_STEPS
+    out = {"launches": launches, "rel_err": errs, "bucket": sb,
+           "contiguous_s": contiguous_s, "paged_s": paged_s}
+    log(f"[sealed] (c) {cfg.name} paged builders: prefill of {a} x {sb} "
+        f"(prompts {[len(p) for p in prompts]}) + {PAGED_STEPS} decode "
+        f"steps in {paged_s:.2f} s (contiguous path {contiguous_s:.2f} s); "
+        f"logits vs the contiguous plaintext path, max rel err per prompt "
+        f"{[f'{e:.3e}' for e in errs]} (tol {BF16_GATE}); launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    if not max(errs) <= BF16_GATE:
+        raise AssertionError("(c) paged builders disagree with the "
+                             "contiguous path")
+    if (launches["chacha20_cache_splice"] != 1 + PAGED_STEPS
+            or launches["chacha20_cache_view"] != views
+            or launches["chacha20"]):
+        raise AssertionError(f"(c) launches {launches}: expected "
+                             f"{1 + PAGED_STEPS} splices, {views} views, no "
+                             f"keystream kernel")
+    del params, sp, pools
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sealed_decode(torch, dev, args):
+    """Phase 14 (module docstring, 14)."""
+    t_phase = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"reduced": _sealed_reduced(torch, dev, args)}
+    out["full"] = _sealed_full(torch, dev, args)
+    out["paged"] = _paged_builders(torch, dev, args)
+    # the phase's launches: one step of each full-width variant, and the
+    # paged builders' prefill and steps
+    runs = [r["launches_per_step"] for r in out["full"]["variants"].values()]
+    runs.append(out["paged"]["launches"])
+    out["launches"] = {}
+    for r in runs:
+        for name, n in r.items():
+            out["launches"][name] = out["launches"].get(name, 0) + n
+    out["wall_s"] = time.time() - t_phase
+    log(f"[sealed] phase 14: {out['wall_s']:.1f} s")
     return out
 
 

@@ -1,9 +1,12 @@
-"""Model, training and SEAL configuration. Port of ``repro/config.py``
-(``MoEConfig``, ``ModelConfig``, ``ConvSpec``, ``CNNConfig``, ``SealConfig``,
-``TrainConfig``, ``PAPER_GPU``).
+"""Model, shape, mesh, training and SEAL configuration. Port of
+``repro/config.py`` (``MoEConfig``, ``ModelConfig``, ``ConvSpec``,
+``CNNConfig``, ``ShapeConfig``, ``SHAPES``, ``cell_supported``,
+``SealConfig``, ``MeshConfig``, ``TrainConfig``, ``RunConfig``, ``HW``,
+``PAPER_GPU``).
 
-A copy, not an import: the port imports nothing from ``repro``. The TPU
-hardware table is left out. ``PAPER_GPU`` is the paper's modelled GTX480
+A copy, not an import: the port imports nothing from ``repro``. ``HW``
+holds the constants of the card the port runs on (an NVIDIA H100), in place
+of the reference's TPU table. ``PAPER_GPU`` is the paper's modelled GTX480
 (the analytic ``core.perfmodel``'s inputs), not a measurement of any card
 the port runs on.
 """
@@ -74,6 +77,11 @@ class ModelConfig:
             return 0
         return self.ssm_d_inner // self.ssm_head_dim
 
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """The concrete kind of each of the num_layers layers."""
+        p = self.pattern
+        return tuple(p[i % len(p)] for i in range(self.num_layers))
+
     def n_superblocks(self) -> int:
         if self.num_layers % len(self.pattern):
             raise ValueError(
@@ -83,6 +91,36 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def param_count(self, active_only: bool = False) -> int:
+        """Rough parameter count, the reference's formula (the roofline's
+        MODEL_FLOPS and memory budgets); ``active_only``: an MoE layer's
+        top-k experts in place of all of them."""
+        d = self.d_model
+        total = self.vocab_size * d                  # embedding
+        if not self.tie_embeddings:
+            total += self.vocab_size * d             # lm head
+        for k in self.layer_kinds():
+            if k in ("attn", "local_attn"):
+                total += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+            elif k == "rglru":
+                w = self.rglru_block_width or self.d_model
+                # in/out proj + gates + recurrence params
+                total += 2 * d * w + 3 * w * w // 1 + 2 * w
+            elif k == "ssd":
+                di = self.ssm_d_inner
+                # in_proj (x,z,B,C,dt) + out_proj + conv + A,D
+                nbc = 2 * self.ssm_state
+                total += d * (2 * di + nbc + self.ssm_heads) + di * d
+                total += self.ssm_conv * (di + nbc) + 2 * self.ssm_heads
+            if k != "ssd" and self.d_ff:
+                if self.moe is not None:
+                    e = self.moe.top_k if active_only else self.moe.num_experts
+                    total += e * (3 * d * self.d_ff) + d * self.moe.num_experts
+                else:
+                    total += 3 * d * self.d_ff
+            total += 2 * d                           # norms
+        return total
 
 
 # --------------------------------------------------------------------------
@@ -110,6 +148,34 @@ class CNNConfig:
         return dataclasses.replace(self, **kw)
 
 
+# --------------------------------------------------------------------------
+# Shapes (the assigned input-shape set, the same four for every LM arch)
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str          # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k":  ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k":   ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+
+def cell_supported(model: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether (arch x shape) is a runnable cell; the reason when not."""
+    if shape.name == "long_500k" and not model.supports_long_context:
+        return False, ("full-attention KV cache is unbounded at 500k; run only "
+                       "for SSM/hybrid archs (DESIGN.md §4)")
+    return True, ""
+
+
 @dataclass(frozen=True)
 class SealConfig:
     """The paper's technique.
@@ -131,6 +197,24 @@ class SealConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    data: int = 16
+    model: int = 16
+    pod: int = 1
+
+    @property
+    def n_devices(self) -> int:
+        return self.data * self.model * self.pod
+
+    def axis_names(self) -> Tuple[str, ...]:
+        return ("pod", "data", "model") if self.pod > 1 else ("data", "model")
+
+    def shape(self) -> Tuple[int, ...]:
+        return ((self.pod, self.data, self.model) if self.pod > 1
+                else (self.data, self.model))
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     learning_rate: float = 3e-4
     warmup_steps: int = 100
@@ -148,6 +232,29 @@ class TrainConfig:
     checkpoint_dir: str = "/tmp/repro_ckpt"
     async_checkpoint: bool = True
 
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    mesh: MeshConfig = MeshConfig()
+    seal: SealConfig = SealConfig()
+    train: TrainConfig = TrainConfig()
+
+
+# The card's constants for the roofline and every bound: NVIDIA H100 80GB
+# HBM3 (SXM), 700 W, data sheet (dense rates; a card set below 700 W runs
+# slower under load). f32 is outside the tensor cores; NVLink is the card's
+# total over its 18 links, both directions together, as the data sheet
+# gives it; shared memory is one SM's (up to 227 KB of it for one block).
+HW = {
+    "peak_flops_bf16": 989e12,   # FLOP/s
+    "peak_flops_f32": 67e12,     # FLOP/s
+    "hbm_bw": 3.35e12,           # B/s
+    "hbm_bytes": 80 * 10**9,
+    "nvlink_bw": 900e9,          # B/s
+    "smem_bytes": 228 * 2**10,   # per SM
+}
 
 # The paper's modelled GPU (GTX480-class) for the analytic perfmodel
 PAPER_GPU = {

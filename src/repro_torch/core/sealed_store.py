@@ -19,7 +19,7 @@ leaf on the card (``kernels.chacha20.tile_tags`` / ``line_tags``).
 tile leaves passed through sealed); ``serving_params``, what the port's
 engines serve from, also leaves the token embedding line-sealed, so that a
 dispatch decrypts only the rows it embeds; ``unseal_params`` decrypts
-everything. Nonces are
+everything; ``sealed_byte_report`` sums the image's bytes. Nonces are
 sha256 hashes of the leaf paths, so the port's paths must equal the
 reference's (``repro_torch.tree``).
 """
@@ -379,6 +379,22 @@ def n_macs(sp: SealedParams) -> int:
     """Number of stored weight tags (for stats and overhead reports)."""
     return sum(t.macs.numel() for t in sp.tensors.values()
                if t.macs is not None)
+
+
+def sealed_byte_report(sp: SealedParams) -> Dict[str, float]:
+    """The image's bytes: plaintext, the encrypted share, stored (with
+    counters, flags and masks), the overhead over plaintext, the
+    tile-sealed leaves and the plaintext ``fused_params`` materializes a
+    step."""
+    tot = P.plan_totals(sp.plans)
+    return {
+        "plaintext_bytes": tot["total_bytes"],
+        "enc_fraction": tot["enc_fraction"],
+        "stored_bytes": sp.stored_bytes(),
+        "overhead": sp.stored_bytes() / max(tot["total_bytes"], 1) - 1.0,
+        "fused_leaves": len(sp.fused_paths()),
+        "plaintext_bytes_per_step": sp.plaintext_bytes_materialized(),
+    }
 
 
 def fused_params(sp: SealedParams, key_bytes: bytes):

@@ -1,10 +1,17 @@
 """Decode-time state: the contiguous per-request caches of the one-shot
-prefill and its decode (``attn_cache_spec``, the RG-LRU and SSD states
-``rglru_cache_spec`` and ``ssd_cache_spec``, ``block_cache_spec``,
-``block_cache_init``, ``model_cache_init``), the paged block pools and the
-host-side block accounting (``kv_words_per_token``,
-``kv_to_words``/``words_to_kv``, ``paged_pool_init``, ``BlockAllocator``,
+prefill and its decode (``attn_cache_spec``/``attn_cache_init``, the RG-LRU
+and SSD states ``rglru_cache_spec``/``rglru_cache_init`` and
+``ssd_cache_spec``/``ssd_cache_init``, ``block_cache_spec``,
+``block_cache_init``, ``_stack_spec``, ``model_cache_spec``,
+``model_cache_init``), the paged block pools and the host-side block
+accounting (``kv_words_per_token``, ``kv_to_words``/``words_to_kv``,
+``paged_pool_spec``, ``paged_pool_init``, ``BlockAllocator``,
 ``PrefixRegistry``). Port of ``repro/models/cache.py``.
+
+The per-layer ``*_spec`` functions give {name: (shape, dtype)};
+``model_cache_spec`` and ``paged_pool_spec`` give trees of tensors on the
+``meta`` device (the reference's ``ShapeDtypeStruct`` trees: shapes and
+dtypes, nothing allocated).
 
 A contiguous cache is one (batch, cache_len, kv_heads, head_dim) buffer per
 attention layer, with ``pos`` (cache_len,) the position each slot holds
@@ -57,6 +64,30 @@ def ssd_cache_spec(cfg: ModelConfig, batch: int):
                      getattr(torch, cfg.dtype))}
 
 
+def _alloc(spec, device, fill=None):
+    """Zeros of each (shape, dtype) in ``spec``; ``fill``: {name: value}
+    for leaves that start elsewhere."""
+    fill = fill or {}
+    return {k: torch.full(shape, fill.get(k, 0), dtype=dt, device=device)
+            for k, (shape, dt) in spec.items()}
+
+
+def attn_cache_init(cfg: ModelConfig, batch: int, cache_len: int, kind: str,
+                    device=None):
+    """An empty attention cache: zeros, every ``pos`` slot
+    ``INVALID_POS``."""
+    return _alloc(attn_cache_spec(cfg, batch, cache_len, kind), device,
+                  {"pos": INVALID_POS})
+
+
+def rglru_cache_init(cfg: ModelConfig, batch: int, device=None):
+    return _alloc(rglru_cache_spec(cfg, batch), device)
+
+
+def ssd_cache_init(cfg: ModelConfig, batch: int, device=None):
+    return _alloc(ssd_cache_spec(cfg, batch), device)
+
+
 def block_cache_spec(cfg: ModelConfig, kind: str, batch: int,
                      cache_len: int):
     if kind in ("attn", "local_attn"):
@@ -72,10 +103,35 @@ def block_cache_init(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
                      device=None):
     """``block_cache_spec`` allocated: zeros, and every ``pos`` slot
     ``INVALID_POS``."""
-    return {k: torch.full(shape, INVALID_POS if k == "pos" else 0, dtype=dt,
-                          device=device)
-            for k, (shape, dt) in
-            block_cache_spec(cfg, kind, batch, cache_len).items()}
+    if kind in ("attn", "local_attn"):
+        return attn_cache_init(cfg, batch, cache_len, kind, device)
+    if kind == "rglru":
+        return rglru_cache_init(cfg, batch, device)
+    if kind == "ssd":
+        return ssd_cache_init(cfg, batch, device)
+    raise ValueError(kind)
+
+
+def _stack_spec(specs):
+    """n trees of ``meta`` tensors of one structure -> the tree of their
+    stacks, (n, ...) each."""
+    return {k: torch.empty((len(specs),) + tuple(t.shape), dtype=t.dtype,
+                           device="meta")
+            for k, t in specs[0].items()}
+
+
+def model_cache_spec(cfg: ModelConfig, batch: int, cache_len: int):
+    """The cache tree ``model_cache_init`` makes, as ``meta`` tensors: a
+    tuple over pattern positions of the layer cache stacked over
+    super-blocks."""
+    n = cfg.n_superblocks()
+    out = []
+    for kind in cfg.pattern:
+        one = {k: torch.empty(shape, dtype=dt, device="meta")
+               for k, (shape, dt) in
+               block_cache_spec(cfg, kind, batch, cache_len).items()}
+        out.append(_stack_spec([one] * n))
+    return tuple(out)
 
 
 def model_cache_init(cfg: ModelConfig, batch: int, cache_len: int,
@@ -114,6 +170,14 @@ def kv_to_words(x: torch.Tensor) -> torch.Tensor:
 def words_to_kv(words: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Inverse of ``kv_to_words``: (..., W) int32 -> (..., E) dtype."""
     return words.contiguous().view(dtype)
+
+
+def paged_pool_spec(cfg: ModelConfig, num_blocks: int, block_size: int):
+    """The pools ``paged_pool_init`` makes, as ``meta`` tensors: per pattern
+    position {"k", "v": (n_super, num_blocks, words_per_block), "mac_k",
+    "mac_v": (n_super, num_blocks), "lid": (n_super,)}, int32 words where
+    the reference's are uint32."""
+    return paged_pool_init(cfg, num_blocks, block_size, "meta")
 
 
 def paged_pool_init(cfg: ModelConfig, num_blocks: int, block_size: int,

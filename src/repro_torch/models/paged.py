@@ -1,7 +1,10 @@
 """Paged KV-cache passes: batched decode and chunked prefill over block
 pools, and the copy-on-write of shared blocks. Port of ``_dense_view``,
-``decode_logits``, ``chunk_logits``, ``append_tokens`` and ``copy_blocks``
-from ``repro/models/paged.py``, with their MAC branches.
+``decode_logits``, ``chunk_logits``, ``append_tokens``, ``copy_blocks``,
+``apply_paged_updates``, ``prefill_logits`` and ``prefill_write`` from
+``repro/models/paged.py``, with their MAC branches. The last three are the
+write paths of the step builders (``serve/step.py::make_paged_prefill`` and
+``make_paged_decode_step``), whose host mirrors the counter bumps.
 
 With a ``CacheSeal`` the pools hold ciphertext: a block is XORed with a
 ChaCha20 keystream derived from (pool block address, per-block write
@@ -32,6 +35,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import u32
 from repro_torch.config import ModelConfig
 from repro_torch.core.sealed_store import CacheSeal
 from repro_torch.kernels import chacha20 as _cc
@@ -209,8 +213,9 @@ def append_tokens(cfg: ModelConfig, seal: Optional[CacheSeal], pools,
     blocks keep their words and counters (see
     ``kernels.chacha20.cache_splice_plain`` for the scratch-block writes of
     the plain composition, which the reference drops). With a MAC context
-    the touched blocks are then re-tagged under their bumped counters: the
-    reference's tags under ``wc + 1``."""
+    the touched blocks are then re-tagged under ``wc + 1``, as the
+    reference's are (a block two rows touch, the scratch block, is bumped
+    twice but tagged once)."""
     wpt = MC.kv_words_per_token(cfg)
     b = tables.shape[0]
     splice = ops.cache_splice if seal is not None else _cc.cache_splice_plain
@@ -228,12 +233,13 @@ def append_tokens(cfg: ModelConfig, seal: Optional[CacheSeal], pools,
     pb, touched = _cc.splice_blocks(tables, lengths, counts, bs,
                                     1 + (c + bs - 2) // bs)
     pb, touched = pb.reshape(-1), touched.reshape(-1)
-    wc.index_add_(0, pb, touched.to(torch.int32))
     if seal is not None and seal.mac is not None:
+        wc1 = u32.from_i64(u32.to_i64(wc) + 1)
         for pj in pools:
             _store_tags(pj, pb, touched,
                         _tags(seal, pj["k"], pj["v"], pj["lid"], pb, touched,
-                              wc))
+                              wc1))
+    wc.index_add_(0, pb, touched.to(torch.int32))
 
 
 def copy_blocks(cfg: ModelConfig, seal: Optional[CacheSeal], pools, wc, src,
@@ -267,3 +273,63 @@ def copy_blocks(cfg: ModelConfig, seal: Optional[CacheSeal], pools, wc, src,
                         _tags(seal, pj["k"], pj["v"], pj["lid"], dst, mask,
                               wc))
     return ok
+
+
+def apply_paged_updates(cfg: ModelConfig, seal: Optional[CacheSeal], pools,
+                        updates, tables, lengths, wc):
+    """Append each row's one new K/V token into its tail block, IN PLACE on
+    ``pools``; returns them. ``append_tokens`` of one token a row on a copy
+    of ``wc``: the tail block is re-sealed (and re-tagged) under ``wc + 1``
+    while ``wc`` itself is not bumped, since the caller mirrors the bump
+    after the step, as the reference's host does. Every row writes, as the
+    reference's do: an inactive slot (length 0, zeroed table row) writes
+    into the scratch block."""
+    ones = torch.ones((tables.shape[0],), dtype=torch.int64,
+                      device=tables.device)
+    append_tokens(cfg, seal, pools, updates, tables, lengths, ones,
+                  wc.clone())
+    return pools
+
+
+def prefill_logits(cfg: ModelConfig, params, tokens, true_len):
+    """Ragged prefill of a right-padded (A, S_bucket) admission batch.
+
+    Returns (logits (A, V) at each row's last real token, the contiguous
+    cache of ``transformer.prefill_hidden`` for ``prefill_write``). Padding
+    sits at the tail, so causality keeps every real token's hidden state
+    independent of it; its cache entries are masked downstream by the slot
+    lengths."""
+    x, cache = T.prefill_hidden(cfg, params, tokens, tokens.shape[1])
+    idx = true_len.to(torch.int64) - 1
+    last = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
+    return T._unembed(cfg, params, last)[:, 0], cache
+
+
+def prefill_write(cfg: ModelConfig, seal: Optional[CacheSeal], pools, cache,
+                  block_tables, wc):
+    """Seal a prefill's contiguous cache into pool blocks, IN PLACE on
+    ``pools``; returns them.
+
+    cache: per pattern position {"k", "v": (n, A, S_bucket, h, d)};
+    block_tables (A, S_bucket // bs) pool ids. The caller bumps the write
+    counters of these blocks *before* the call, so every block is sealed
+    (and, with a MAC context, tagged) under ``wc`` as passed. The write is
+    ``append_tokens`` of all S_bucket tokens from offset 0 on a copy of the
+    counters one behind, since the splice seals under its ``wc + 1``: every
+    word of every block is written, so the unseal of the old words under
+    ``wc - 1`` leaves nothing behind. Dummy admission rows carry a zeroed
+    table row and land on the scratch block."""
+    wpt = MC.kv_words_per_token(cfg)
+    a, nblk = block_tables.shape
+    sb = cache[0]["k"].shape[2]
+    for pj in pools:
+        if sb * wpt != nblk * pj["k"].shape[-1]:
+            raise ValueError(f"{sb} tokens of {wpt} words do not fill "
+                             f"{nblk} blocks of {pj['k'].shape[-1]}")
+    zeros = torch.zeros((a,), dtype=torch.int64, device=block_tables.device)
+    append_tokens(cfg, seal, pools,
+                  tuple({"k_new": cj["k"], "v_new": cj["v"]} for cj in cache),
+                  block_tables.to(torch.int64), zeros,
+                  torch.full_like(zeros, sb),
+                  u32.from_i64(u32.to_i64(wc) - 1))
+    return pools

@@ -1,6 +1,8 @@
 """Scheduler state and serve-step transitions on the device. Port of
-``SchedState``, ``admit``, ``evict``, ``cow``, ``chunk_step`` and
-``decode_tick`` from ``repro/serve/step.py``.
+``SchedState``, ``admit``, ``evict``, ``cow``, ``chunk_step``,
+``decode_tick`` and the step builders ``make_decode_step``,
+``make_paged_decode_step``, ``make_paged_prefill`` and
+``make_sealed_decode_step`` from ``repro/serve/step.py``.
 
 The reference's jitted, donated transitions become functions that update
 the device tensors of ``SchedState`` and the pools IN PLACE. A decode tick
@@ -10,6 +12,13 @@ device-to-host copy per tick. The flag ``greedy`` is the host's knowledge
 that every slot in the dispatch samples at temperature 0 (the engine keeps
 each slot's settings): the reference decides that on the device under
 ``lax.cond``; here a greedy dispatch launches the argmax alone.
+
+The builders are plain closures over ``cfg`` (the reference jits them):
+the contiguous decode step, plain or over a sealed image (the paper's
+decrypt-on-use step, fused or not), and the paged admission prefill and
+decode step, whose pools are updated in place and whose caller mirrors the
+write-counter bumps, as the reference's host does. The engines above do not
+call them.
 """
 from __future__ import annotations
 
@@ -18,7 +27,9 @@ import dataclasses
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.core import sealed_store as SS
 from repro_torch.models import paged as PG
+from repro_torch.models import transformer as T
 from repro_torch.serve import sampling as SM
 
 
@@ -187,3 +198,79 @@ def decode_tick(cfg: ModelConfig, params, pools, state: SchedState,
     state.counts += cnt
     state.last_tok.copy_(tok)
     return tok, cok, logits
+
+
+def _step_inputs(cfg: ModelConfig, batch):
+    """The reference's ``batch`` dict as ``transformer.decode_step`` takes
+    it: the token tensor (B, 1), or for a frontend-stub config the dict
+    itself, whose ``embeds`` (B, 1, D) ``_embed`` reads."""
+    return batch if cfg.frontend is not None else batch["tokens"]
+
+
+def make_decode_step(cfg: ModelConfig):
+    """``decode_step(params, cache, batch, pos)`` -> (logits (B, V),
+    cache, next_token (B,)); the cache is updated in place."""
+    def decode_step(params, cache, batch, pos):
+        return T.decode_step(cfg, params, cache, _step_inputs(cfg, batch),
+                             int(pos))
+    return decode_step
+
+
+def make_paged_decode_step(cfg: ModelConfig, materialize, cache_seal):
+    """Continuous-batching decode step over the paged (optionally sealed)
+    KV pools: every slot advances one token at its own position, its new
+    K/V are appended (sealed) into its tail block, and the next token is
+    sampled from each request's own PRNG stream. ``materialize`` maps the
+    stored param tree (possibly ``SealedTensor`` leaves) to the serving
+    view. Returns (tok, logits, pools); the caller bumps ``wc`` of each
+    slot's tail block after the step."""
+    def decode_step(tensors, pools, tables, lengths, wc, tokens, key_data,
+                    counts, temperature, top_k, top_p):
+        params = materialize(tensors)
+        logits, updates, _ = PG.decode_logits(cfg, params, pools, tables,
+                                              lengths, wc, tokens, cache_seal)
+        pools = PG.apply_paged_updates(cfg, cache_seal, pools, updates,
+                                       tables, lengths, wc)
+        keys = SM.fold_token_keys(key_data, counts)
+        tok = SM.sample_logits(logits, keys, temperature, top_k, top_p,
+                               greedy=False)
+        return tok, logits, pools
+    return decode_step
+
+
+def make_paged_prefill(cfg: ModelConfig, materialize, cache_seal):
+    """Ragged admission prefill: run a right-padded (A, S_bucket) batch,
+    seal its KV into the admitted slots' pool blocks (their counters bumped
+    by the caller beforehand), and sample each request's first token
+    (generation index 0). Returns (tok, logits, pools)."""
+    def prefill(tensors, pools, tokens, true_len, block_tables, wc,
+                key_data, temperature, top_k, top_p):
+        params = materialize(tensors)
+        logits, cache = PG.prefill_logits(cfg, params, tokens, true_len)
+        pools = PG.prefill_write(cfg, cache_seal, pools, cache,
+                                 block_tables, wc)
+        keys = SM.fold_token_keys(key_data, torch.zeros_like(true_len))
+        tok = SM.sample_logits(logits, keys, temperature, top_k, top_p,
+                               greedy=False)
+        return tok, logits, pools
+    return prefill
+
+
+def make_sealed_decode_step(cfg: ModelConfig, sp: SS.SealedParams,
+                            key_bytes: bytes, fused: bool = True):
+    """Decode with decryption in the step: it receives the ciphertext
+    ``SealedTensor`` leaves. With ``fused`` (the default) the matmul-shaped
+    leaves stay sealed into the fused decrypt-in-matmul kernels and only
+    the line leaves are decrypted first (``fused_params``); with
+    ``fused=False`` every leaf is decrypted first (``unseal_params``: on the
+    card a line leaf by one ``lines_unseal`` launch, a tile leaf slice by
+    slice, its pad from the ChaCha kernel XORed in), the paper-faithful
+    baseline that moves the weights three times."""
+    def decode_step(tensors, cache, batch, pos):
+        sp2 = SS.SealedParams(tensors, sp.plans, sp.skeleton, sp.seal,
+                              sp._engines)
+        params = (SS.fused_params if fused else SS.unseal_params)(
+            sp2, key_bytes)
+        return T.decode_step(cfg, params, cache, _step_inputs(cfg, batch),
+                             int(pos))
+    return decode_step

@@ -30,7 +30,12 @@ a full-width VGG-16 conv (cuDNN with TF32 off) at 1e-5 of its scale, and a
 tiny ``evaluate(device=None)`` report within 0.05 of the CPU's; the flash
 kernel and the fused matmul refusing inputs that require grad, and a
 reduced internlm2's training gradients on the card (every attention weight
-reached) against the CPU's at 1e-4 of each tensor's scale.
+reached) against the CPU's at 1e-4 of each tensor's scale; the paper's
+five weight-sealing variants of ``launch/sealed_dryrun.py`` at the reduced
+granite in f32, the card's first-step logits against the CPU's at 1e-4
+relative and the unfused variants' bitwise equal to the baseline's, with
+one ``lines_unseal`` a line leaf holding ciphertext and one CUDA-core fused
+matmul a tile slice each step.
 """
 import numpy as np
 import pytest
@@ -1035,3 +1040,33 @@ def test_kernels_refuse_autograd_and_training_reaches_attention(cuda):
         assert bool(got.abs().amax(dim=tuple(range(1, got.ndim))).gt(0).all())
         assert float((got - want).abs().max()) <= \
             1e-4 * float(want.abs().max())
+
+
+def test_sealed_decode_variants_on_the_card_match_cpu(cuda):
+    import dataclasses
+    from repro_torch.launch import sealed_dryrun as SD
+    cpu = SD.decode_state("granite_3_2b", "decode_32k", reduced=True,
+                          batch=2, dtype="float32", device="cpu", seed=0)
+    card = dataclasses.replace(
+        cpu, params=map_leaves(lambda t: t.to(cuda), cpu.params),
+        cache=tuple({k: t.to(cuda) for k, t in c.items()}
+                    for c in cpu.cache),
+        batch={k: t.to(cuda) for k, t in cpu.batch.items()}, logits={})
+    for v in SD.VARIANTS:
+        SD.sealed_decode_variant("granite_3_2b", "decode_32k", v,
+                                 reduced=True, state=cpu, warmup=1, iters=1)
+        rec = SD.sealed_decode_variant("granite_3_2b", "decode_32k", v,
+                                       reduced=True, state=card, warmup=1,
+                                       iters=1)
+        got, want = card.logits[v], cpu.logits[v]
+        assert float((got - want).abs().max()) <= \
+            1e-4 * float(want.abs().max())
+        if v != "coloe_fused":
+            assert torch.equal(got, card.logits["baseline"])
+        lines = {"baseline": 0, "coloe_fused": 4}.get(v, 11)
+        expect = {"chacha20_lines_unseal": lines} if lines else {}
+        if v == "coloe_fused":
+            expect["sealed_matmul"] = 7 * 2
+        assert rec["launches_per_step"] == expect
+        assert rec["plaintext_bytes_written"] == \
+            rec["plaintext_bytes_materialized_per_step"]
