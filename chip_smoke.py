@@ -247,7 +247,35 @@ runs:
    of internlm2-1.8B at full width on phase 4's prompts, sealed weights
    and sealed pools, teacher-forced on the contiguous plaintext path's
    greedy tokens: every prompt's logits within 2e-2 of that path's scale,
-   17 splices and 384 views, no keystream kernel; the phase's wall time.
+   17 splices and 384 views, no keystream kernel; the phase's wall time;
+15. sharding on DTensor (``phase_sharded``), under a real NCCL process
+   group of one rank (``launch.mesh.init_distributed``, a ``FileStore`` in
+   a temporary directory, torn down at the phase's end) and a 1x1
+   ("data", "model") ``DeviceMesh`` on the card: (a) each ``ARCH_ID``'s
+   reduced config, one sharded ``make_train_step`` step in f32 (params,
+   AdamW state and batch laid out by ``sharding.rules``) against the
+   unsharded step on the card from the same params and batch: metrics
+   within 1e-6 relative, gradients and params after the step within 1e-6
+   of each tensor's scale; (b) internlm2-1.8B at full width, all 24
+   layers, through ``train(cfg, tc, mesh)`` for 4 steps at phase 13 (b)'s
+   settings: its losses equal 13 (b)'s first 4 within 1e-5 relative, its
+   step time printed beside 13 (b)'s (the gap is DTensor's dispatch) with
+   its peak memory; (c) 13 (d)'s two full-width layers and their AdamW
+   state, saved sealed (ColoE) from the mesh and restored by
+   ``elastic.rescale`` onto a fresh 1x1 mesh: the restored state equal to
+   the saved one bit for bit, the manifest (every file's SHA-256) that of
+   an unsharded save, ``chacha20`` at least once a leaf at the save and
+   ``lines_unseal`` once a restored leaf, no plain sealing version called;
+   (d) ``torch.distributed.run --standalone --nproc-per-node 1 -m
+   repro_torch.launch.train --arch internlm2_1_8b`` twice on one
+   checkpoint directory (while (c) runs), the second resuming, both
+   exiting 0; (e) in a subprocess started at the phase's beginning (the
+   fake group needs its own process), ``launch.dryrun`` of granite_3_2b
+   decode_32k and
+   internlm2_1_8b train_4k (one microbatch) on the 16x16 mesh and of
+   granite_3_2b decode_32k on 2x16x16: status ok, collective bytes above
+   0, ``flops_per_device * devices`` at least the matmul part of
+   ``model_flops``, each ``roofline_row`` printed.
 
 Every phase raises on failure, so the script exits non-zero. The line before
 the last is a JSON ``{"kernels": [...]}`` record; the last line is
@@ -258,6 +286,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -482,6 +511,8 @@ def main(argv=None) -> int:
     report["train"] = phase_train(torch, dev, args)
     # phase 14: the paper's sealed-decode comparison and the step builders
     report["sealed_decode"] = phase_sealed_decode(torch, dev, args)
+    # phase 15: sharding on DTensor under NCCL, and the dry run
+    report["sharded"] = phase_sharded(torch, dev, args, report["train"])
 
     kernels = kernel_records(report)
     if args.report:
@@ -577,6 +608,8 @@ def kernel_records(report):
     train = report["train"]["launches"]
     # phase 14's: a step of each full-width variant and the paged builders
     sealed = report["sealed_decode"]["launches"]
+    # phase 15's: the sharded checkpoint of (c), its save and its rescale
+    sharded = report["sharded"]["launches"]
     kernels = []
     for name, replaces, launches, err in rows:
         tk = t[name]
@@ -588,6 +621,7 @@ def kernel_records(report):
             "family_launches": family.get(name, 0),
             "train_launches": train.get(name, 0),
             "sealed_decode_launches": sealed.get(name, 0),
+            "sharded_launches": sharded.get(name, 0),
             "max_abs_err": err,
             "ms": tk["ms"], "plain_ms": tk["plain_ms"],
             "bound_ms": tk["bound_ms"], "bound_by": tk["bound_by"],
@@ -6358,6 +6392,362 @@ def _profile(torch, fn, reps, label, top=12, launches_of=None):
         out["launch_ms"] = [ev.time_range.elapsed_us() / 1e3 for ev in evs]
         log(f"[profile]   each {launches_of} in start order: "
             f"{[round(x, 4) for x in out['launch_ms']]} ms")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 15: sharding on DTensor, under a real NCCL group of one rank
+# --------------------------------------------------------------------------
+
+SHARD_REL = 1e-6           # (a): sharded vs unsharded on the card
+SHARD_STEPS = 4            # (b): 13 (b)'s first 4 steps, through the mesh
+SHARD_LOSS_REL = 1e-5
+LAUNCH_STEPS = (2, 4)      # (d): the launcher's two runs, the second resumes
+DRY_CELLS = (("granite_3_2b", "decode_32k", False, 0),
+             ("internlm2_1_8b", "train_4k", False, 1),
+             ("granite_3_2b", "decode_32k", True, 0))
+
+
+def _whole(t):
+    """A DTensor's whole value (a plain tensor as it is)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _sharded_parity(torch, dev, mesh, cfg, seed, label):
+    """(a): one ``make_train_step`` step and ``make_grad_fn``'s gradients,
+    unsharded and on the mesh, from the same params and batch on the card."""
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import rules as R
+    from repro_torch.sharding.api import use_mesh
+    from repro_torch.train.step import make_grad_fn, make_train_step
+    tc = _train_tc(microbatches=2, remat="full", total_steps=10)
+    nb = lm_batch(cfg, 4, 16, seed)
+    res = {}
+    for name in ("plain", "mesh"):
+        params = T.init_params(cfg, seed, dev)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
+        opt = adamw.init(params)
+        scope = contextlib.nullcontext()
+        if name == "mesh":
+            params = R.distribute_tree(params, mesh,
+                                       R.param_pspecs(cfg, mesh))
+            opt = R.distribute_tree(opt, mesh, R.opt_pspecs(cfg, mesh))
+            batch = R.distribute_tree(batch, mesh,
+                                      R.batch_pspecs(cfg, mesh, "train"))
+            scope = use_mesh(mesh, R.arch_rules(cfg, mesh))
+        with scope:
+            _, grads = make_grad_fn(cfg, "full")(params, batch)
+            grads = [(p, _whole(g).cpu()) for p, g in flatten_paths(grads)]
+            params, opt, m = make_train_step(cfg, tc)(params, opt, batch)
+        res[name] = (grads, [(p, _whole(t).cpu()) for p, t in
+                             flatten_paths(params)],
+                     {k: float(_whole(v)) for k, v in m.items()})
+        del params, opt, batch
+    out = {"metric_rel": 0.0, "grad_err": 0.0, "param_err": 0.0}
+    (g0, p0, m0), (g1, p1, m1) = res["plain"], res["mesh"]
+    for k in m0:
+        out["metric_rel"] = max(out["metric_rel"], abs(m1[k] - m0[k]) /
+                                max(abs(m0[k]), 1e-30))
+    for key, a, b in (("grad_err", g0, g1), ("param_err", p0, p1)):
+        for (path, want), (path2, got) in zip(a, b):
+            assert path == path2
+            err = float((got - want).abs().max() /
+                        want.abs().max().clamp(min=1e-30))
+            out[key] = max(out[key], err)
+    out["bitwise"] = all(bool(torch.equal(x, y)) for (_, x), (_, y) in
+                         zip(g0 + p0, g1 + p1))
+    log(f"[sharded] {label}: mesh vs unsharded, metrics rel "
+        f"{out['metric_rel']:.2e}, gradients {out['grad_err']:.2e} and "
+        f"params after the step {out['param_err']:.2e} of scale (bitwise "
+        f"{out['bitwise']})")
+    if not (out["metric_rel"] <= SHARD_REL and out["grad_err"] <= SHARD_REL
+            and out["param_err"] <= SHARD_REL):
+        raise AssertionError(f"[sharded] {label}: {out}")
+    return out
+
+
+def _sharded_full(torch, dev, args, mesh, full13, tmp):
+    """(b): internlm2-1.8B, all 24 layers, through ``train(cfg, tc, mesh)``
+    at 13 (b)'s settings for its first 4 steps."""
+    from repro_torch.configs import get_config
+    cfg = get_config(TRAIN_ARCH)
+    tc = _train_tc(learning_rate=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS,
+                   microbatches=TRAIN_MICRO, remat="save_carries",
+                   checkpoint_every=10 * TRAIN_STEPS,
+                   checkpoint_dir=os.path.join(tmp, "full"), seed=args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    (params, opt, _), ms, recs = _timed_train(
+        torch, cfg, tc, mesh, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        steps=SHARD_STEPS, log_path=os.path.join(tmp, "full.log"))
+    wall = time.time() - t0
+    del params, opt
+    losses = [r["loss"] for r in recs if "loss" in r]
+    want = full13["losses"][:SHARD_STEPS]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    peak = _gib(torch.cuda.max_memory_allocated(dev))
+    step_ms = statistics.median(ms[1:])
+    ratio = step_ms / full13["median_step_ms"]
+    log(f"[sharded] (b) internlm2-1.8B, 24 layers, on the 1x1 mesh: losses "
+        f"{[round(x, 6) for x in losses]} against 13 (b)'s {want}: "
+        f"{rel:.2e} relative; step (events) {[round(x, 2) for x in ms]} ms, "
+        f"median of steps 2-{SHARD_STEPS} {step_ms:.2f} ms against 13 (b)'s "
+        f"median {full13['median_step_ms']:.2f} ms (x{ratio:.3f}); peak "
+        f"allocated {peak:.2f} GiB "
+        f"(13 (b): {full13['peak_gib']:.2f}); train() {wall:.1f} s")
+    if len(losses) != SHARD_STEPS or not rel <= SHARD_LOSS_REL:
+        raise AssertionError(f"[sharded] (b) losses {losses} against {want}")
+    return {"losses": losses, "loss_rel": rel, "step_ms": ms,
+            "median_step_ms": step_ms,
+            "unsharded_median_step_ms": full13["median_step_ms"],
+            "peak_gib": peak, "wall_s": wall}
+
+
+def _sharded_checkpoint(torch, dev, args, mesh, tmp):
+    """(c): 13 (d)'s two full-width layers and their AdamW state (after one
+    step, so m and v are not zero) saved sealed from the mesh, restored
+    by ``elastic.rescale`` onto a fresh 1x1 mesh; the same state saved
+    unsharded for its manifest."""
+    from repro_torch.checkpoint.manager import CheckpointManager, _flatten
+    from repro_torch.config import SealConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import elastic
+    from repro_torch.sharding import rules as R
+    from repro_torch.train.step import make_train_step
+    cfg = get_config(TRAIN_ARCH).with_(num_layers=TRAIN_CUT_LAYERS)
+    params = T.init_params(cfg, args.seed, dev)
+    opt = adamw.init(params)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             lm_batch(cfg, 2, 64, args.seed).items()}
+    make_train_step(cfg, _train_tc(total_steps=10))(params, opt, batch)
+    del batch
+    seal = SealConfig(mode="coloe")
+    dirs = {k: os.path.join(tmp, f"ckpt_{k}") for k in ("mesh", "plain")}
+    plain = _PlainCalls()
+    t0 = time.time()
+    try:
+        p_mesh = R.distribute_tree(params, mesh, R.param_pspecs(cfg, mesh))
+        o_mesh = R.distribute_tree(opt, mesh, R.opt_pspecs(cfg, mesh))
+        saved = {"params": _flatten(p_mesh), "opt": _flatten(o_mesh)}
+        n_leaves = sum(len(v) for v in saved.values())
+        ops.reset_launch_counts()
+        CheckpointManager(dirs["mesh"], seal=seal, device=dev).save(
+            1, p_mesh, o_mesh, blocking=True)
+        at_save = ops.launch_counts()
+        CheckpointManager(dirs["plain"], seal=seal, device=dev).save(
+            1, params, opt, blocking=True)
+        del p_mesh, o_mesh, params, opt
+        manifests = {}
+        for k, d in dirs.items():
+            with open(os.path.join(d, "step_00000001", "manifest.json")) as f:
+                manifests[k] = json.load(f)["leaves"]
+        shutil.rmtree(dirs["plain"])
+        ops.reset_launch_counts()
+        step, p2, o2, mesh2 = elastic.rescale(
+            cfg, CheckpointManager(dirs["mesh"], seal=seal, device=dev))
+        at_restore = ops.launch_counts()
+        restored = {"params": _flatten(p2), "opt": _flatten(o2)}
+        del p2, o2
+    finally:
+        plain.close()
+    wall = time.time() - t0
+    if manifests["mesh"] != manifests["plain"]:
+        raise AssertionError("[sharded] (c) the sharded save's files are not "
+                             "an unsharded save's")
+    if step != 1 or tuple(mesh2.shape) != (1, 1):
+        raise AssertionError(f"[sharded] (c) rescale: step {step}, mesh "
+                             f"{tuple(mesh2.shape)}")
+    for group, leaves in saved.items():
+        for k, v in leaves.items():
+            r = restored[group][k]
+            if r.dtype != v.dtype or r.shape != v.shape or \
+                    r.tobytes() != v.tobytes():
+                raise AssertionError(f"[sharded] (c) restored {group}/{k} is "
+                                     f"not the saved one bit for bit")
+    if not at_save["chacha20"] >= n_leaves or \
+            at_restore["chacha20_lines_unseal"] != n_leaves:
+        raise AssertionError(f"[sharded] (c) launches: save {at_save}, "
+                             f"restore {at_restore}, {n_leaves} leaves")
+    if plain.calls:
+        raise AssertionError(f"[sharded] (c) {plain.calls} calls of a plain "
+                             f"sealing version on the card's path")
+    launches = {k: at_save[k] + at_restore[k] for k in at_save}
+    log(f"[sharded] (c) {n_leaves} leaves of {TRAIN_CUT_LAYERS} full-width "
+        f"layers and their AdamW state, sealed (ColoE) from the 1x1 mesh: "
+        f"manifest (every file's SHA-256) equal to an unsharded save's; "
+        f"rescaled onto a fresh 1x1 mesh bit for bit; launches at the save "
+        f"{_nonzero(at_save)}, at the restore {_nonzero(at_restore)}; no "
+        f"plain sealing version called; {wall:.1f} s")
+    return {"leaves": n_leaves, "save_launches": at_save,
+            "restore_launches": at_restore, "launches": launches,
+            "wall_s": wall}
+
+
+class _Background:
+    """``fn(*args)`` in a thread; ``result()`` joins it and re-raises."""
+
+    def __init__(self, fn, *args):
+        import threading
+        self._out = {}
+
+        def run():
+            try:
+                self._out["value"] = fn(*args)
+            except BaseException as e:      # re-raised in result()
+                self._out["error"] = e
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def result(self):
+        self._thread.join()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
+
+
+def _sharded_launcher(tmp):
+    """(d): the training launcher under ``torchrun`` (one rank, NCCL), run
+    twice on one checkpoint directory; the second run resumes."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    ck = os.path.join(tmp, "launcher_ckpt")
+    out = []
+    for steps in LAUNCH_STEPS:
+        t0 = time.time()
+        r = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "1", "-m", "repro_torch.launch.train",
+             "--arch", TRAIN_ARCH, "--steps", str(steps),
+             "--checkpoint-every", str(LAUNCH_STEPS[0]),
+             "--checkpoint-dir", ck, "--batch", "8", "--seq", "64"],
+            env=env, capture_output=True, text=True, timeout=300)
+        wall = time.time() - t0
+        resumed = f"step={LAUNCH_STEPS[0]} event=resumed" in r.stderr
+        log(f"[sharded] (d) torchrun launcher --steps {steps}: exit "
+            f"{r.returncode} in {wall:.1f} s, resumed {resumed}; "
+            f"{r.stdout.strip().splitlines()[-1:]}")
+        if r.returncode != 0:
+            raise AssertionError(f"[sharded] (d) launcher failed: "
+                                 f"{r.stderr[-3000:]}")
+        out.append({"steps": steps, "wall_s": wall, "resumed": resumed})
+    if out[0]["resumed"] or not out[1]["resumed"]:
+        raise AssertionError(f"[sharded] (d) resume: {out}")
+    return out
+
+
+_DRY_RUNNER = """
+import json, sys, time
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import init_distributed
+init_distributed("cpu", fake=True, world_size=dryrun.WORLD)
+for arch, shape, multi_pod, mb in CELLS:
+    t0 = time.time()
+    rec = dryrun.run_cell(arch, shape, multi_pod, microbatches=mb)
+    rec["wall_s"] = time.time() - t0
+    print(json.dumps(rec), flush=True)
+"""
+
+
+def _start_dryrun():
+    """(e), started: the dry run's cells in a subprocess."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return subprocess.Popen(
+        [sys.executable, "-c", _DRY_RUNNER.replace("CELLS",
+                                                   repr(DRY_CELLS))],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _finish_dryrun(proc):
+    """(e)'s gates on the records the subprocess printed."""
+    from repro_torch.config import SHAPES
+    from repro_torch.configs import get_config
+    from repro_torch.launch.roofline import roofline_row
+    o, e = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"[sharded] (e) dry run failed: {e[-3000:]}")
+    out = []
+    for line in o.strip().splitlines():
+        rec = json.loads(line)
+        cfg, shape = get_config(rec["arch"]), SHAPES[rec["shape"]]
+        n_matmul = cfg.param_count(active_only=True) - \
+            cfg.vocab_size * cfg.d_model
+        rows = shape.global_batch * (shape.seq_len if shape.kind != "decode"
+                                     else 1)
+        matmul = (6.0 if shape.kind == "train" else 2.0) * n_matmul * rows
+        row = roofline_row(rec)
+        coll = sum(rec["collective_bytes_per_device"].values())
+        counted = rec["flops_per_device"] * rec["devices"]
+        log(f"[sharded] (e) dry run {rec['arch']} {rec['shape']} "
+            f"{rec['mesh']} ({rec['devices']} fake ranks, "
+            f"{rec.get('microbatches', '-')} microbatches): status "
+            f"{rec['status']}, {rec['flops_per_device']:.4e} FLOP and "
+            f"{rec['bytes_per_device']:.4e} B (unfused) a device, "
+            f"collectives {rec['collective_bytes_per_device']}, memory "
+            f"{rec['memory']}; FLOPs x devices {counted:.4e} against the "
+            f"matmul part of model_flops {matmul:.4e}; "
+            f"{rec['wall_s']:.1f} s")
+        log(f"[sharded] (e) roofline_row {json.dumps(row)}")
+        if rec["status"] != "ok" or not coll > 0 or not counted >= matmul:
+            raise AssertionError(f"[sharded] (e) {rec['arch']} "
+                                 f"{rec['shape']} {rec['mesh']}: {rec}")
+        out.append({"record": rec, "row": row, "matmul_flops": matmul})
+    if len(out) != len(DRY_CELLS):
+        raise AssertionError(f"[sharded] (e) {len(out)} records: {e[-2000:]}")
+    return out
+
+
+def phase_sharded(torch, dev, args, train13):
+    """Phase 15: sharding on DTensor (module docstring, 15)."""
+    import tempfile
+    from repro_torch.configs import ARCH_IDS, get_reduced
+    from repro_torch.launch.mesh import (init_distributed, make_host_mesh,
+                                         shutdown_distributed)
+    t_phase = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry = _start_dryrun()
+    out = {"parity": {}}
+    tmp = tempfile.mkdtemp(prefix="repro_sharded_")
+    try:
+        if init_distributed("cuda") != "cuda":
+            raise AssertionError("[sharded] no NCCL group on the card")
+        import torch.distributed as dist
+        log(f"[sharded] process group: {dist.get_backend()}, world "
+            f"{dist.get_world_size()}")
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"[sharded] backend {dist.get_backend()}")
+        try:
+            mesh = make_host_mesh(1, 1, device_type="cuda")
+            t0 = time.time()
+            for arch in ARCH_IDS:
+                out["parity"][arch] = _sharded_parity(
+                    torch, dev, mesh, get_reduced(arch).with_(
+                        dtype="float32"), args.seed, f"(a) {arch} reduced")
+            log(f"[sharded] (a) {time.time() - t0:.1f} s")
+            out["full"] = _sharded_full(torch, dev, args, mesh,
+                                        train13["full"], tmp)
+            # (d)'s subprocesses run while (c) seals, writes and hashes
+            launcher = _Background(_sharded_launcher, tmp)
+            out["checkpoint"] = _sharded_checkpoint(torch, dev, args, mesh,
+                                                    tmp)
+            out["launcher"] = launcher.result()
+        finally:
+            shutdown_distributed()
+        out["dryrun"] = _finish_dryrun(dry)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = out["checkpoint"]["launches"]
+    out["wall_s"] = time.time() - t_phase
+    log(f"[sharded] phase 15: {out['wall_s']:.1f} s")
     return out
 
 

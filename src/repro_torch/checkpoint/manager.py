@@ -14,7 +14,16 @@ Fault-tolerance contract, the reference's:
   * sealed: leaves are encrypted with a SEAL engine before they reach
     storage, the paper's threat model extended to checkpoints at rest;
   * elastic: ``restore()`` returns host numpy; the caller puts it on any
-    device.
+    device, or on any mesh (``rebuild_tree`` with ``(mesh, specs)``).
+
+A sharded run saves from every rank: each DTensor leaf is gathered whole
+(``full_tensor()``, a collective every rank joins), one leaf at a time,
+and rank 0 alone keeps a host copy, seals and writes, so a sharded save's
+files are byte for byte an unsharded save's; the other ranks drop each
+gathered leaf at once. ``wait`` ends with a barrier, so that no rank
+reads a checkpoint before rank 0 has finished it. A restore onto a mesh
+(``rebuild_tree`` with ``(mesh, specs)``) copies to each card only that
+rank's block of each leaf (``rules.place``).
 
 The files are the reference's byte for byte: the same names
 (``params__blocks.0.attn.wq.npy``), ``.npy`` payloads (u32 ciphertext
@@ -46,19 +55,38 @@ from repro_torch import u32
 from repro_torch.config import SealConfig
 from repro_torch.core import engine as E
 from repro_torch.device import resolve_device
+from repro_torch.sharding.api import is_dtensor
 from repro_torch.tree import flatten_with_path, unflatten
 
 
+def _rank_world():
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 def _host_copy(leaf) -> np.ndarray:
-    """A numpy copy of a leaf that no later in-place update can reach."""
+    """A numpy copy of a leaf that no later in-place update can reach (a
+    DTensor's whole value, gathered from its shards)."""
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if torch.is_tensor(leaf):
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.array(leaf, copy=True)
 
 
-def _flatten(tree) -> Dict[str, np.ndarray]:
-    return {"/".join(path): _host_copy(leaf)
-            for path, leaf in flatten_with_path(tree)}
+def _flatten(tree, keep: bool = True) -> Dict[str, np.ndarray]:
+    """{path: host copy} of a tree's leaves; with ``keep`` False (a rank
+    that does not write) the DTensor leaves' gathers are joined, leaf by
+    leaf, and their results dropped, and nothing is copied to the host."""
+    if keep:
+        return {"/".join(path): _host_copy(leaf)
+                for path, leaf in flatten_with_path(tree)}
+    for _, leaf in flatten_with_path(tree):
+        if is_dtensor(leaf):
+            leaf.full_tensor()
+    return {}
 
 
 def _torch_dtype(np_dtype) -> torch.dtype:
@@ -94,11 +122,16 @@ class CheckpointManager:
         """Snapshot to host memory synchronously, seal and write
         asynchronously."""
         self.wait()
-        host = {"params": _flatten(params)}
+        writer = _rank_world()[0] == 0          # rank 0 writes
+        host = {"params": _flatten(params, writer)}
         if opt_state is not None:
-            host["opt"] = _flatten(opt_state)
+            host["opt"] = _flatten(opt_state, writer)
         meta = {"step": step, "time": time.time(),
                 "sealed": bool(self.seal), **(extra or {})}
+        if not writer:
+            if blocking:
+                self.wait()
+            return
         self._thread = threading.Thread(
             target=self._write, args=(step, host, meta), daemon=True)
         self._thread.start()
@@ -154,6 +187,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if _rank_world()[1] > 1:
+            import torch.distributed as dist
+            dist.barrier()
 
     # ---------------- restore ----------------
     def list_steps(self):
@@ -201,9 +237,27 @@ class CheckpointManager:
 def rebuild_tree(template, flat: Dict[str, np.ndarray], device=None):
     """Host dict -> a tree shaped like ``template`` (tensors, ``meta`` ones
     from ``param_spec`` included), each leaf in the template leaf's dtype
-    and shape, on ``device`` (the CPU when None)."""
+    and shape, on ``device`` (the CPU when None), or, when ``device`` is a
+    ``(mesh, spec_tree)`` pair, as DTensors on the mesh laid out by the
+    specs (the reference's ``rebuild_tree(..., shardings)``), each rank
+    copying only its own block of each leaf to its card."""
+    if isinstance(device, tuple):
+        from repro_torch.sharding.rules import _spec_leaves, place
+        mesh, specs = device
+        dev = _mesh_device(mesh)
+        out = [place(flat["/".join(path)].reshape(tuple(leaf.shape)), mesh,
+                     spec, leaf.dtype, dev)
+               for spec, (path, leaf) in zip(_spec_leaves(specs),
+                                             flatten_with_path(template))]
+        return unflatten(template, out)
     out = []
     for path, leaf in flatten_with_path(template):
         arr = flat["/".join(path)].astype(_numpy_dtype(leaf.dtype))
         out.append(torch.from_numpy(arr.reshape(tuple(leaf.shape))).to(device))
     return unflatten(template, out)
+
+
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)

@@ -3,10 +3,12 @@
 A worker thread makes each step's numpy batch (``batch_fn(step)``) and
 hands it over, one to ``depth`` steps ahead of the consumer, so making the
 data overlaps the device's step. The reference's ``sharding`` (a
-``device_put`` to the batch sharding) is ``device`` here: with a device
-the worker hands over torch tensors already there; without one, the numpy
-batch as ``batch_fn`` made it. The order and the ``start_step`` semantics
-are the reference's.
+``device_put`` to the batch sharding) is ``device`` here, and with
+``sharding=(mesh, specs)`` (``rules.batch_pspecs``) each array is placed
+on the mesh as a DTensor laid out by its spec, every rank keeping its
+slice of the global batch: with a device the worker hands over torch
+tensors already there; without one, the numpy batch as ``batch_fn`` made
+it. The order and the ``start_step`` semantics are the reference's.
 """
 from __future__ import annotations
 
@@ -19,10 +21,12 @@ import torch
 
 class PrefetchLoader:
     def __init__(self, batch_fn: Callable[[int], dict], start_step: int = 0,
-                 device: Optional[torch.device] = None, depth: int = 2):
+                 device: Optional[torch.device] = None, depth: int = 2,
+                 sharding=None):
         self.batch_fn = batch_fn
         self.step = start_step
         self.device = device
+        self.sharding = sharding
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._worker, daemon=True)
@@ -35,6 +39,9 @@ class PrefetchLoader:
             if self.device is not None:
                 batch = {k: torch.from_numpy(v).to(self.device)
                          for k, v in batch.items()}
+            if self.sharding is not None:
+                from repro_torch.sharding.rules import distribute_tree
+                batch = distribute_tree(batch, *self.sharding)
             try:
                 self._q.put((s, batch), timeout=0.5)
                 s += 1

@@ -1,19 +1,29 @@
 """Training launcher. Port of ``repro/launch/train.py``:
 
     python -m repro_torch.launch.train --arch <id> [--device cpu|cuda] [...]
+    torchrun --nproc-per-node N -m repro_torch.launch.train --arch <id>
 
 The reduced config by default, the published one with ``--production``,
-on one card (``--device cuda``, the default) or on the CPU when asked
-(``--device cpu``); sealed checkpoints every ``--checkpoint-every`` steps,
-and a second run with the same ``--checkpoint-dir`` resumes from the newest
-one. It prints the reference's final metrics dict.
+sharded over a mesh of the world's ranks: the process group starts with
+NCCL on the cards (``--device cuda``, the default) or gloo on the CPU
+when asked (``--device cpu``), its world from ``torchrun``'s environment
+(one rank without it). Sealed checkpoints every ``--checkpoint-every``
+steps, written by rank 0, and a second run with the same
+``--checkpoint-dir`` resumes from the newest one. Rank 0 prints the
+reference's final metrics dict.
 
-The reference runs ``--production`` on its 16x16 mesh and ``--multi-pod``
-on two pods. Both need the sharding slice (ROADMAP §1 item 6): here
-``--multi-pod`` is refused, and ``--production`` refuses a config whose f32
-params, gradients (and microbatch accumulator) and AdamW state do not fit
-the card. ``--checkpoint-dir`` defaults to ``repro_ckpt`` in the temporary
-directory (``TMPDIR``), where the reference's is ``/tmp/repro_ckpt``.
+The mesh, as the reference's: ``--multi-pod`` the 2x16x16 production mesh
+(a world of 512 ranks, else it raises naming that size), ``--production``
+the 16x16 one on a world of 256, and otherwise (``--production`` on any
+other world, or neither flag) the host mesh ``data = max(1, n // 2)``,
+``model = min(2, n)`` over the first ``data * model`` of the world's
+``n`` ranks. ``--production`` refuses a config whose f32 state does not
+fit one card (``card_bytes``): the params, gradients (and microbatch
+accumulator) and AdamW state divided over the mesh, or, at a fresh
+start, the whole f32 params that ``init_params`` makes on every card
+beside the params' and AdamW's shards. ``--checkpoint-dir`` defaults to ``repro_ckpt``
+in the temporary directory (``TMPDIR``), where the reference's is
+``/tmp/repro_ckpt``.
 """
 from __future__ import annotations
 
@@ -26,13 +36,13 @@ import torch
 from repro_torch.config import SealConfig, TrainConfig
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import (init_distributed, make_host_mesh,
+                                     make_production_mesh,
+                                     shutdown_distributed, world_size)
 from repro_torch.models import transformer as T
 from repro_torch.runtime.fault import Heartbeat, StepWatchdog
 from repro_torch.train.loop import train
 from repro_torch.tree import leaves
-
-SHARDING = ("needs the sharding slice (ROADMAP §1 item 6), which the port "
-            "does not have yet")
 
 
 def training_bytes(cfg, microbatches: int) -> int:
@@ -42,11 +52,23 @@ def training_bytes(cfg, microbatches: int) -> int:
     return n * 4 * (4 + (microbatches > 1))
 
 
+def card_bytes(cfg, microbatches: int, devices: int) -> float:
+    """Bytes of f32 state a card holds at the larger of two moments, before
+    any activation: a step (``training_bytes`` divided over the mesh's
+    ``devices``), and a fresh start, where the whole params are made on
+    every card before each keeps its block, beside the params' and
+    AdamW's blocks."""
+    n = sum(p.numel() for p in leaves(T.param_spec(cfg)))
+    return max(training_bytes(cfg, microbatches) / devices,
+               n * 4 * (1 + 3 / devices))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--production", action="store_true",
-                    help="the published config on the one card")
+                    help="the published config (on the 16x16 mesh when the "
+                         "world has 256 ranks)")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the card) or cpu")
@@ -65,19 +87,40 @@ def main(argv=None) -> int:
     ap.add_argument("--heartbeat-dir", default=None)
     args = ap.parse_args(argv)
 
-    if args.multi_pod:
-        raise SystemExit(f"--multi-pod {SHARDING}")
     dev = resolve_device(args.device)
+    dtype = init_distributed(dev.type)
+    try:
+        return _run(args, dtype)
+    finally:
+        shutdown_distributed()
+
+
+def _run(args, dtype: str) -> int:
+    import torch.distributed as dist
+
+    n = world_size()
+    if args.multi_pod:
+        if n != 512:
+            raise SystemExit(f"--multi-pod needs a world of 512 ranks "
+                             f"(2x16x16), have {n}")
+        mesh = make_production_mesh(multi_pod=True, device_type=dtype)
+    elif args.production and n == 256:
+        mesh = make_production_mesh(device_type=dtype)
+    else:
+        mesh = make_host_mesh(data=max(1, n // 2), model=min(2, n),
+                              device_type=dtype)
     cfg = get_config(args.arch) if args.production else get_reduced(args.arch)
-    if args.production and dev.type == "cuda":
-        need = training_bytes(cfg, args.microbatches)
-        have = torch.cuda.get_device_properties(dev).total_memory
+    if args.production and dtype == "cuda":
+        need = card_bytes(cfg, args.microbatches, mesh.size())
+        have = torch.cuda.get_device_properties(
+            torch.cuda.current_device()).total_memory
         if need > have:
             raise SystemExit(
                 f"--production {cfg.name}: f32 params, gradients and AdamW "
-                f"state take {need / 2**30:.1f} GiB of the card's "
-                f"{have / 2**30:.1f} GiB before activations; training it "
-                f"{SHARDING}")
+                f"state take {need / 2**30:.1f} GiB a card on the "
+                f"{'x'.join(map(str, mesh.shape))} mesh (at a fresh start "
+                f"the whole params are made on every card), of the card's "
+                f"{have / 2**30:.1f} GiB, before activations")
     tc = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                      microbatches=args.microbatches,
                      checkpoint_every=args.checkpoint_every,
@@ -86,14 +129,15 @@ def main(argv=None) -> int:
     seal = SealConfig(mode=args.seal, smart_ratio=args.smart_ratio)
     hb = None
     if args.heartbeat_dir:
-        hb = Heartbeat(args.heartbeat_dir, host_id="host0")
+        hb = Heartbeat(args.heartbeat_dir, host_id=f"host{dist.get_rank()}")
         hb.start()
     try:
         params, opt, metrics = train(
-            cfg, tc, dev, batch=args.batch, seq=args.seq, steps=args.steps,
+            cfg, tc, mesh, batch=args.batch, seq=args.seq, steps=args.steps,
             seal=seal if args.seal != "none" else None, log_path=args.log,
             watchdog=StepWatchdog(hard_limit_s=600))
-        print({k: float(v) for k, v in metrics.items()})
+        if dist.get_rank() == 0:
+            print({k: float(v) for k, v in metrics.items()})
     finally:
         if hb:
             hb.stop()

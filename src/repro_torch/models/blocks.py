@@ -22,6 +22,7 @@ are out of place, so autograd differentiates them as they stand.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -30,6 +31,7 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.models import cache as MC
 from repro_torch.models import layers as L
+from repro_torch.sharding.api import constrain, local_call
 
 
 def attn_block_sub_apply(cfg: ModelConfig, kind: str, p, h, positions, mode,
@@ -202,28 +204,45 @@ def rglru_step(p, xa, h_prev):
     return h[:, None], h
 
 
+_RGLRU_LEAVES = ("conv_w", "conv_b", "w_rg", "b_rg", "w_ig", "b_ig", "lam")
+
+
+def _rglru_mix(mode, xa, conv, h, *leaves):
+    """The conv and the recurrence of an RG-LRU block: (h (B, S, W) f32,
+    its last state, the new conv tail or None)."""
+    p = dict(zip(_RGLRU_LEAVES, leaves))
+    dt = xa.dtype
+    if mode == "decode":
+        xa, conv_cache = causal_conv1d_step(xa, conv, p["conv_w"],
+                                            p["conv_b"])
+        h_seq, h_last = rglru_step(p, xa, h)
+        return h_seq, h_last, conv_cache
+    if mode not in ("prefill", "train"):
+        raise NotImplementedError(f"RG-LRU mode {mode!r} is not ported yet")
+    pre_tail = xa[:, -3:]                 # conv width 4: keep 3 rows
+    xa = causal_conv1d(xa, p["conv_w"], p["conv_b"])
+    h_seq, h_last = rglru_scan(p, xa, None)
+    if mode == "train":
+        return h_seq, h_last, None
+    pad = 3 - pre_tail.shape[1]
+    if pad > 0:
+        pre_tail = F.pad(pre_tail, (0, 0, pad, 0))
+    return h_seq, h_last, pre_tail.to(dt)
+
+
 def rglru_block_apply(cfg: ModelConfig, p, x, mode, cache):
     dt = L.cdtype(cfg)
     xb = x.to(dt)
-    xa = L.dense(xb, p["w_x"], "bsd,dw->bsw", dt)
-    xg = L.dense(xb, p["w_gate"], "bsd,dw->bsw", dt)
-    if mode == "decode":
-        xa, conv_cache = causal_conv1d_step(xa, cache["conv"], p["conv_w"],
-                                            p["conv_b"])
-        h_seq, h_last = rglru_step(p, xa, cache["h"])
-        new_cache = {"h": h_last, "conv": conv_cache}
-    elif mode in ("prefill", "train"):
-        pre_tail = xa[:, -3:]                 # conv width 4: keep 3 rows
-        xa = causal_conv1d(xa, p["conv_w"], p["conv_b"])
-        h_seq, h_last = rglru_scan(p, xa, None)
-        new_cache = None
-        if mode == "prefill":
-            pad = 3 - pre_tail.shape[1]
-            if pad > 0:
-                pre_tail = F.pad(pre_tail, (0, 0, pad, 0))
-            new_cache = {"h": h_last, "conv": pre_tail.to(dt)}
-    else:
-        raise NotImplementedError(f"RG-LRU mode {mode!r} is not ported yet")
+    xa = constrain(L.dense(xb, p["w_x"], "bsd,dw->bsw", dt),
+                   "batch", None, "rnn_width")
+    xg = constrain(L.dense(xb, p["w_gate"], "bsd,dw->bsw", dt),
+                   "batch", None, "rnn_width")
+    c = cache or {}
+    # the conv and the scan on whole tensors (``local_call``) over DTensors
+    h_seq, h_last, conv = local_call(
+        functools.partial(_rglru_mix, mode), xa, c.get("conv"), c.get("h"),
+        *(p[k] for k in _RGLRU_LEAVES))
+    new_cache = None if mode == "train" else {"h": h_last, "conv": conv}
     y = h_seq.to(dt) * F.gelu(xg, approximate="tanh")
     return L.dense(y, p["w_out"], "bsw,wd->bsd", dt), new_cache
 
@@ -303,16 +322,22 @@ def ssd_step(xh, dt, A, Bm, Cm, state):
     return torch.einsum("bhpn,bn->bhp", state, Cm), state
 
 
-def ssd_block_apply(cfg: ModelConfig, p, x, mode, cache):
-    dt_ = L.cdtype(cfg)
-    b, s, _ = x.shape
+_SSD_LEAVES = ("conv_w", "conv_b", "dt_bias", "A_log", "D")
+
+
+def _ssd_mix(cfg: ModelConfig, mode, zxbcdt, conv, state0, *leaves):
+    """The conv and the SSD scan of a Mamba2 block: (y (b, s, d_inner) in
+    the compute dtype, z, the new state, the new conv tail or None)."""
+    p = dict(zip(_SSD_LEAVES, leaves))
+    dt_ = zxbcdt.dtype
+    b, s = zxbcdt.shape[:2]
     di, n, h, ph = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads,
                     cfg.ssm_head_dim)
-    zxbcdt = L.dense(x.to(dt_), p["w_in"], "bsd,de->bse", dt_)
     z, xc, Bm, Cm, dtr = torch.split(zxbcdt, [di, di, n, n, h], dim=-1)
     xbc = torch.cat([xc, Bm, Cm], dim=-1)
+    new_conv = None
     if mode == "decode":
-        xbc, new_conv = causal_conv1d_step(xbc, cache["conv"], p["conv_w"],
+        xbc, new_conv = causal_conv1d_step(xbc, conv, p["conv_w"],
                                            p["conv_b"])
     elif mode in ("prefill", "train"):
         tail = xbc[:, -(cfg.ssm_conv - 1):]
@@ -331,14 +356,26 @@ def ssd_block_apply(cfg: ModelConfig, p, x, mode, cache):
     A = -torch.exp(p["A_log"])
     if mode == "decode":
         y, state = ssd_step(xh[:, 0], dtv[:, 0], A, Bm[:, 0], Cm[:, 0],
-                            cache["state"])
+                            state0)
         y = y[:, None]
     else:
         y, state = ssd_chunked(xh, dtv, A, Bm, Cm, None)
     y = y + xh.float() * p["D"][:, None]
-    y = y.reshape(b, s, di).to(dt_)
+    return y.reshape(b, s, di).to(dt_), z, state, new_conv
+
+
+def ssd_block_apply(cfg: ModelConfig, p, x, mode, cache):
+    dt_ = L.cdtype(cfg)
+    zxbcdt = L.dense(x.to(dt_), p["w_in"], "bsd,de->bse", dt_)
+    c = cache or {}
+    # the conv and the SSD scan on whole tensors (``local_call``) over
+    # DTensors
+    y, z, state, new_conv = local_call(
+        functools.partial(_ssd_mix, cfg, mode), zxbcdt, c.get("conv"),
+        c.get("state"), *(p[k] for k in _SSD_LEAVES))
     # gated RMSNorm (mamba2): norm(y * silu(z))
     y = L.rmsnorm(y * F.silu(z), p["norm_scale"])
+    y = constrain(y, "batch", None, "ssm_inner")
     out = L.dense(y, p["w_out"], "bse,ed->bsd", dt_)
     if mode == "train":
         return out, None
@@ -376,4 +413,6 @@ def block_apply(cfg: ModelConfig, kind: str, p, x, positions, mode, cache):
         else:
             m, aux = L.moe_apply(cfg, p["mlp"], h2)
         x = x + m.to(x.dtype)
+    # sequence-parallel residual stream when the run enables "seq_res"
+    x = constrain(x, "batch", "seq_res", None)
     return x, update, aux

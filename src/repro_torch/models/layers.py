@@ -11,7 +11,9 @@ functions live in ``models/transformer.py::init_params``, and its ``pin``
 Conventions as in the reference: params are f32, compute is ``cfg.dtype``
 with f32 softmax and norm accumulation; activations (batch, seq, d_model)
 with heads as an explicit axis. The reference's sharding constraints are
-single-device no-ops and are dropped.
+``sharding.api.constrain`` calls at the same places: the identity on
+plain tensors, a redistribution of a DTensor activation under
+``use_mesh``.
 
 Every weight contraction runs as one (M, K) @ (K, N) product of operands
 rounded to the compute dtype and accumulated in f32 — the contract of the
@@ -30,6 +32,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.config import ModelConfig
 from repro_torch.core.sealed_tensor import SealedTensor
 from repro_torch.kernels import ops
+from repro_torch.sharding.api import (constrain, is_dtensor, local_call,
+                                      logical_spec)
 
 
 def cdtype(cfg: ModelConfig) -> torch.dtype:
@@ -149,7 +153,7 @@ def _attn_mask(q_pos, k_pos, window: int):
 
 
 def _sdpa(q, k, v, mask, attn_softcap: float, scale: float,
-          q_chunk: int = 0):
+          q_chunk: int = 0, constrain_heads: bool = True):
     """q:(b,s,hq,dh) k,v:(b,t,hkv,dh) mask:(s,t) or (b,s,t) -> (b,s,hq,dh).
 
     GQA repeats k/v to the full head count, as the reference does. Scores
@@ -165,12 +169,21 @@ def _sdpa(q, k, v, mask, attn_softcap: float, scale: float,
     if g > 1:
         k = k.repeat_interleave(g, dim=2)
         v = v.repeat_interleave(g, dim=2)
+        if constrain_heads:
+            # self-attention: shard the repeated heads over `model`; a
+            # decode's cache arrives seq-sharded and keeps that layout
+            k = constrain(k, "batch", None, "heads", "head_dim")
+            v = constrain(v, "batch", None, "heads", "head_dim")
     if mask.ndim == 2:
         mask = mask[None]
     kf, vf = k.float(), v.float()
 
     def attend(qc, mc):
         scores = torch.einsum("bshd,bthd->bhst", qc.float(), kf) * scale
+        if constrain_heads:
+            scores = constrain(scores, "batch", "heads", None, None)
+        else:
+            scores = constrain(scores, "batch", None, None, "cache_seq")
         scores = softcap(scores, attn_softcap)
         scores = torch.where(mc[:, None], scores,
                              torch.full((), -1e30, device=scores.device))
@@ -263,26 +276,38 @@ def attention_apply(cfg: ModelConfig, p, x, positions, *, window: int,
     dt = cdtype(cfg)
     xb = x.to(dt)
     q = dense(xb, p["wq"], "bsd,dhk->bshk", dt)
+    q = constrain(q, "batch", None, "heads", "head_dim")
     q = apply_rope(q, positions, cfg.rope_theta)
     scale = cfg.head_dim ** -0.5
     if kv_override is None:
         if positions.ndim != 1:
             raise ValueError("self-attention takes 1-D positions arange(s)")
+        if impl == "flash" and is_dtensor(q):
+            # the kernel takes plain tensors: a sharded prefill takes the
+            # reference's own route, ``_sdpa``
+            impl = "naive"
         k, v = project_kv(cfg, p, x, positions)
+        k = constrain(k, "batch", None, "kv_heads", "kv_head_dim")
+        v = constrain(v, "batch", None, "kv_heads", "kv_head_dim")
         if impl == "flash":
             out = ops.flash_attention(q, k, v, scale=scale,
                                       softcap=cfg.attn_softcap, window=window)
         elif impl == "naive":
             mask = _attn_mask(positions, positions, window)
-            qc = 512 if x.shape[1] >= 4096 else 0
+            # bound score memory when the head axis cannot shard
+            hs = logical_spec("heads")
+            heads_unsharded = hs is None or hs[0] is None
+            qc = 512 if (heads_unsharded and x.shape[1] >= 4096) else 0
             out = _sdpa(q, k, v, mask, cfg.attn_softcap, scale, q_chunk=qc)
         else:
             raise ValueError(f"unknown attention impl {impl!r}")
     else:
         k, v, k_positions = kv_override
         mask = _attn_mask(positions, k_positions, window)
-        out = _sdpa(q, k, v, mask, cfg.attn_softcap, scale)
+        out = _sdpa(q, k, v, mask, cfg.attn_softcap, scale,
+                    constrain_heads=False)
     y = dense(out, p["wo"], "bshk,hkd->bsd", dt)
+    y = constrain(y, "batch", None, None)
     return y, (k, v)
 
 
@@ -306,7 +331,9 @@ def mlp_apply(cfg: ModelConfig, p, x):
     a = act_fn(cfg.act)
     h = a(dense(xb, p["wg"], "bsd,df->bsf", dt)) * \
         dense(xb, p["wi"], "bsd,df->bsf", dt)
-    return dense(h, p["wo"], "bsf,fd->bsd", dt)
+    h = constrain(h, "batch", None, "ff")
+    out = dense(h, p["wo"], "bsf,fd->bsd", dt)
+    return constrain(out, "batch", None, None)
 
 
 def _expert_matmul(a: torch.Tensor, b: torch.Tensor,
@@ -353,9 +380,7 @@ def moe_apply_dense(cfg: ModelConfig, p, x):
     t = b * s
     xb = x.reshape(t, d).to(dt)
     gate_vals, gate_idx, aux = moe_router(cfg, p, xb)
-    gates = torch.zeros((t, moe.num_experts), dtype=torch.float32,
-                        device=x.device)
-    gates.scatter_(1, gate_idx, gate_vals)
+    gates = local_call(_dense_gates, gate_idx, gate_vals, moe.num_experts)
     a = act_fn(cfg.act)
     # (t, d) against every expert: (e, t, f), then (e, t, d)
     h = a(_expert_matmul(xb, p["wg"], dt)) * _expert_matmul(xb, p["wi"], dt)
@@ -363,6 +388,13 @@ def moe_apply_dense(cfg: ModelConfig, p, x):
     # "ted,te->td": each token's gated sum over the experts
     out = _expert_matmul(eout.permute(1, 2, 0), gates[:, :, None], dt)
     return out.reshape(b, s, d), aux
+
+
+def _dense_gates(gate_idx, gate_vals, e: int):
+    """(t, e) f32: each token's gate values at its chosen experts."""
+    gates = torch.zeros((gate_idx.shape[0], e), dtype=torch.float32,
+                        device=gate_idx.device)
+    return gates.scatter_(1, gate_idx, gate_vals)
 
 
 MOE_TOKEN_CHUNK = 65_536
@@ -399,7 +431,11 @@ def capacity_slots(gate_idx, num_experts: int, cap: int):
     # its rank in its group (a cumsum down a (t*k, e) one-hot is a scan of
     # e columns)
     order = torch.argsort(flat_expert, stable=True)
-    counts = torch.bincount(flat_expert, minlength=num_experts)
+    # the per-expert counts (``bincount``'s, by a scatter-add whose output
+    # shape does not depend on the data, as a dry run's meta tensors need)
+    counts = torch.zeros(num_experts, dtype=flat_expert.dtype,
+                         device=flat_expert.device).scatter_add_(
+        0, flat_expert, torch.ones_like(flat_expert))
     first = counts.cumsum(dim=0) - counts
     ranks = torch.arange(flat_expert.shape[0], device=flat_expert.device)
     pos = torch.empty_like(flat_expert)
@@ -434,23 +470,42 @@ def _moe_apply_block(cfg: ModelConfig, p, x, *, capacity_factor=None):
     # optimization barrier with a gradient rule) so that XLA keeps the
     # scatters and their collectives in the compute dtype; eager PyTorch
     # runs each op in the dtype it is given, so nothing needs pinning
-    xb = x.reshape(t, d).to(dt)
+    #
+    # Over DTensors the slot bookkeeping, the dispatch and the combine run
+    # on whole tensors (``local_call``: the capacity order is global over
+    # the tokens, as in the reference) and the expert products sharded.
+    xb = constrain(x.reshape(t, d).to(dt), "moe_tokens", None)
     gate_vals, gate_idx, aux = moe_router(cfg, p, xb)
-    keep, slot = capacity_slots(gate_idx, e, cap)
-
-    tok_idx = torch.arange(t, device=x.device).repeat_interleave(k)
-    buf = torch.zeros((e * cap + 1, d), dtype=dt, device=x.device)
-    buf[torch.where(keep, slot, torch.full_like(slot, e * cap))] = \
-        xb[tok_idx]                            # dropped entries: row e*cap
-    buf = buf[:e * cap].reshape(e, cap, d)
+    keep, slot = local_call(capacity_slots, gate_idx, e, cap)
+    buf = local_call(_moe_dispatch, xb, keep, slot, e, cap, k)
+    buf = constrain(buf, "expert", None, None)
 
     a = act_fn(cfg.act)
     h = a(_expert_matmul(buf, p["wg"], dt)) * _expert_matmul(buf, p["wi"], dt)
-    eout = _expert_matmul(h, p["wo"], dt).reshape(e * cap, d)
+    h = constrain(h, "expert", None, "moe_ff")
+    eout = constrain(_expert_matmul(h, p["wo"], dt), "expert", None, None)
+    out = local_call(_moe_combine, eout.reshape(e * cap, d), gate_vals,
+                     keep, slot, k)
+    return constrain(out.reshape(b, s, d), "batch", None, None), aux
 
-    w = (gate_vals.reshape(-1) * keep).to(dt)
+
+def _moe_dispatch(xb, keep, slot, e: int, cap: int, k: int):
+    """The (e, cap, d) expert buffers: each kept entry's token row at its
+    slot, zeros elsewhere."""
+    t, d = xb.shape
+    tok_idx = torch.arange(t, device=xb.device).repeat_interleave(k)
+    buf = torch.zeros((e * cap + 1, d), dtype=xb.dtype, device=xb.device)
+    buf[torch.where(keep, slot, torch.full_like(slot, e * cap))] = \
+        xb[tok_idx]                            # dropped entries: row e*cap
+    return buf[:e * cap].reshape(e, cap, d)
+
+
+def _moe_combine(eout, gate_vals, keep, slot, k: int):
+    """Each token's k gated expert outputs summed in choice order."""
+    t, d = gate_vals.shape[0], eout.shape[1]
+    w = (gate_vals.reshape(-1) * keep).to(eout.dtype)
     weighted = (eout[slot] * w[:, None]).reshape(t, k, d)
-    out = torch.zeros((t, d), dtype=dt, device=x.device)
+    out = torch.zeros((t, d), dtype=eout.dtype, device=eout.device)
     for j in range(k):
         out = out + weighted[:, j]
-    return out.reshape(b, s, d), aux
+    return out

@@ -25,6 +25,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import cache as MC
 from repro_torch.models import layers as L
+from repro_torch.sharding.api import constrain, dtensor_scope, is_dtensor
 from repro_torch.tree import leaves, map_leaves, unflatten
 
 
@@ -150,14 +151,37 @@ def _embed(cfg: ModelConfig, params, batch) -> torch.Tensor:
     embedding cast whole to the compute dtype, as the reference takes them,
     so that the backward sums repeated tokens' rows in that dtype too."""
     dt = L.cdtype(cfg)
+    w = params["embed"]["w"]
+    if is_dtensor(w):
+        if isinstance(batch, dict) and cfg.frontend is not None:
+            x = batch["embeds"].to(dt)
+        else:
+            tokens = batch["tokens"] if isinstance(batch, dict) else batch
+            x = _lookup(w.to(dt), tokens)
+        return constrain(x, "batch", None, None)
     if isinstance(batch, dict):
         if cfg.frontend is not None:
             return batch["embeds"].to(dt)
-        return params["embed"]["w"].to(dt)[batch["tokens"]]
-    w = params["embed"]["w"]
+        return w.to(dt)[batch["tokens"]]
     if isinstance(w, SealedTensor):   # the serving view keeps it line-sealed
         return w.gather_rows(batch, dt)
     return w[batch].to(dt)
+
+
+def _lookup(w, tokens):
+    """The rows of DTensor ``w`` at ``tokens`` by the plain path's own
+    indexing (and its backward), on each device's own tokens: the table
+    gathered whole (gather on use), the rows laid out as the tokens. The
+    gathered table's gradient is partial over the axes that split the
+    tokens and is reduced onto ``w``'s layout in the backward."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = w.device_mesh
+    tok, layout = tokens.to_local(), list(tokens.placements)
+    whole = w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=[Replicate() if isinstance(pl, Replicate)
+                         else Partial() for pl in layout])
+    return DTensor.from_local(whole[tok], mesh, layout, run_check=False)
 
 
 def _unembed(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
@@ -169,7 +193,8 @@ def _unembed(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     else:
         # the head may arrive still sealed (tile layout) on the serving path
         logits = L.dense(x.to(dt), params["head"]["w"], "bsd,dv->bsv", dt)
-    return L.softcap(logits.float(), cfg.logit_softcap)
+    logits = constrain(logits.float(), "batch", None, "vocab")
+    return L.softcap(logits, cfg.logit_softcap)
 
 
 def layer_params(params, j: int, i: int):
@@ -220,10 +245,13 @@ def _run_train_layers(cfg: ModelConfig, params, x, positions, remat: str):
     layers = [_unstacked(blk, n) for blk in params["blocks"]]
 
     def body(i, h, aux):
-        for j, kind in enumerate(cfg.pattern):
-            h, _, a = B.block_apply(cfg, kind, layers[j][i], h, positions,
-                                    "train", None)
-            aux = aux + a
+        # a DTensor stack recomputes under remat outside ``forward``'s
+        # scope, so the scope is entered here too
+        with dtensor_scope(h):
+            for j, kind in enumerate(cfg.pattern):
+                h, _, a = B.block_apply(cfg, kind, layers[j][i], h,
+                                        positions, "train", None)
+                aux = aux + a
         return h, aux
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -240,37 +268,78 @@ def forward(cfg: ModelConfig, params, batch, *, remat: str = "none"):
     (loss, metrics) with the CE loss in f32: ``logsumexp`` of the f32
     logits less the gold logit, averaged, plus the MoE auxiliary loss;
     ``accuracy`` by argmax (the first of tied maxima, as ``jnp.argmax``)."""
-    x = _embed(cfg, params, batch)
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    x, aux = _run_layers(cfg, params, x, positions, "train", None, remat)
-    x = L.apply_norm(cfg, params["final_norm"], x)
-    logits = _unembed(cfg, params, x)
-    targets = batch["targets"].long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
-    ce = (logz - gold).mean()
-    loss = ce + aux
-    return loss, {"ce": ce, "aux": aux,
-                  "accuracy": (logits.argmax(dim=-1) == targets).float()
-                  .mean()}
+    with dtensor_scope(params["embed"]["w"]):
+        x = _embed(cfg, params, batch)
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+        x, aux = _run_layers(cfg, params, x, positions, "train", None, remat)
+        x = L.apply_norm(cfg, params["final_norm"], x)
+        logits = _unembed(cfg, params, x)
+        targets = batch["targets"].long()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold, hit = _gold_and_hit(logits, targets)
+        ce = (logz - gold).mean()
+        loss = ce + aux
+        return loss, {"ce": ce, "aux": aux, "accuracy": hit.float().mean()}
+
+
+def _gold_and_hit(logits, targets):
+    """The gold logit and whether the argmax hits the target. Over DTensor
+    logits, whose vocab may be sharded, the gold logit is a masked sum
+    (exact: one term is not zero), so that it gathers no logits across
+    devices."""
+    if not is_dtensor(logits):
+        gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+        return gold, logits.argmax(dim=-1) == targets
+    ids = _vocab_ids(logits)
+    onehot = targets[..., None] == ids
+    gold = torch.where(onehot, logits, torch.zeros_like(logits)).sum(-1)
+    return gold, _argmax(logits) == targets
+
+
+def _vocab_ids(logits):
+    """arange(V) as a DTensor laid out as the logits' vocab axis."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    vocab = Shard(logits.ndim - 1)
+    return distribute_tensor(
+        torch.arange(logits.shape[-1], device=logits.to_local().device),
+        logits.device_mesh,
+        [Shard(0) if pl == vocab else Replicate()
+         for pl in logits.placements], src_data_rank=None)
+
+
+def _argmax(logits):
+    """``argmax`` over the last axis, the first of tied maxima. Over
+    DTensors, the least index that attains the max (two reductions that
+    shard as the vocab does, where DTensor's argmax gathers candidates)."""
+    if not is_dtensor(logits):
+        return torch.argmax(logits, dim=-1)
+    ids = _vocab_ids(logits)
+    top = logits.amax(dim=-1, keepdim=True)
+    return torch.where(logits == top, ids,
+                       torch.full_like(ids, logits.shape[-1])).amin(-1)
 
 
 def prefill_hidden(cfg: ModelConfig, params, tokens: torch.Tensor,
                    cache_len: int):
     """Prompt pass up to the final norm over tokens (B, S) at positions
     ``arange(S)``: (normed hidden (B, S, D), contiguous cache)."""
-    x = _embed(cfg, params, tokens)
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    cache0 = MC.model_cache_init(cfg, x.shape[0], cache_len, x.device)
-    x, cache = _run_layers(cfg, params, x, positions, "prefill", cache0)
-    return L.apply_norm(cfg, params["final_norm"], x), cache
+    with dtensor_scope(params["embed"]["w"]):
+        x = _embed(cfg, params, tokens)
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+        cache0 = MC.model_cache_init(cfg, x.shape[0], cache_len, x.device)
+        x, cache = _run_layers(cfg, params, x, positions, "prefill", cache0)
+        return L.apply_norm(cfg, params["final_norm"], x), cache
 
 
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache_len: int):
     """Run the prompt; returns (logits at the last position (B, V) f32,
     cache)."""
     x, cache = prefill_hidden(cfg, params, tokens, cache_len)
-    return _unembed(cfg, params, x[:, -1:])[:, 0], cache
+    with dtensor_scope(x):
+        return _unembed(cfg, params, x[:, -1:])[:, 0], cache
 
 
 def apply_cache_updates(cfg: ModelConfig, cache, updates, pos: int):
@@ -296,10 +365,12 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
     """One serve step: tokens (B, 1) at position ``pos`` (a host int)
     against the contiguous cache, which is updated in place. Returns
     (logits (B, V) f32, cache, next_token (B,) greedy)."""
-    x = _embed(cfg, params, tokens)
-    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    x, updates = _run_layers(cfg, params, x, positions, "decode", cache)
-    cache = apply_cache_updates(cfg, cache, updates, pos)
-    x = L.apply_norm(cfg, params["final_norm"], x)
-    logits = _unembed(cfg, params, x)[:, 0]
-    return logits, cache, torch.argmax(logits, dim=-1)
+    with dtensor_scope(params["embed"]["w"]):
+        x = _embed(cfg, params, tokens)
+        positions = torch.full((1,), pos, dtype=torch.int32,
+                               device=x.device)
+        x, updates = _run_layers(cfg, params, x, positions, "decode", cache)
+        cache = apply_cache_updates(cfg, cache, updates, pos)
+        x = L.apply_norm(cfg, params["final_norm"], x)
+        logits = _unembed(cfg, params, x)[:, 0]
+        return logits, cache, _argmax(logits)

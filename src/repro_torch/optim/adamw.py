@@ -11,21 +11,33 @@ element are the reference's; clipping scales each leaf's gradient inside
 its own update instead of building a clipped copy of the whole tree. A
 caller that must keep the pre-step values (a checkpoint snapshot) copies
 them first.
+
+Over DTensor leaves (a sharded run) m and v take their parameter's
+placements, as the reference's ``opt_pspecs`` mirror ``param_pspecs``,
+and ``step`` is replicated; the global norm's per-leaf sums come back
+partial and are reduced, and each gradient arrives laid out as its
+parameter (``train.step`` places it), so the in-place update is local.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.config import TrainConfig
+from repro_torch.sharding.api import is_dtensor
 from repro_torch.tree import leaves, map_leaves
 
 
 def init(params):
     z = map_leaves(lambda p: torch.zeros_like(p, dtype=torch.float32),
                    params)
-    dev = leaves(params)[0].device
-    return {"m": z, "v": map_leaves(torch.zeros_like, z),
-            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    p0 = leaves(params)[0]
+    step = torch.zeros((), dtype=torch.int32, device=p0.device)
+    if is_dtensor(p0):
+        from torch.distributed.tensor import DTensor, Replicate
+        mesh = p0.device_mesh
+        step = DTensor.from_local(step, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+    return {"m": z, "v": map_leaves(torch.zeros_like, z), "step": step}
 
 
 def global_norm(tree) -> torch.Tensor:

@@ -7,9 +7,10 @@ both round half to even.
     g_hat             = decompress(compressed, scale)
     error'            = (g + error) - g_hat          # carried to next step
 
-The reference's ``allreduce_compressed`` (a quantized psum over a named
-mesh axis) needs a process group; it waits for the sharding slice
-(ROADMAP §1 item 6).
+``allreduce_compressed`` is the quantized mean-all-reduce over a process
+group (the reference's psum over a named mesh axis inside ``shard_map``):
+the int8 codes summed as int32, exact in any order, and the scales summed
+in f32.
 """
 from __future__ import annotations
 
@@ -36,6 +37,23 @@ def ef_step(g: torch.Tensor, error: torch.Tensor):
     codes, scale = compress(tot)
     g_hat = decompress(codes, scale)
     return g_hat, tot - g_hat
+
+
+def allreduce_compressed(g: torch.Tensor, group=None) -> torch.Tensor:
+    """Quantized mean-all-reduce over ``group`` (the default group when
+    None; a mesh axis's group is ``mesh.get_group("pod")``): each rank
+    contributes int8 codes and its scale; the codes are summed in int32,
+    then rescaled by the mean of the scales (a 4-byte all-reduce)."""
+    import torch.distributed as dist
+
+    codes, scale = compress(g)
+    n = dist.get_world_size(group)
+    sum_codes = codes.to(torch.int32)
+    dist.all_reduce(sum_codes, group=group)
+    scale = scale.reshape(1).clone()
+    dist.all_reduce(scale, group=group)
+    mean_scale = scale[0] / n
+    return sum_codes.float() * mean_scale / n
 
 
 def ef_init(params):

@@ -1,10 +1,12 @@
-"""The train step. Port of ``make_loss_fn`` and ``make_train_step`` from
-``repro/train/step.py``.
+"""The train and prefill steps. Port of ``make_loss_fn``,
+``make_train_step`` and ``make_prefill_step`` from ``repro/train/step.py``.
 
 The reference's ``jax.value_and_grad`` is autograd here (``make_grad_fn``),
-its microbatch ``lax.scan`` a Python loop, and its donated buffers an
-in-place AdamW update. ``make_prefill_step`` (the dry run's) waits for the
-sharding slice (ROADMAP §1 item 6).
+its microbatch ``lax.scan`` a Python loop, its donated buffers an in-place
+AdamW update, and its prefill's ``lax.map`` over batch chunks a loop. The
+same steps run on plain tensors and on DTensors (a sharded run: params,
+optimizer state and batch laid out by ``sharding.rules`` under
+``use_mesh``).
 """
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ import torch
 from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw, schedule
-from repro_torch.tree import leaves, unflatten
+from repro_torch.sharding.api import dtensor_scope, is_dtensor
+from repro_torch.tree import flatten_with_path, leaves, unflatten
 
 
 def make_loss_fn(cfg: ModelConfig, remat: str):
@@ -32,15 +35,27 @@ def make_grad_fn(cfg: ModelConfig, remat: str):
 
     def grad_fn(params, batch):
         ps = [p.detach().requires_grad_(True) for p in leaves(params)]
-        with torch.enable_grad():
+        # the backward of a DTensor forward meets the plain masks and
+        # tables its forward saved, so it runs in the same scope
+        with torch.enable_grad(), dtensor_scope(ps[0]):
             loss, metrics = loss_fn(unflatten(params, ps), batch)
             grads = torch.autograd.grad(loss, ps, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
+        grads = [torch.zeros_like(p) if g is None else _placed(g, p)
                  for p, g in zip(ps, grads)]
         metrics = {k: v.detach() for k, v in metrics.items()}
         return (loss.detach(), metrics), unflatten(params, grads)
 
     return grad_fn
+
+
+def _placed(g, p):
+    """Gradient ``g`` laid out as its parameter ``p``: over DTensors the
+    all-reduce or reduce-scatter of a ``Partial`` gradient (a leaf
+    replicated on the axis that shards the batch), which GSPMD inserts in
+    the reference."""
+    if is_dtensor(g) and list(g.placements) != list(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig):
@@ -82,3 +97,32 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
         return params, opt_state, metrics
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig, cache_len: int, batch_chunks: int = 1):
+    """prefill_step(params, batch) -> (last-position logits (B, V) f32,
+    contiguous cache), the request batch (a dict of ``tokens`` or
+    ``embeds``, or the token tensor) optionally in ``batch_chunks``
+    sequential chunks, which bounds the transient activations. The chunks'
+    caches merge as the reference's: ``pos`` from chunk 0 (it is the same
+    in every chunk), every other leaf concatenated on its batch axis (the
+    one after the layer stack)."""
+    def prefill_step(params, batch):
+        if batch_chunks <= 1:
+            return T.prefill(cfg, params, batch, cache_len)
+        cols = batch if isinstance(batch, dict) else {"": batch}
+        b = next(iter(cols.values())).shape[0]
+        assert b % batch_chunks == 0, (b, batch_chunks)
+        bc = b // batch_chunks
+        outs = []
+        for c in range(batch_chunks):
+            part = {k: v[c * bc:(c + 1) * bc] for k, v in cols.items()}
+            outs.append(T.prefill(cfg, params, part.get("", part),
+                                  cache_len))
+        logits = torch.cat([o[0] for o in outs])
+        caches = [flatten_with_path(o[1]) for o in outs]
+        merged = [leaf if path[-1] == "pos" else
+                  torch.cat([c[i][1] for c in caches], dim=1)
+                  for i, (path, leaf) in enumerate(caches[0])]
+        return logits, unflatten(outs[0][1], merged)
+    return prefill_step

@@ -178,9 +178,10 @@ def test_launcher_trains_checkpoints_and_resumes(tmp_path, capsys):
 
 
 def test_launcher_refusals():
-    """What needs the sharding slice is refused with a message naming it."""
+    """``--multi-pod`` on a world of the wrong size is refused with a
+    message naming the size it needs."""
     for argv in (["--arch", ARCH, "--multi-pod", "--device", "cpu"],):
-        with pytest.raises(SystemExit, match="sharding slice"):
+        with pytest.raises(SystemExit, match="needs a world of 512 ranks"):
             LT.main(argv)
     # internlm2-1.8B's 1,889,110,016 params: 20 bytes each with an
     # accumulator; Qwen3-30B-A3B's would not fit one card
