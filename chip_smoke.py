@@ -147,8 +147,8 @@ runs:
    512-1024-token prompts; (e) a decode tick and a group prefill timed and
    profiled, and peak memory (``phase_moe``);
 11. the remaining token families at their published widths
-   (``phase_families``): granite-3-2b, gemma2-2b and deepseek-coder-33b
-   (4 of 62 layers) through the continuous engine (the image bit for
+   (``phase_families``): granite-3-2b (20 of 40 layers), gemma2-2b (14
+   of 26) and deepseek-coder-33b (4 of 62) through the continuous engine (the image bit for
    bit, f32 sealed-vs-plaintext logits at 1e-4, a staggered trace with
    its launches gated per dispatch, a verified run, Direct for granite
    and gemma2 with tokens equal to plaintext), RecurrentGemma-9B (6 of
@@ -269,13 +269,25 @@ runs:
    (d) ``torch.distributed.run --standalone --nproc-per-node 1 -m
    repro_torch.launch.train --arch internlm2_1_8b`` twice on one
    checkpoint directory (while (c) runs), the second resuming, both
-   exiting 0; (e) in a subprocess started at the phase's beginning (the
-   fake group needs its own process), ``launch.dryrun`` of granite_3_2b
-   decode_32k and
-   internlm2_1_8b train_4k (one microbatch) on the 16x16 mesh and of
-   granite_3_2b decode_32k on 2x16x16: status ok, collective bytes above
-   0, ``flops_per_device * devices`` at least the matmul part of
-   ``model_flops``, each ``roofline_row`` printed.
+   exiting 0; (e) in a subprocess started before phase 14, beside which
+   it runs (the fake group needs its own process), ``launch.dryrun`` of
+   granite_3_2b decode_32k and internlm2_1_8b train_4k (one microbatch)
+   on the 16x16 mesh and of granite_3_2b decode_32k on 2x16x16, and of
+   qwen3_moe_30b_a3b and
+   recurrentgemma_9b train_4k (one microbatch) on 16x16, the cells that
+   run the per-shard MoE and RG-LRU regions: status ok, collective bytes
+   above 0, ``flops_per_device * devices`` at least the matmul part of
+   ``model_flops``, each ``roofline_row`` printed; and (a'), after (a), a
+   fresh sharded start of internlm2-1.8B at 24 layers
+   (``rules.init_params``, one leaf at a time) equal bit for bit to
+   ``init_params``'s blocks, its peak printed beside the whole params;
+16. the port's three examples as subprocesses on the card, side by side:
+   ``examples/torch_quickstart.py`` (its eight steps; ``quickstart OK``
+   last, step 5's fused product within 1e-4 of its scale of the plain one
+   with at least one launch of ``csrc/sealed_matmul.cu``),
+   ``torch_sealed_serving.py`` (the four modes' generations identical) and
+   ``torch_train_lm.py`` at lm_100m for 30 steps (the last loss below the
+   first).
 
 Every phase raises on failure, so the script exits non-zero. The line before
 the last is a JSON ``{"kernels": [...]}`` record; the last line is
@@ -509,10 +521,20 @@ def main(argv=None) -> int:
     report["cnn"] = phase_cnn(torch, dev, args)
     # phase 13: training, its optimizer and its sealed checkpoints
     report["train"] = phase_train(torch, dev, args)
-    # phase 14: the paper's sealed-decode comparison and the step builders
-    report["sealed_decode"] = phase_sealed_decode(torch, dev, args)
-    # phase 15: sharding on DTensor under NCCL, and the dry run
-    report["sharded"] = phase_sharded(torch, dev, args, report["train"])
+    # phase 15 (e)'s dry run (CPU work, meta tensors) runs beside phase 14
+    dry = _start_dryrun()
+    try:
+        # phase 14: the paper's sealed-decode comparison and the make_*
+        # steps
+        report["sealed_decode"] = phase_sealed_decode(torch, dev, args)
+        # phase 15: sharding on DTensor under NCCL, and the dry run
+        report["sharded"] = phase_sharded(torch, dev, args, report["train"],
+                                          dry)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+    # phase 16: the port's three examples
+    report["examples"] = phase_examples(torch, dev, args)
 
     kernels = kernel_records(report)
     if args.report:
@@ -4037,7 +4059,7 @@ def _moe_direct(torch, dev, cfg, params, prompts, arrivals, plain_tokens,
 # (arch, layers run: 0 for the full depth) of the dense families served
 # through the continuous engine, and of the recurrent ones served through
 # the group engine (the reference serves them only there)
-FAMILY_DENSE = (("granite_3_2b", 0), ("gemma2_2b", 0),
+FAMILY_DENSE = (("granite_3_2b", 20), ("gemma2_2b", 14),
                 ("deepseek_coder_33b", 4))
 FAMILY_RECURRENT = (("recurrentgemma_9b", 6), ("mamba2_130m", 0))
 # the dense families that also run the Direct engine
@@ -4707,7 +4729,7 @@ def phase_families(torch, dev, args):
     """Phase 11: the remaining token families at their published widths,
     random weights from ``--seed``, bf16 unless said, ColoE SE 0.5 fused.
 
-    (a) granite-3-2b (40 layers), gemma2-2b (26 layers; local/global
+    (a) granite-3-2b (20 of 40 layers), gemma2-2b (14 of 26; local/global
     attention with a 4096 window, softcaps 50/30, head dim 256, tied head)
     and deepseek-coder-33b (4 of its 62 layers; 56 query heads padded to
     64, GQA 8:1) through the continuous engine: the image sealed and
@@ -6405,7 +6427,11 @@ SHARD_LOSS_REL = 1e-5
 LAUNCH_STEPS = (2, 4)      # (d): the launcher's two runs, the second resumes
 DRY_CELLS = (("granite_3_2b", "decode_32k", False, 0),
              ("internlm2_1_8b", "train_4k", False, 1),
-             ("granite_3_2b", "decode_32k", True, 0))
+             ("granite_3_2b", "decode_32k", True, 0),
+             # the cells that run the per-shard regions: MoE, RG-LRU
+             ("qwen3_moe_30b_a3b", "train_4k", False, 1),
+             ("recurrentgemma_9b", "train_4k", False, 1))
+WHOLE_PARAMS_GB = 7.56     # internlm2-1.8B's f32 params (its tree), for (a')
 
 
 def _whole(t):
@@ -6466,6 +6492,49 @@ def _sharded_parity(torch, dev, mesh, cfg, seed, label):
             and out["param_err"] <= SHARD_REL):
         raise AssertionError(f"[sharded] {label}: {out}")
     return out
+
+
+def _sharded_init(torch, dev, args, mesh):
+    """(a'): a fresh sharded start of internlm2-1.8B, all 24 layers
+    (``rules.init_params``: one leaf drawn at a time, each rank keeping its
+    block), against ``init_params`` on the card, bit for bit; its peak
+    beside the whole params (on a 1x1 mesh the blocks are the whole
+    leaves)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import rules as R
+    cfg = get_config(TRAIN_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    fresh = R.init_params(cfg, args.seed, mesh, dev)
+    torch.cuda.synchronize(dev)
+    secs = time.time() - t0
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    blocks = sum(t.to_local().numel() * 4 for _, t in flatten_paths(fresh))
+    largest = max(t.numel() * 4 for _, t in flatten_paths(fresh))
+    whole = T.init_params(cfg, args.seed, dev)
+    same = True
+    for (path, f), (_, w) in zip(flatten_paths(fresh), flatten_paths(whole)):
+        blk = R.local_block(tuple(w.shape), mesh, f.placements)
+        got, want = f.to_local(), w[blk]
+        same &= bool(got.shape == want.shape and torch.equal(
+            got.view(torch.int32), want.view(torch.int32)))
+    del fresh, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[sharded] (a') fresh sharded start of internlm2-1.8B, 24 layers, "
+        f"on the 1x1 mesh: bitwise init_params's blocks {same}; init peak "
+        f"{peak:.3f} GB against the whole params' {WHOLE_PARAMS_GB} GB "
+        f"(blocks {blocks / 1e9:.3f} GB, largest leaf {largest / 1e9:.3f} "
+        f"GB); {secs:.1f} s")
+    if not same or peak > (blocks + largest) / 1e9:
+        raise AssertionError(f"[sharded] (a') fresh start: bitwise {same}, "
+                             f"peak {peak} GB")
+    return {"bitwise": same, "peak_gb": peak, "blocks_gb": blocks / 1e9,
+            "largest_leaf_gb": largest / 1e9, "secs": secs}
 
 
 def _sharded_full(torch, dev, args, mesh, full13, tmp):
@@ -6703,8 +6772,9 @@ def _finish_dryrun(proc):
     return out
 
 
-def phase_sharded(torch, dev, args, train13):
-    """Phase 15: sharding on DTensor (module docstring, 15)."""
+def phase_sharded(torch, dev, args, train13, dry):
+    """Phase 15: sharding on DTensor (module docstring, 15); ``dry`` is
+    (e)'s subprocess, started before phase 14 so that it runs beside it."""
     import tempfile
     from repro_torch.configs import ARCH_IDS, get_reduced
     from repro_torch.launch.mesh import (init_distributed, make_host_mesh,
@@ -6712,7 +6782,6 @@ def phase_sharded(torch, dev, args, train13):
     t_phase = time.time()
     gc.collect()
     torch.cuda.empty_cache()
-    dry = _start_dryrun()
     out = {"parity": {}}
     tmp = tempfile.mkdtemp(prefix="repro_sharded_")
     try:
@@ -6731,6 +6800,7 @@ def phase_sharded(torch, dev, args, train13):
                     torch, dev, mesh, get_reduced(arch).with_(
                         dtype="float32"), args.seed, f"(a) {arch} reduced")
             log(f"[sharded] (a) {time.time() - t0:.1f} s")
+            out["init"] = _sharded_init(torch, dev, args, mesh)
             out["full"] = _sharded_full(torch, dev, args, mesh,
                                         train13["full"], tmp)
             # (d)'s subprocesses run while (c) seals, writes and hashes
@@ -6748,6 +6818,103 @@ def phase_sharded(torch, dev, args, train13):
     out["launches"] = out["checkpoint"]["launches"]
     out["wall_s"] = time.time() - t_phase
     log(f"[sharded] phase 15: {out['wall_s']:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 16: the port's three examples on the card
+# --------------------------------------------------------------------------
+
+EXAMPLE_TRAIN_STEPS = 30
+EXAMPLE_MATMUL_REL = 1e-4   # quickstart step 5 against the plain product
+
+
+def _start_example(name, argv, env):
+    """One example started as a subprocess on the card."""
+    return subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "examples", name + ".py")] + argv,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _example(name, argv, proc, t0):
+    """An example's stdout, once it has exited 0, and its wall s."""
+    out, err = proc.communicate(timeout=300)
+    wall = time.time() - t0
+    log(f"[examples] {name} {' '.join(argv)}: exit {proc.returncode} in "
+        f"{wall:.1f} s")
+    for line in out.strip().splitlines()[-12:]:
+        log(f"[examples]   {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"[examples] {name} failed: "
+                             f"{(out + err)[-3000:]}")
+    return out, wall
+
+
+def phase_examples(torch, dev, args):
+    """Phase 16: ``examples/torch_quickstart.py``, ``torch_sealed_serving.py``
+    and ``torch_train_lm.py`` (lm_100m, 30 steps) on the card, each gated
+    on its own claim line."""
+    import tempfile
+    t_phase = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    tmp = tempfile.mkdtemp(prefix="repro_examples_")
+    ckpt = os.path.join(tmp, "train_lm")
+    # the three side by side: small loads on one card
+    argv = {"torch_quickstart": [], "torch_sealed_serving": [],
+            "torch_train_lm": ["--steps", str(EXAMPLE_TRAIN_STEPS),
+                               "--ckpt", ckpt]}
+    t0 = time.time()
+    procs = {name: _start_example(name, a, env) for name, a in argv.items()}
+    out = {}
+    try:
+        text, wall = _example("torch_quickstart", argv["torch_quickstart"],
+                              procs["torch_quickstart"], t0)
+        lines = text.strip().splitlines()
+        step5 = json.loads(next(x for x in lines
+                                if x.startswith("step5 "))[6:])
+        rel = step5["max_abs_err"] / step5["scale"]
+        log(f"[examples] quickstart step 5: {step5['max_abs_err']:.3e} of "
+            f"scale {step5['scale']:.3f} ({rel:.2e}; gate "
+            f"{EXAMPLE_MATMUL_REL}), sealed_matmul launches "
+            f"{step5['sealed_matmul_launches']}")
+        if not (lines[-1] == "quickstart OK" and rel <= EXAMPLE_MATMUL_REL
+                and step5["sealed_matmul_launches"] >= 1):
+            raise AssertionError(f"[examples] quickstart: {lines[-1]!r}, "
+                                 f"{step5}")
+        out["quickstart"] = dict(step5, rel_err=rel, wall_s=wall)
+        text, wall = _example("torch_sealed_serving",
+                              argv["torch_sealed_serving"],
+                              procs["torch_sealed_serving"], t0)
+        if "all modes produce identical generations: True" not in text:
+            raise AssertionError(f"[examples] sealed_serving: {text[-2000:]}")
+        out["sealed_serving"] = {"wall_s": wall,
+                                 "modes": [x for x in text.splitlines()
+                                           if " reqs in " in x]}
+        text, wall = _example("torch_train_lm", argv["torch_train_lm"],
+                              procs["torch_train_lm"], t0)
+        with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+            recs = [json.loads(x) for x in f]
+        losses = [r["loss"] for r in recs if "loss" in r]
+        secs = [r["sec"] for r in recs if "sec" in r]
+        log(f"[examples] train_lm: {len(losses)} losses, first "
+            f"{losses[0]:.4f}, last {losses[-1]:.4f}; median step "
+            f"{statistics.median(secs[1:]) * 1e3:.1f} ms (host clock)")
+        if not ("trained lm-100m" in text and
+                len(losses) == EXAMPLE_TRAIN_STEPS and
+                losses[-1] < losses[0]):
+            raise AssertionError(f"[examples] train_lm: {losses}")
+        out["train_lm"] = {"wall_s": wall, "losses": losses,
+                           "median_step_s": statistics.median(secs[1:])}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s"] = time.time() - t_phase
+    log(f"[examples] phase 16: {out['wall_s']:.1f} s")
     return out
 
 

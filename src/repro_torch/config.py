@@ -1,8 +1,8 @@
 """Model, shape, mesh, training and SEAL configuration. Port of
-``repro/config.py`` (``MoEConfig``, ``ModelConfig``, ``ConvSpec``,
-``CNNConfig``, ``ShapeConfig``, ``SHAPES``, ``cell_supported``,
-``SealConfig``, ``MeshConfig``, ``TrainConfig``, ``RunConfig``, ``HW``,
-``PAPER_GPU``).
+``repro/config.py`` (``BLOCK_KINDS``, ``MoEConfig``, ``ModelConfig``,
+``ConvSpec``, ``CNNConfig``, ``ShapeConfig``, ``SHAPES``,
+``cell_supported``, ``SealConfig``, ``MeshConfig``, ``TrainConfig``,
+``RunConfig``, ``HW``, ``PAPER_GPU``).
 
 A copy, not an import: the port imports nothing from ``repro``. ``HW``
 holds the constants of the card the port runs on (an NVIDIA H100), in place
@@ -15,6 +15,9 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+
+BLOCK_KINDS = ("attn", "local_attn", "rglru", "ssd")
 
 
 @dataclass(frozen=True)

@@ -32,6 +32,12 @@ def unpad_lines(lines: torch.Tensor, orig_len: int) -> torch.Tensor:
     return lines.reshape(-1)[:orig_len]
 
 
+def coloe_pack(data_lines, counters, flags) -> torch.Tensor:
+    """(L,32), (L,), (L,) -> (L, 34) colocated buffer."""
+    return torch.cat([data_lines, counters.to(torch.int32)[:, None],
+                      flags.to(torch.int32)[:, None]], dim=1)
+
+
 def coloe_unpack(packed) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(L, 34) -> data (L,32), counters (L,), flags (L,)."""
     return (packed[:, :WORDS_PER_LINE], packed[:, WORDS_PER_LINE],

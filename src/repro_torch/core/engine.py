@@ -297,17 +297,17 @@ class ColoEEngine(_CtrBase):
 
     def _seal(self, lines, wc, flags, nonce2):
         """The packed (L, 34) records [32 data words | wc | flags] of
-        ``lines`` sealed under ``wc``, the data written run by run."""
+        ``lines`` sealed under ``wc`` (``coloe.coloe_pack``), written run by
+        run."""
         def run(first, rows):
             otp = self._otp(first, wc[rows].shape[0], wc[rows], nonce2)
             enc = (flags[rows] & 1).to(torch.bool)[:, None]
-            return torch.where(enc, lines[rows] ^ otp, lines[rows])
+            return CL.coloe_pack(torch.where(enc, lines[rows] ^ otp,
+                                             lines[rows]),
+                                 wc[rows], flags[rows])
         out = torch.empty((lines.shape[0], CL.COLOE_LINE_WORDS),
                           dtype=torch.int32, device=lines.device)
-        self._seal_runs(out[:, :CL.WORDS_PER_LINE], lines, run)
-        out[:, CL.WORDS_PER_LINE] = wc.to(torch.int32)
-        out[:, CL.WORDS_PER_LINE + 1] = flags.to(torch.int32)
-        return out
+        return self._seal_runs(out, lines, run)
 
     def encrypt(self, x, nonce2=(1, 2), write_counters=None,
                 enc_flags=None) -> SealedBuffer:

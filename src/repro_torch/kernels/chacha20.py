@@ -148,6 +148,14 @@ def chacha20_blocks(key_words, counters, nonce_words) -> torch.Tensor:
 chacha20_blocks.launches = 0
 
 
+def chacha20_keystream(key_words, nonce_words, counters) -> torch.Tensor:
+    """(16, N) keystream, word-major, for the (N,) ``counters``: the
+    reference's ``chacha20_keystream`` (argument order and layout), over
+    ``chacha20_blocks``, which writes (N, 16); the transpose is a view. Any
+    N: the reference's multiple of its tile is a Pallas grid's."""
+    return chacha20_blocks(key_words, counters, nonce_words).T
+
+
 # --------------------------------------------------------------------------
 # shared by the fused routes
 # --------------------------------------------------------------------------

@@ -200,3 +200,28 @@ def flash_attention_cuda(q, k, v, *, scale: float, softcap: float = 0.0,
 
 flash_attention_cuda.launches = 0
 flash_attention_tc_cuda.launches = 0
+
+
+def flash_attention(q, k, v, *, scale: float, softcap: float = 0.0,
+                    window: int = 0) -> torch.Tensor:
+    """Causal self-attention of q (b, s, hq, dh) over k, v (b, t, hkv, dh),
+    positions ``arange(s)`` and ``arange(t)``: optional tanh softcap and
+    sliding window, GQA by ``h // (hq // hkv)``; output in q's dtype. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel
+    ``_variant`` names (tensor cores for bf16 with head dim 64 or 128), or
+    raises; with grad mode on, a CUDA input that requires grad raises
+    (``ops._refuse_autograd``). The reference's tile sizes and
+    ``interpret`` are its Pallas grid's and have no counterpart here. The
+    model reaches it as ``ops.flash_attention``."""
+    if q.is_cuda:
+        from repro_torch.kernels.ops import _refuse_autograd
+        _refuse_autograd("flash_attention", 'layers.attention_apply(..., '
+                         'impl="naive"), the _sdpa of block mode "train"',
+                         q, k, v)
+        fn = (flash_attention_tc_cuda
+              if _variant(q.dtype, q.shape[-1]) == "flash_attention_tc"
+              else flash_attention_cuda)
+        return fn(q, k, v, scale=scale, softcap=softcap, window=window)
+    check(q, k, v, window)
+    return flash_attention_plain(q, k, v, scale=scale, softcap=softcap,
+                                 window=window)

@@ -1,6 +1,8 @@
 """Public wrappers over the port's kernels. Port of ``repro/kernels/ops.py``
-(``keystream``, ``sealed_matmul``), plus ``flash_attention``, which the
-reference calls straight from ``repro/kernels/flash_attention.py``, and the
+(``keystream``, ``seal_weights``, ``sealed_matmul``,
+``decrypt_then_matmul``), plus ``flash_attention`` (the route of
+``kernels/flash_attention.py::flash_attention``, which the reference calls
+straight from ``repro/kernels/flash_attention.py``), and the
 ChaCha routes that make their pads where the data is used (the reference
 composes these from ``chacha20_keystream``): ``cache_view``,
 ``cache_splice``, ``cache_copy``, ``cache_tags`` and ``cache_verify`` of
@@ -25,6 +27,7 @@ from repro_torch import u32
 from repro_torch.kernels import aes128 as _aes
 from repro_torch.kernels import chacha20 as _cc
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sealed_matmul as _sm
 
 _COUNTED = {"chacha20": _cc.chacha20_blocks,
@@ -87,7 +90,17 @@ def keystream(key_words, nonce_words, n_blocks: int, *,
     ctr = u32.from_i64(torch.arange(counter0, counter0 + n_blocks,
                                     dtype=torch.int64,
                                     device=key_words.device))
-    return _cc.chacha20_blocks(key_words, ctr, nonce_words).T
+    return _cc.chacha20_keystream(key_words, nonce_words, ctr)
+
+
+def seal_weights(w, key_words, nonce_words, *, bk: int = 128, bn: int = 128,
+                 row_mask=None, write_counter=0) -> torch.Tensor:
+    """Tile-seal of a weight matrix: (K, N) f32 -> (K, N) int32 ciphertext,
+    rows where ``row_mask`` is False left plaintext. The pads come from
+    ``core.cipher.chacha20_block``: the ChaCha20 kernel
+    (``csrc/chacha20.cu``) on a CUDA tensor."""
+    return _ref.seal_weights_ref(w, key_words, nonce_words, bk, bn,
+                                 row_mask, write_counter)
 
 
 def sealed_matmul(x, w_ct, row_mask, key_words, nonce_words,
@@ -120,23 +133,17 @@ def sealed_matmul(x, w_ct, row_mask, key_words, nonce_words,
     return out[:m]
 
 
-def flash_attention(q, k, v, *, scale: float, softcap: float = 0.0,
-                    window: int = 0) -> torch.Tensor:
-    """Causal self-attention of q (b, s, hq, dh) over k, v (b, t, hkv, dh),
-    positions ``arange(s)`` and ``arange(t)``: optional tanh softcap and
-    sliding window, GQA by ``h // (hq // hkv)``; output in q's dtype. A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel
-    ``_variant`` names (tensor cores for bf16 with head dim 64 or 128), or
-    raises; with grad mode on, a CUDA input that requires grad raises
-    (``_refuse_autograd``)."""
-    if q.is_cuda:
-        _refuse_autograd("flash_attention", 'layers.attention_apply(..., '
-                         'impl="naive"), the _sdpa of block mode "train"',
-                         q, k, v)
-        fn = (_fa.flash_attention_tc_cuda
-              if _fa._variant(q.dtype, q.shape[-1]) == "flash_attention_tc"
-              else _fa.flash_attention_cuda)
-        return fn(q, k, v, scale=scale, softcap=softcap, window=window)
-    _fa.check(q, k, v, window)
-    return _fa.flash_attention_plain(q, k, v, scale=scale, softcap=softcap,
-                                     window=window)
+def decrypt_then_matmul(x, w_ct, row_mask, key_words, nonce_words,
+                        write_counter=0, *, bk: int = 128,
+                        bn: int = 128) -> torch.Tensor:
+    """The unfused baseline, (M, N) f32: the whole weight unsealed first
+    (its pads from the ChaCha20 kernel on a CUDA tensor, an extra round
+    trip of the weight through memory), then a plain f32 product
+    (``torch.matmul``; the reference's is a ``jnp.dot`` outside any Pallas
+    kernel)."""
+    w = _ref.unseal_weights_ref(w_ct, key_words, nonce_words, bk, bn,
+                                row_mask, write_counter)
+    return torch.matmul(x.to(torch.float32), w)
+
+
+flash_attention = _fa.flash_attention

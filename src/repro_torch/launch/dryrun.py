@@ -17,14 +17,22 @@ write, collective bytes by kind and the peak of live op results.
 The record keeps the reference's fields that ``launch.roofline`` reads
 (``status``, ``devices``, ``mesh``, ``flops_per_device``,
 ``bytes_per_device``, ``collective_bytes_per_device``, ``memory`` with
-``argument_bytes`` and ``temp_bytes``); ``run_s`` is the step's host time.
+``argument_bytes`` and ``temp_bytes``); ``run_s`` is the step's host time
+and ``collective_sources_per_device`` the collective bytes by kind and
+source (``step_stats``).
 ``memory.temp_bytes`` is the peak of the step's live op results, the
 arguments excluded (there is no buffer assignment to read).
 ``"plan": "dtensor-eager"`` marks the counts as those of the port's eager
-DTensor plan: its regions without a sharding rule (``sharding.api.
-local_call``) and its embedding lookup gather their arguments whole on
-every device, so its FLOPs, bytes and collectives are not comparable
-with the reference's counts of the compiled GSPMD program.
+DTensor plan, not of the reference's compiled GSPMD program. Its regions
+without a sharding rule (``sharding.api.local_call``: the MoE slots,
+dispatch and combine, the RG-LRU and SSD conv and scan) run on each
+device's own shard of the batch, as ``shard_map`` regions would, the MoE
+dispatch into a buffer summed over the batch axes; its embedding lookup
+gathers only the ``d`` split of the table and reads each device's vocab
+block. What still parts the counts from GSPMD's is DTensor's propagation
+of the plain ops between them (a masked ``torch.where`` over sharded
+attention scores gathers them, for one), and the MoE combine, which reads
+the expert outputs whole.
 ``run_cell(..., reduced=True, mesh=...)`` runs a reduced config
 (``"config": "reduced"`` in the record) on any mesh: the CPU tests' fake
 4x2 and 1x1.
@@ -133,6 +141,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         flops_per_device=stats["flops"],
         bytes_per_device=stats["bytes"],
         collective_bytes_per_device=stats["collectives"],
+        collective_sources_per_device=stats["collective_sources"],
         memory=dict(argument_bytes=arg_bytes,
                     temp_bytes=stats["peak_bytes"]),
     )

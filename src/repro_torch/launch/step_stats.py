@@ -15,13 +15,18 @@ sees each ATen op the step dispatches.
     results alias their inputs and count as inputs only.
   * collective bytes by the reference's kinds (``COLLECTIVE_KINDS``): the
     result bytes of each c10d functional op that DTensor's redistributions
-    issue (the reference counts the result shape of each HLO collective).
+    issue (the reference counts the result shape of each HLO collective);
+    and the same bytes by source (``collective_sources``: the kind and the
+    innermost frame of the port's code that issued it, ``file:line
+    function``; a backward's collectives land on the autograd call).
   * ``peak_bytes``: the most bytes of op results alive at once, tracked by
     weak references (the arguments that existed before the step are not
     in it); on ``meta`` tensors too, so a dry run's step gets it.
 """
 from __future__ import annotations
 
+import os
+import sys
 import weakref
 from collections import defaultdict
 
@@ -48,6 +53,19 @@ def _nbytes(t) -> int:
     return t.numel() * t.element_size()
 
 
+def _source() -> str:
+    """``file:line function`` of the innermost frame of the port's code
+    (outside this module) on the stack."""
+    f = sys._getframe(1)
+    while f is not None:
+        path = f.f_code.co_filename
+        if "repro_torch" in path and not path.endswith("step_stats.py"):
+            where = "/".join(path.split(os.sep)[-2:])
+            return f"{where}:{f.f_lineno} {f.f_code.co_name}"
+        f = f.f_back
+    return "-"
+
+
 class StepStats(TorchDispatchMode):
     """``with StepStats() as st: step(...)`` then ``st.totals()``."""
 
@@ -58,6 +76,7 @@ class StepStats(TorchDispatchMode):
         self.flops = 0
         self.bytes = 0
         self.collectives = defaultdict(float)
+        self.sources = defaultdict(float)
         self.live = 0
         self.peak = 0
 
@@ -89,8 +108,9 @@ class StepStats(TorchDispatchMode):
             return out
         if func.namespace in _COMM_NAMESPACES:
             if name in _KIND:
-                self.collectives[_KIND[name]] += \
-                    sum(_nbytes(o) for o in t_out)
+                n = sum(_nbytes(o) for o in t_out)
+                self.collectives[_KIND[name]] += n
+                self.sources[f"{_KIND[name]} {_source()}"] += n
             return out
         packet = func._overloadpacket
         if packet in self._flops_of:
@@ -109,5 +129,7 @@ class StepStats(TorchDispatchMode):
         coll = {k: v for k, v in self.collectives.items() if v}
         return {"flops": float(self.flops), "bytes": float(self.bytes),
                 "collectives": coll,
+                "collective_sources": dict(sorted(
+                    self.sources.items(), key=lambda kv: -kv[1])),
                 "collective_bytes": float(sum(coll.values())),
                 "peak_bytes": int(self.peak)}

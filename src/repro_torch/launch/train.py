@@ -20,8 +20,8 @@ other world, or neither flag) the host mesh ``data = max(1, n // 2)``,
 ``n`` ranks. ``--production`` refuses a config whose f32 state does not
 fit one card (``card_bytes``): the params, gradients (and microbatch
 accumulator) and AdamW state divided over the mesh, or, at a fresh
-start, the whole f32 params that ``init_params`` makes on every card
-beside the params' and AdamW's shards. ``--checkpoint-dir`` defaults to ``repro_ckpt``
+start, the params' blocks beside the one whole leaf that
+``rules.init_params`` draws at a time. ``--checkpoint-dir`` defaults to ``repro_ckpt``
 in the temporary directory (``TMPDIR``), where the reference's is
 ``/tmp/repro_ckpt``.
 """
@@ -55,12 +55,12 @@ def training_bytes(cfg, microbatches: int) -> int:
 def card_bytes(cfg, microbatches: int, devices: int) -> float:
     """Bytes of f32 state a card holds at the larger of two moments, before
     any activation: a step (``training_bytes`` divided over the mesh's
-    ``devices``), and a fresh start, where the whole params are made on
-    every card before each keeps its block, beside the params' and
-    AdamW's blocks."""
-    n = sum(p.numel() for p in leaves(T.param_spec(cfg)))
+    ``devices``), and a fresh start (``rules.init_params``), where each
+    leaf is drawn whole on the card, one at a time, beside the blocks of
+    the leaves drawn before it."""
+    sizes = [p.numel() for p in leaves(T.param_spec(cfg))]
     return max(training_bytes(cfg, microbatches) / devices,
-               n * 4 * (1 + 3 / devices))
+               4 * (max(sizes) + sum(sizes) / devices))
 
 
 def main(argv=None) -> int:
@@ -119,8 +119,8 @@ def _run(args, dtype: str) -> int:
                 f"--production {cfg.name}: f32 params, gradients and AdamW "
                 f"state take {need / 2**30:.1f} GiB a card on the "
                 f"{'x'.join(map(str, mesh.shape))} mesh (at a fresh start "
-                f"the whole params are made on every card), of the card's "
-                f"{have / 2**30:.1f} GiB, before activations")
+                f"the largest leaf is drawn whole on each card), of the "
+                f"card's {have / 2**30:.1f} GiB, before activations")
     tc = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                      microbatches=args.microbatches,
                      checkpoint_every=args.checkpoint_every,

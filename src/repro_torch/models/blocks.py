@@ -238,10 +238,11 @@ def rglru_block_apply(cfg: ModelConfig, p, x, mode, cache):
     xg = constrain(L.dense(xb, p["w_gate"], "bsd,dw->bsw", dt),
                    "batch", None, "rnn_width")
     c = cache or {}
-    # the conv and the scan on whole tensors (``local_call``) over DTensors
+    # the conv and the scan on each rank's own rows of the batch
+    # (``local_call``) over DTensors, the small weights replicated
     h_seq, h_last, conv = local_call(
         functools.partial(_rglru_mix, mode), xa, c.get("conv"), c.get("h"),
-        *(p[k] for k in _RGLRU_LEAVES))
+        *(p[k] for k in _RGLRU_LEAVES), batch=3)
     new_cache = None if mode == "train" else {"h": h_last, "conv": conv}
     y = h_seq.to(dt) * F.gelu(xg, approximate="tanh")
     return L.dense(y, p["w_out"], "bsw,wd->bsd", dt), new_cache
@@ -368,11 +369,11 @@ def ssd_block_apply(cfg: ModelConfig, p, x, mode, cache):
     dt_ = L.cdtype(cfg)
     zxbcdt = L.dense(x.to(dt_), p["w_in"], "bsd,de->bse", dt_)
     c = cache or {}
-    # the conv and the SSD scan on whole tensors (``local_call``) over
-    # DTensors
+    # the conv and the SSD scan on each rank's own rows of the batch
+    # (``local_call``) over DTensors, the small weights replicated
     y, z, state, new_conv = local_call(
         functools.partial(_ssd_mix, cfg, mode), zxbcdt, c.get("conv"),
-        c.get("state"), *(p[k] for k in _SSD_LEAVES))
+        c.get("state"), *(p[k] for k in _SSD_LEAVES), batch=3)
     # gated RMSNorm (mamba2): norm(y * silu(z))
     y = L.rmsnorm(y * F.silu(z), p["norm_scale"])
     y = constrain(y, "batch", None, "ssm_inner")

@@ -33,7 +33,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.core.sealed_tensor import SealedTensor
 from repro_torch.kernels import ops
 from repro_torch.sharding.api import (constrain, is_dtensor, local_call,
-                                      logical_spec)
+                                      logical_spec, shard_prefix_sum)
 
 
 def cdtype(cfg: ModelConfig) -> torch.dtype:
@@ -380,7 +380,8 @@ def moe_apply_dense(cfg: ModelConfig, p, x):
     t = b * s
     xb = x.reshape(t, d).to(dt)
     gate_vals, gate_idx, aux = moe_router(cfg, p, xb)
-    gates = local_call(_dense_gates, gate_idx, gate_vals, moe.num_experts)
+    gates = local_call(_dense_gates, gate_idx, gate_vals, moe.num_experts,
+                       batch=2)
     a = act_fn(cfg.act)
     # (t, d) against every expert: (e, t, f), then (e, t, d)
     h = a(_expert_matmul(xb, p["wg"], dt)) * _expert_matmul(xb, p["wi"], dt)
@@ -424,7 +425,10 @@ def capacity_slots(gate_idx, num_experts: int, cap: int):
     ``gate_idx`` (t, k): an entry's position in its expert's buffer is the
     count of earlier entries (in token, then choice order) routed to that
     expert; it is kept below ``cap``, at slot ``expert * cap + position``
-    (``expert * cap`` when dropped)."""
+    (``expert * cap`` when dropped). Inside a ``local_call`` region split
+    over the batch, the earlier entries include those of the lower shards
+    (their counts per expert, all-gathered), so each rank keeps the entries
+    of the global order."""
     flat_expert = gate_idx.reshape(-1)
     # the reference's one-hot cumsum, by a stable sort: entries grouped by
     # expert keep their (token, choice) order, and an entry's position is
@@ -436,7 +440,7 @@ def capacity_slots(gate_idx, num_experts: int, cap: int):
     counts = torch.zeros(num_experts, dtype=flat_expert.dtype,
                          device=flat_expert.device).scatter_add_(
         0, flat_expert, torch.ones_like(flat_expert))
-    first = counts.cumsum(dim=0) - counts
+    first = counts.cumsum(dim=0) - counts - shard_prefix_sum(counts)
     ranks = torch.arange(flat_expert.shape[0], device=flat_expert.device)
     pos = torch.empty_like(flat_expert)
     pos[order] = ranks - first[flat_expert[order]]
@@ -472,20 +476,23 @@ def _moe_apply_block(cfg: ModelConfig, p, x, *, capacity_factor=None):
     # runs each op in the dtype it is given, so nothing needs pinning
     #
     # Over DTensors the slot bookkeeping, the dispatch and the combine run
-    # on whole tensors (``local_call``: the capacity order is global over
-    # the tokens, as in the reference) and the expert products sharded.
+    # on each rank's own tokens (``local_call``; the capacity order stays
+    # the global one of the reference, ``capacity_slots``), the dispatch
+    # into a buffer summed over the ranks that split the tokens, and the
+    # expert products sharded.
     xb = constrain(x.reshape(t, d).to(dt), "moe_tokens", None)
     gate_vals, gate_idx, aux = moe_router(cfg, p, xb)
-    keep, slot = local_call(capacity_slots, gate_idx, e, cap)
-    buf = local_call(_moe_dispatch, xb, keep, slot, e, cap, k)
+    keep, slot = local_call(capacity_slots, gate_idx, e, cap, batch=1)
+    buf = local_call(_moe_dispatch, xb, keep, slot, e, cap, k, batch=3,
+                     partial_out=True)
     buf = constrain(buf, "expert", None, None)
 
     a = act_fn(cfg.act)
     h = a(_expert_matmul(buf, p["wg"], dt)) * _expert_matmul(buf, p["wi"], dt)
     h = constrain(h, "expert", None, "moe_ff")
     eout = constrain(_expert_matmul(h, p["wo"], dt), "expert", None, None)
-    out = local_call(_moe_combine, eout.reshape(e * cap, d), gate_vals,
-                     keep, slot, k)
+    out = local_call(_moe_combine, gate_vals, keep, slot,
+                     eout.reshape(e * cap, d), k, batch=3)
     return constrain(out.reshape(b, s, d), "batch", None, None), aux
 
 
@@ -500,7 +507,7 @@ def _moe_dispatch(xb, keep, slot, e: int, cap: int, k: int):
     return buf[:e * cap].reshape(e, cap, d)
 
 
-def _moe_combine(eout, gate_vals, keep, slot, k: int):
+def _moe_combine(gate_vals, keep, slot, eout, k: int):
     """Each token's k gated expert outputs summed in choice order."""
     t, d = gate_vals.shape[0], eout.shape[1]
     w = (gate_vals.reshape(-1) * keep).to(eout.dtype)

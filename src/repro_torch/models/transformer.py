@@ -29,10 +29,17 @@ from repro_torch.sharding.api import constrain, dtensor_scope, is_dtensor
 from repro_torch.tree import leaves, map_leaves, unflatten
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None):
-    """Random f32 params, shaped like the reference's ``init_params``."""
+def init_params(cfg: ModelConfig, seed: int = 0, device=None, lay=None):
+    """Random f32 params, shaped like the reference's ``init_params``.
+
+    ``lay(path, leaf)``, when given, receives each leaf as soon as it is
+    made, in the generator's order, and what it returns is kept in the tree
+    in the leaf's place (``sharding.rules.init_params`` keeps the rank's
+    block, so a fresh sharded start never holds more than one whole leaf);
+    the numbers are the same either way."""
     dev = resolve_device(device)
-    return _init(cfg, dev, torch.Generator(device=dev).manual_seed(seed))
+    return _init(cfg, dev, torch.Generator(device=dev).manual_seed(seed),
+                 lay)
 
 
 def param_spec(cfg: ModelConfig):
@@ -42,102 +49,112 @@ def param_spec(cfg: ModelConfig):
     return _init(cfg, torch.device("meta"), None)
 
 
-def _init(cfg: ModelConfig, dev: torch.device, gen):
+def _init(cfg: ModelConfig, dev: torch.device, gen, lay=None):
     n = cfg.n_superblocks()
     d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
     hq, hkv, dh = cfg.heads_eff, cfg.num_kv_heads, cfg.head_dim
+    lay = lay or (lambda path, t: t)
 
-    def normal(shape, scale):
-        return torch.randn(shape, generator=gen, device=dev,
-                           dtype=torch.float32).mul_(scale)
+    def normal(path, shape, scale, dead=None):
+        t = torch.randn(shape, generator=gen, device=dev,
+                        dtype=torch.float32).mul_(scale)
+        if dead is not None:         # padded heads, zeroed in place
+            t.masked_fill_(dead, 0.0)
+        return lay(path, t)
 
-    def norm():
-        p = {"scale": torch.zeros((n, d), device=dev)}
+    def fill(path, shape, value):
+        return lay(path, torch.full(shape, value, dtype=torch.float32,
+                                    device=dev))
+
+    def norm(path, shape=(n, d)):
         if cfg.norm == "layernorm":
-            p = {"scale": torch.ones((n, d), device=dev),
-                 "bias": torch.zeros((n, d), device=dev)}
-        return p
+            return {"scale": fill(path + ("scale",), shape, 1.0),
+                    "bias": fill(path + ("bias",), shape, 0.0)}
+        return {"scale": fill(path + ("scale",), shape, 0.0)}
 
-    params = {
-        "embed": {"w": normal((v, d), d ** -0.5)},
-        "final_norm": {k: t[0] for k, t in norm().items()},
-    }
+    params = {"embed": {"w": normal(("embed", "w"), (v, d), d ** -0.5)},
+              "final_norm": norm(("final_norm",), (d,))}
     if not cfg.tie_embeddings:
-        params["head"] = {"w": normal((d, v), d ** -0.5)}
+        params["head"] = {"w": normal(("head", "w"), (d, v), d ** -0.5)}
 
-    def mlp():
+    def mlp(path):
         if cfg.moe is not None:     # (n, e, ...) experts and their router
             e = cfg.moe.num_experts
-            return {"router": normal((n, d, e), d ** -0.5),
-                    "wi": normal((n, e, d, f), d ** -0.5),
-                    "wg": normal((n, e, d, f), d ** -0.5),
-                    "wo": normal((n, e, f, d), f ** -0.5)}
-        return {"wi": normal((n, d, f), d ** -0.5),
-                "wg": normal((n, d, f), d ** -0.5),
-                "wo": normal((n, f, d), f ** -0.5)}
+            return {"router": normal(path + ("router",), (n, d, e),
+                                     d ** -0.5),
+                    "wi": normal(path + ("wi",), (n, e, d, f), d ** -0.5),
+                    "wg": normal(path + ("wg",), (n, e, d, f), d ** -0.5),
+                    "wo": normal(path + ("wo",), (n, e, f, d), f ** -0.5)}
+        return {"wi": normal(path + ("wi",), (n, d, f), d ** -0.5),
+                "wg": normal(path + ("wg",), (n, d, f), d ** -0.5),
+                "wo": normal(path + ("wo",), (n, f, d), f ** -0.5)}
 
-    def const(row):                  # one row per super-block
-        return row.to(dev)[None].repeat(n, 1)
+    def const(path, row):            # one row per super-block
+        return lay(path, row.to(dev)[None].repeat(n, 1))
 
-    def rec():                       # RG-LRU (Griffin)
+    def rec(path):                   # RG-LRU (Griffin)
         w = cfg.rglru_block_width or d
         ramp = torch.linspace(0.9, 0.999, w, dtype=torch.float32)
         lam = torch.log(torch.expm1(ramp ** -(1 / B._RGLRU_C) - 1 + 1e-8))
-        return {"w_x": normal((n, d, w), d ** -0.5),
-                "w_gate": normal((n, d, w), d ** -0.5),
-                "conv_w": normal((n, 4, w), 0.1),
-                "conv_b": torch.zeros((n, w), device=dev),
-                "w_rg": normal((n, w, w), w ** -0.5),
-                "b_rg": torch.zeros((n, w), device=dev),
-                "w_ig": normal((n, w, w), w ** -0.5),
-                "b_ig": torch.zeros((n, w), device=dev),
-                "lam": const(lam),
-                "w_out": normal((n, w, d), w ** -0.5)}
+        return {"w_x": normal(path + ("w_x",), (n, d, w), d ** -0.5),
+                "w_gate": normal(path + ("w_gate",), (n, d, w), d ** -0.5),
+                "conv_w": normal(path + ("conv_w",), (n, 4, w), 0.1),
+                "conv_b": fill(path + ("conv_b",), (n, w), 0.0),
+                "w_rg": normal(path + ("w_rg",), (n, w, w), w ** -0.5),
+                "b_rg": fill(path + ("b_rg",), (n, w), 0.0),
+                "w_ig": normal(path + ("w_ig",), (n, w, w), w ** -0.5),
+                "b_ig": fill(path + ("b_ig",), (n, w), 0.0),
+                "lam": const(path + ("lam",), lam),
+                "w_out": normal(path + ("w_out",), (n, w, d), w ** -0.5)}
 
-    def ssd():                       # Mamba2 SSD
+    def ssd(path):                   # Mamba2 SSD
         di, ns, h = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
         lo, hi = torch.log(torch.tensor(1e-3)), torch.log(torch.tensor(1e-1))
         u = torch.rand((n, h), generator=gen, device=dev) * (hi - lo) + lo
-        return {"w_in": normal((n, d, 2 * di + 2 * ns + h), d ** -0.5),
-                "conv_w": normal((n, cfg.ssm_conv, di + 2 * ns), 0.1),
-                "conv_b": torch.zeros((n, di + 2 * ns), device=dev),
-                "A_log": const(torch.log(torch.arange(
+        return {"w_in": normal(path + ("w_in",), (n, d, 2 * di + 2 * ns + h),
+                               d ** -0.5),
+                "conv_w": normal(path + ("conv_w",),
+                                 (n, cfg.ssm_conv, di + 2 * ns), 0.1),
+                "conv_b": fill(path + ("conv_b",), (n, di + 2 * ns), 0.0),
+                "A_log": const(path + ("A_log",), torch.log(torch.arange(
                     1, h + 1, dtype=torch.float32))),
-                "D": torch.ones((n, h), device=dev),
-                "dt_bias": torch.log(torch.expm1(torch.exp(u))),
-                "norm_scale": torch.zeros((n, di), device=dev),
-                "w_out": normal((n, di, d), di ** -0.5)}
+                "D": fill(path + ("D",), (n, h), 1.0),
+                "dt_bias": lay(path + ("dt_bias",),
+                               torch.log(torch.expm1(torch.exp(u)))),
+                "norm_scale": fill(path + ("norm_scale",), (n, di), 0.0),
+                "w_out": normal(path + ("w_out",), (n, di, d), di ** -0.5)}
 
-    def attention():
-        wq = normal((n, d, hq, dh), d ** -0.5)
-        wk = normal((n, d, hkv, dh), d ** -0.5)
-        wv = normal((n, d, hkv, dh), d ** -0.5)
-        wo = normal((n, hq, dh, d), (cfg.num_heads * dh) ** -0.5)
+    def attention(path):
+        dq = do = None
         if hq > cfg.num_heads:
             # heads padded WITHIN each GQA group (zero heads at each
             # group's tail), as the reference pads them: the q-head ->
             # kv-head assignment is unchanged and the padded heads start
             # as exact no-ops
-            live = (torch.arange(hq // hkv, device=dev)
-                    < cfg.num_heads // hkv).repeat(hkv)
-            wq = torch.where(live[:, None], wq, 0.0)
-            wo = torch.where(live[:, None, None], wo, 0.0)
-        return {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
+            dead = ~(torch.arange(hq // hkv, device=dev)
+                     < cfg.num_heads // hkv).repeat(hkv)
+            dq, do = dead[:, None], dead[:, None, None]
+        return {"wq": normal(path + ("wq",), (n, d, hq, dh), d ** -0.5, dq),
+                "wk": normal(path + ("wk",), (n, d, hkv, dh), d ** -0.5),
+                "wv": normal(path + ("wv",), (n, d, hkv, dh), d ** -0.5),
+                "wo": normal(path + ("wo",), (n, hq, dh, d),
+                             (cfg.num_heads * dh) ** -0.5, do)}
 
     blocks = []
-    for kind in cfg.pattern:
-        blk = {"norm1": norm()}
+    for j, kind in enumerate(cfg.pattern):
+        path = ("blocks", str(j))
+        blk = {"norm1": norm(path + ("norm1",))}
         if kind in ("attn", "local_attn"):
-            blk["attn"] = attention()
+            blk["attn"] = attention(path + ("attn",))
         elif kind == "rglru":
-            blk["rec"] = rec()
+            blk["rec"] = rec(path + ("rec",))
         elif kind == "ssd":
-            blk["ssd"] = ssd()
+            blk["ssd"] = ssd(path + ("ssd",))
         else:
             raise ValueError(kind)
         if kind != "ssd" and cfg.d_ff:
-            blk["norm2"] = norm()
-            blk["mlp"] = mlp()
+            blk["norm2"] = norm(path + ("norm2",))
+            blk["mlp"] = mlp(path + ("mlp",))
         blocks.append(blk)
     params["blocks"] = tuple(blocks)
     return params
@@ -169,19 +186,43 @@ def _embed(cfg: ModelConfig, params, batch) -> torch.Tensor:
 
 
 def _lookup(w, tokens):
-    """The rows of DTensor ``w`` at ``tokens`` by the plain path's own
-    indexing (and its backward), on each device's own tokens: the table
-    gathered whole (gather on use), the rows laid out as the tokens. The
-    gathered table's gradient is partial over the axes that split the
-    tokens and is reduced onto ``w``'s layout in the backward."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+    """The rows of DTensor ``w`` (vocab, d) at DTensor ``tokens``, on each
+    rank's own tokens, without making the table whole where its vocab is
+    split: the split of ``d`` is gathered (FSDP's weight gather), each rank
+    looks its ids up in its own block of the vocab (ids outside it give
+    zero rows) and the rows are summed over the axes that split the vocab
+    (``Partial``). An odd vocab, replicated, has ``d`` alone gathered. The
+    gradient of the rank's block is summed over the axes that split the
+    tokens and reduced onto ``w``'s layout in the backward."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     mesh = w.device_mesh
-    tok, layout = tokens.to_local(), list(tokens.placements)
-    whole = w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
-        grad_placements=[Replicate() if isinstance(pl, Replicate)
-                         else Partial() for pl in layout])
-    return DTensor.from_local(whole[tok], mesh, layout, run_check=False)
+    tok_pls = [pl if isinstance(pl, Shard) else Replicate()
+               for pl in tokens.placements]
+    # per mesh dim: the table keeps a split of the vocab unless the tokens
+    # are split there too (then that dim's vocab is gathered)
+    vocab = [type(pl) is Shard and pl.dim == 0 and isinstance(tp, Replicate)
+             for pl, tp in zip(w.placements, tok_pls)]
+    tab_pls = [Shard(0) if v else Replicate() for v in vocab]
+    grad_pls = [Partial() if isinstance(tp, Shard) else tab
+                for tp, tab in zip(tok_pls, tab_pls)]
+    out_pls = [tp if isinstance(tp, Shard) else Partial() if v
+               else Replicate() for tp, v in zip(tok_pls, vocab)]
+    tab = w.redistribute(mesh, tab_pls).to_local(grad_placements=grad_pls)
+    tok = tokens.redistribute(mesh, tok_pls).to_local()
+    rows, lo = tab.shape[0], 0
+    coord = mesh.get_coordinate()
+    for i, v in enumerate(vocab):
+        if v:
+            lo = lo * mesh.shape[i] + coord[i]
+    lo *= rows
+    if rows == w.shape[0]:
+        x = tab[tok]
+    else:
+        ids = tok - lo
+        own = (ids >= 0) & (ids < rows)
+        x = torch.where(own[..., None], tab[ids.clamp(0, rows - 1)], 0)
+    return DTensor.from_local(x, mesh, out_pls, run_check=False)
 
 
 def _unembed(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:

@@ -35,6 +35,7 @@ naming the torch release, when they are not.
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -227,7 +228,20 @@ def constrain(x, *logical_axes):
     target = placements(mesh, spec, x.ndim)
     if list(x.placements) == target:
         return x
-    return x.redistribute(mesh, target)
+    return _relayout(x, target)
+
+
+def _relayout(x, target):
+    """DTensor ``x`` redistributed to the placements ``target``, the
+    target's splits of the mesh dims ``x`` replicates first: a local chunk,
+    so that a reduction after it (a ``Partial`` dim) moves the kept block
+    alone (DTensor would reduce the whole tensor, then chunk it)."""
+    from torch.distributed.tensor import Replicate, Shard
+    first = [t if isinstance(c, Replicate) and type(t) is Shard else c
+             for c, t in zip(x.placements, target)]
+    if first != list(x.placements) and first != list(target):
+        x = x.redistribute(x.device_mesh, first)
+    return x.redistribute(x.device_mesh, target)
 
 
 def dp_axes(mesh) -> Tuple[str, ...]:
@@ -277,24 +291,111 @@ def _implicit_replication():
         disp._allow_implicit_replication = prev
 
 
-def local_call(fn, *args):
-    """``fn(*args)`` on whole plain tensors: each DTensor argument
-    all-gathered, each tensor ``fn`` returns a DTensor replicated on the
-    arguments' mesh. The region of a computation that DTensor has no
-    sharding rule for (sorts, scans, indexed writes); differentiable
-    through both conversions. With no DTensor argument, ``fn(*args)``."""
+def _split_placements(mesh, split, inside):
+    """Placements: ``inside`` on the mesh dims in ``split``, ``Replicate``
+    on the others."""
+    from torch.distributed.tensor import Replicate
+    return [inside if i in split else Replicate() for i in range(mesh.ndim)]
+
+
+@functools.cache
+def _whole_fn():
+    """The autograd function that hands a region a replicated argument,
+    made on first use (this module imports no torch at its top)."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate
+
+    class Whole(torch.autograd.Function):
+        """DTensor ``a`` replicated whole, as a plain tensor; in the
+        backward the rank's gradient, a sum over the split axes
+        (``summed``), goes back onto ``a``'s layout by ``_relayout``."""
+
+        @staticmethod
+        def forward(ctx, a, summed):
+            ctx.mesh, ctx.pls, ctx.summed = a.device_mesh, a.placements, \
+                summed
+            return a.redistribute(
+                a.device_mesh, [Replicate()] * a.device_mesh.ndim).to_local()
+
+        @staticmethod
+        def backward(ctx, g):
+            g = DTensor.from_local(g, ctx.mesh, ctx.summed, run_check=False)
+            return _relayout(g, ctx.pls), None
+    return Whole
+
+
+def local_call(fn, *args, batch: int = 0, partial_out: bool = False):
+    """``fn(*args)`` as a region over each rank's own shard of the batch,
+    in the manner of ``shard_map``: the first ``batch`` arguments are split
+    on their dim 0 over the mesh's ``pod`` and ``data`` axes (each rank
+    holds its block of the batch, in the batch's order), every other
+    DTensor argument is replicated whole, and ``fn`` runs on the local
+    tensors. Each tensor ``fn`` returns becomes a DTensor split the same way
+    on its dim 0, or, with ``partial_out``, the sum over those axes of the
+    ranks' tensors (``Partial``: a buffer each rank fills with its own
+    entries). Differentiable: a replicated argument's gradient is summed
+    over the split axes. A batch whose size those axes do not divide runs
+    whole on every rank. The region of a computation that DTensor has no
+    sharding rule for (sorts, scans, indexed writes); inside it
+    ``shard_prefix_sum`` reads the lower shards. With no DTensor argument,
+    ``fn(*args)``."""
     mesh = next((a.device_mesh for a in args if is_dtensor(a)), None)
     if mesh is None:
         return fn(*args)
-    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor import DTensor, Partial, Shard
 
-    rep = [Replicate()] * mesh.ndim
-    out = fn(*[a.full_tensor() if is_dtensor(a) else a for a in args])
+    names, sizes = mesh_axes(mesh)
+    dp = tuple(names.index(a) for a in dp_axes(mesh))
+    n = 1
+    for i in dp:
+        n *= sizes[i]
+    split = dp if batch and args[0].shape[0] % n == 0 else ()
+    shard = _split_placements(mesh, split, Shard(0))
+    summed = _split_placements(mesh, split, Partial())
+
+    def local(i, a):
+        if not is_dtensor(a):
+            if i < batch and split and hasattr(a, "shape"):
+                raise ValueError("a batch argument of a split region must "
+                                 "be a DTensor")
+            return a
+        if i < batch:
+            return a.redistribute(mesh, shard).to_local(grad_placements=shard)
+        return _whole_fn().apply(a, summed)
+
+    prev = getattr(_state, "region", None)
+    _state.region = (mesh, split)
+    try:
+        out = fn(*[local(i, a) for i, a in enumerate(args)])
+    finally:
+        _state.region = prev
+    pls = summed if partial_out else shard
 
     def wrap(y):
         if isinstance(y, tuple):
             return tuple(wrap(v) for v in y)
         if hasattr(y, "shape") and not is_dtensor(y):
-            return DTensor.from_local(y, mesh, rep, run_check=False)
+            return DTensor.from_local(y, mesh, pls, run_check=False)
         return y
     return wrap(out)
+
+
+def shard_prefix_sum(x):
+    """Inside a ``local_call`` region split over the batch: the sum of
+    ``x`` over the shards that come before this rank's in the batch's order
+    (an all-gather of ``x`` over the split axes). Zeros outside a region,
+    or in one that runs whole."""
+    import torch
+    region = getattr(_state, "region", None)
+    if region is None or not region[1]:
+        return torch.zeros_like(x)
+    from torch.distributed.tensor import DTensor, Shard
+
+    mesh, split = region
+    every = DTensor.from_local(
+        x[None], mesh, _split_placements(mesh, split, Shard(0)),
+        run_check=False).full_tensor()
+    coord, idx = mesh.get_coordinate(), 0
+    for i in split:
+        idx = idx * mesh.shape[i] + coord[i]
+    return every[:idx].sum(dim=0)

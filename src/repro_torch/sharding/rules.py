@@ -12,7 +12,9 @@ The tables read only the mesh's axis names and sizes, so they take a
 of the reference's ``jax.device_put(tree, to_named(mesh, specs))``; a
 spec's placements are ``sharding.api.placements``. ``place`` and
 ``zeros_tree`` build a DTensor from the rank's own block alone, so that a
-restore or a fresh AdamW state never holds a whole leaf on a card.
+restore or a fresh AdamW state never holds a whole leaf on a card;
+``init_params`` draws a fresh start leaf by leaf, keeping each leaf's block
+before the next is drawn.
 """
 from __future__ import annotations
 
@@ -299,6 +301,20 @@ def distribute_tree(tree, mesh, spec_tree):
     stays ``meta``."""
     return unflatten(tree, [place(t, mesh, s, t.dtype, t.device) for s, t in
                             zip(_spec_leaves(spec_tree), leaves(tree))])
+
+
+def init_params(cfg: ModelConfig, seed: int, mesh, device):
+    """``transformer.init_params(cfg, seed)`` laid out on ``mesh`` by
+    ``param_pspecs``, one leaf at a time: each leaf is drawn whole, in the
+    generator's order, the rank keeps its block (``place``) and the leaf is
+    freed before the next is drawn. A rank holds its blocks and one whole
+    leaf at most, and each block equals the same block of the unsharded
+    ``init_params(cfg, seed)`` bit for bit."""
+    specs = {path: s for (path, _), s in zip(
+        flatten_with_path(T.param_spec(cfg)),
+        _spec_leaves(param_pspecs(cfg, mesh)))}
+    return T.init_params(cfg, seed, device, lay=lambda path, t: place(
+        t, mesh, specs[path], t.dtype, t.device))
 
 
 def zeros_tree(template, mesh, spec_tree, device):

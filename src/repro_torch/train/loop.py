@@ -7,11 +7,11 @@ reference's path (params, AdamW state and each batch laid out by
 under ``use_mesh(mesh, arch_rules(...))``, a resume restored onto the
 mesh); a device (one card, or the CPU when the caller asks for it) trains
 on plain tensors there. Either way the parameters start from
-``init_params`` on the device, whole, before they are laid out, so a
-sharded run starts from the unsharded run's numbers; on a mesh each rank
-then keeps a copy of its own block and the whole tree is freed, the AdamW
-state is made as each rank's block of zeros, and a resume copies to each
-card only its block of each restored leaf. The control flow is
+``init_params``'s numbers, so a sharded run starts from the unsharded
+run's: on a mesh ``rules.init_params`` draws one leaf at a time and each
+rank keeps its block before the next leaf is drawn, the AdamW state is
+made as each rank's block of zeros, and a resume copies to each card only
+its block of each restored leaf. The control flow is
 the reference's: resume from the newest
 complete checkpoint, the loader starting at its step; a blocking save when
 the watchdog raises ``StragglerTimeout``; a save every
@@ -86,14 +86,12 @@ def _train(cfg, tc, mesh, dev, batch, seq, steps, seal, log_path, resume,
         params = rebuild_tree(pspec, host["params"], p_place or dev)
         opt = rebuild_tree(adamw.init(pspec), host["opt"], o_place or dev)
         log.log(start_step, event="resumed")
-    else:
+    elif mesh is None:
         params = T.init_params(cfg, tc.seed, dev)
-        if mesh is None:
-            opt = adamw.init(params)
-        else:
-            params = rules.distribute_tree(params, *p_place)
-            opt = rules.zeros_tree(adamw.init(T.param_spec(cfg)), *o_place,
-                                   dev)
+        opt = adamw.init(params)
+    else:
+        params = rules.init_params(cfg, tc.seed, mesh, dev)
+        opt = rules.zeros_tree(adamw.init(T.param_spec(cfg)), *o_place, dev)
 
     loader = PrefetchLoader(
         lambda s: lm_batch(cfg, batch, seq, s, seed=tc.seed),

@@ -15,7 +15,7 @@ import torch
 from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw, schedule
-from repro_torch.sharding.api import dtensor_scope, is_dtensor
+from repro_torch.sharding.api import constrain, dtensor_scope, is_dtensor
 from repro_torch.tree import flatten_with_path, leaves, unflatten
 
 
@@ -74,8 +74,12 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
     def train_step(params, opt_state, batch):
         n = tc.microbatches
         if n > 1:
-            micro = {k: x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
-                     for k, x in batch.items()}
+            # each microbatch split over the batch axes (over DTensors an
+            # all-to-all: the reference's microbatch axis is replicated)
+            micro = {k: constrain(
+                x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:])),
+                None, "batch", *([None] * (x.ndim - 1)))
+                for k, x in batch.items()}
             acc = [torch.zeros_like(p, dtype=torch.float32)
                    for p in leaves(params)]
             loss = torch.zeros((), dtype=torch.float32,

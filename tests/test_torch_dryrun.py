@@ -140,6 +140,12 @@ def test_dryrun_records(records, cell):
     assert set(big["collective_bytes_per_device"]) <= {
         "all-reduce", "all-gather", "reduce-scatter", "all-to-all",
         "collective-permute"}
+    # the bytes by source add up to each kind's, and name the port's code
+    src = big["collective_sources_per_device"]
+    for kind, total in big["collective_bytes_per_device"].items():
+        assert sum(v for k, v in src.items()
+                   if k.split(" ")[0] == kind) == total, kind
+    assert all(".py:" in k for k in src), src
     # each product counted once, at the device's share
     assert one["flops_per_device"] == one["plain_flops"] > 0
     assert big["flops_per_device"] * 8 >= one["flops_per_device"]

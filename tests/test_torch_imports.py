@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and every module imports
-without a card, ``nvcc`` or ``triton`` (kernels build at first launch)."""
+"""The port stands alone: no module of ``src/repro_torch``, no
+``examples/torch_*.py`` and not ``chip_smoke.py`` imports JAX or the JAX
+package, and every module imports without a card, ``nvcc`` or ``triton``
+(kernels build at first launch)."""
 import ast
 import os
 import subprocess
@@ -11,7 +12,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
+    sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _imported(path: Path):

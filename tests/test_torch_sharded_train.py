@@ -16,7 +16,16 @@ CPU, one spawn for the whole file (each rank a subprocess on a shared
   ``kv_head_dim`` branch, its K/V projections split on head_dim) and a
   reduced granite with 3 query heads, 1 KV head and an odd vocabulary of
   255 (the ``head_dim`` branch for the queries, and the embedding's columns
-  over ``("model", "data")``: a ``_StridedShard``).
+  over ``("model", "data")``: a ``_StridedShard``); and qwen3 again at a
+  capacity factor of 0.5, where experts drop entries and a capacity order
+  counted on each rank's shard alone would keep other entries than the
+  global order the MoE regions count (the worker counts those entries).
+* Regions: every ``local_call`` region (MoE, RG-LRU, SSD) and the
+  embedding lookup runs on each rank's half of the batch (``data`` = 2).
+* A fresh sharded start (``rules.init_params``): each rank's blocks equal
+  the same blocks of ``init_params`` bit for bit; no op touches a tensor
+  larger than the largest leaf, and the live tensors never exceed the
+  rank's blocks and one whole leaf.
 * Elastic rescale: internlm2's state after its step, saved sealed (ColoE)
   from the 2x2 mesh, restored by ``elastic.rescale`` onto (4, 1), (1, 4)
   and (1, 1) meshes bit for bit; the files equal an unsharded save's.
@@ -29,6 +38,7 @@ CPU, one spawn for the whole file (each rank a subprocess on a shared
   ``shard_map`` on 4 forced host devices (a subprocess): the summed codes
   bit for bit, the result within 2^-23 of its scale.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -62,7 +72,10 @@ CASES = {
     "recurrentgemma_9b": ("recurrentgemma_9b", {}, 1),
     "granite_odd": ("granite_3_2b", {"vocab_size": 255, "num_heads": 3,
                                      "num_kv_heads": 1}, 1),
+    "qwen3_drops": ("qwen3_moe_30b_a3b", {"capacity_factor": 0.5}, 1),
 }
+# the batch dim of every region's arguments on a rank: 1/2 of the batch
+DATA = 2
 RESCALES = ((4, 1), (1, 4), (1, 1))
 
 _WORKER = r'''
@@ -74,8 +87,11 @@ from repro_torch.launch.mesh import (init_distributed, make_host_mesh,
                                      shutdown_distributed)
 init_distributed("cpu", world_size=WORLD, rank=rank,
                  init_method="file://" + os.path.join(out, "store"))
+import dataclasses
 from repro_torch.checkpoint.manager import CheckpointManager, rebuild_tree
 from repro_torch.config import SealConfig, TrainConfig
+from repro_torch.models import blocks as MB
+from repro_torch.models import layers as ML
 from repro_torch.configs import get_reduced
 from repro_torch.data.synthetic import lm_batch
 from repro_torch.models import transformer as T
@@ -143,13 +159,19 @@ class ViewWrites(TorchDispatchMode):
 
 class Bytes(TorchDispatchMode):
     """The largest tensor (a DTensor's local one; ``meta`` ones hold no
-    bytes) any op reads or writes, and the bytes of the host copies
-    (``aten._to_copy`` results) made."""
+    bytes) any op reads or writes, the bytes of the host copies
+    (``aten._to_copy`` results) made, and the most bytes of op results
+    (not views) alive at once."""
 
     def __init__(self):
         super().__init__()
         self.most = 0
         self.copied = 0
+        self.live = 0
+        self.peak = 0
+
+    def _free(self, n):
+        self.live -= n
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -158,8 +180,72 @@ class Bytes(TorchDispatchMode):
         self.most = max([self.most] + [nbytes(t) for t in ts])
         if func is aten._to_copy.default:
             self.copied += nbytes(out)
+        if not func.is_view:
+            ins = {id(t) for t in tree_flatten((args, kwargs))[0]}
+            for o in tree_flatten(out)[0]:
+                if (isinstance(o, torch.Tensor) and id(o) not in ins
+                        and not local(o).is_meta):
+                    self.live += nbytes(o)
+                    self.peak = max(self.peak, self.live)
+                    weakref.finalize(o, self._free, nbytes(o))
         return out
 
+
+def config(arch, over):
+    cfg = get_reduced(arch)
+    over = dict(over)
+    if "capacity_factor" in over:
+        over["moe"] = dataclasses.replace(
+            cfg.moe, capacity_factor=over.pop("capacity_factor"))
+    return cfg.with_(dtype="float32", **over)
+
+
+# each region's batch: (kind, global dim 0, the dim 0 the rank's fn sees)
+regions = []
+
+
+def watch(mod, kind):
+    made = mod.local_call
+
+    def watched(fn, *args, batch=0, **kw):
+        def inner(*a):
+            regions.append((kind, int(args[0].shape[0]), int(a[0].shape[0])))
+            return fn(*a)
+        return made(inner, *args, batch=batch, **kw)
+    mod.local_call = watched
+
+
+watch(MB, "blocks")
+watch(ML, "layers")
+_lookup = T._lookup
+
+
+def lookup(w, tokens):
+    x = _lookup(w, tokens)
+    regions.append(("lookup", int(tokens.shape[0]),
+                    int(x.to_local().shape[0])))
+    return x
+
+
+T._lookup = lookup
+# entries whose keep flag an order counted on the rank's shard alone
+# (no lower shards' counts) would change
+reorders = [0]
+_slots = ML.capacity_slots
+
+
+def slots(gate_idx, e, cap):
+    keep, slot = _slots(gate_idx, e, cap)
+    made, ML.shard_prefix_sum = ML.shard_prefix_sum, torch.zeros_like
+    try:
+        alone = _slots(gate_idx, e, cap)[0]
+    finally:
+        ML.shard_prefix_sum = made
+    reorders[0] += int((keep != alone).sum())
+    return keep, slot
+
+
+ML.capacity_slots = slots
 
 # the step's own gradients: at one microbatch they are the full batch's
 seen = {}
@@ -184,7 +270,27 @@ mesh = make_host_mesh(2, 2, device_type="cpu")
 state = None
 report = {}
 for name, (arch, over, mb) in CASES.items():
-    cfg = get_reduced(arch).with_(dtype="float32", **over)
+    cfg = config(arch, over)
+    # a fresh sharded start against the unsharded draw
+    whole = T.init_params(cfg, 0, "cpu")
+    with Bytes() as drawing:
+        fresh = R.init_params(cfg, 0, mesh, "cpu")
+    same = True
+    for (_, f), (_, w) in zip(flatten_with_path(fresh),
+                              flatten_with_path(whole)):
+        got = f.to_local()
+        want = w[R.local_block(tuple(w.shape), mesh, f.placements)]
+        same &= (got.shape == want.shape and
+                 got.numpy().tobytes() == want.numpy().tobytes())
+    report["init/" + name] = {
+        "bitwise": bool(same), "most": drawing.most,
+        "peak": drawing.peak,
+        "blocks": sum(nbytes(f) for _, f in flatten_with_path(fresh)),
+        "largest": max(nbytes(w) for _, w in flatten_with_path(whole)),
+        "whole": sum(nbytes(w) for _, w in flatten_with_path(whole))}
+    del whole, fresh
+    regions.clear()
+    reorders[0] = 0
     tc = TrainConfig(microbatches=mb, remat="full", total_steps=10)
     init = dict(np.load(os.path.join(out, name + "_params.npz")))
     params = R.distribute_tree(rebuild_tree(T.param_spec(cfg), init),
@@ -202,6 +308,8 @@ for name, (arch, over, mb) in CASES.items():
         if mb == 1:
             grads = seen["grads"]
     report["views/" + name] = {"relaxed": views.relaxed, "bad": views.bad}
+    report["regions/" + name] = list(regions)
+    report["reorders/" + name] = reorders[0]
     res = {"grads/" + k: v for k, v in full(grads).items()}
     res.update({"params/" + k: v for k, v in full(params).items()})
     res.update({"metrics/" + k: v for k, v in full(metrics).items()})
@@ -299,15 +407,25 @@ def _jax_flat(tree):
             for kp, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
+def _with(cfg, over):
+    """``cfg`` in f32 with ``over``'s fields; ``capacity_factor`` is the
+    MoE config's."""
+    over = dict(over)
+    if "capacity_factor" in over:
+        over["moe"] = dataclasses.replace(
+            cfg.moe, capacity_factor=over.pop("capacity_factor"))
+    return cfg.with_(dtype="float32", **over)
+
+
 def _cfg(arch, over):
-    return jget(arch).with_(dtype="float32", **over)
+    return _with(jget(arch), over)
 
 
 def _init(arch, over, mb):
     """Both packages' start: the port's ``init_params`` (the reference's
     tree and scales; seconds faster than the reference's eager draws), as
     numpy."""
-    cfg = get_reduced(arch).with_(dtype="float32", **over)
+    cfg = _with(get_reduced(arch), over)
     return {"/".join(p): t.numpy()
             for p, t in flatten_with_path(T.init_params(cfg, 0, "cpu"))}
 
@@ -459,3 +577,42 @@ def test_sharded_save_copies_to_host_on_rank_0_only(spawned):
     for rank, rep in enumerate(_reports(out)):
         s = rep["save"]
         assert s["copied"] == (s["state"] if rank == 0 else 0), (rank, s)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_fresh_sharded_init_is_init_params_blocks(spawned, name):
+    """``rules.init_params`` on the 2x2 mesh: each rank's blocks are
+    ``init_params``'s, bit for bit; no op reads or writes a tensor larger
+    than the largest leaf, and the live tensors stay below the rank's
+    blocks and one whole leaf (the whole params, drawn at once and laid
+    out after, would exceed them)."""
+    out, _ = spawned
+    for rank, rep in enumerate(_reports(out)):
+        r = rep["init/" + name]
+        assert r["bitwise"], (rank, r)
+        assert r["most"] <= r["largest"], (rank, r)
+        assert r["peak"] <= r["blocks"] + r["largest"] < r["whole"], \
+            (rank, r)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_regions_run_on_each_ranks_batch_shard(spawned, name):
+    """Every ``local_call`` region of the sharded step and the embedding
+    lookup see 1/``data`` of the batch on each rank: the MoE regions in
+    the qwen3 cases, the RG-LRU's in recurrentgemma's."""
+    out, _ = spawned
+    want = {"lookup"} | ({"layers"} if name.startswith("qwen3") else set()) \
+        | ({"blocks"} if name.startswith("recurrent") else set())
+    for rank, rep in enumerate(_reports(out)):
+        seen = rep["regions/" + name]
+        assert {kind for kind, _, _ in seen} == want, (rank, seen)
+        for kind, whole, local in seen:
+            assert local * DATA == whole, (rank, kind, whole, local)
+
+
+def test_capacity_drops_keep_the_global_order(spawned):
+    """At a capacity factor of 0.5 an order counted on each rank's tokens
+    alone keeps other entries than the global order the regions count, so
+    ``qwen3_drops``' match with the reference's step tests the offsets."""
+    out, _ = spawned
+    assert sum(rep["reorders/qwen3_drops"] for rep in _reports(out)) > 0

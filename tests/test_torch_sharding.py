@@ -35,9 +35,11 @@ from repro.configs import ARCH_IDS
 from repro.configs import get_config as jget_config
 from repro.sharding import rules as JR
 from repro_torch.configs import get_config
+from repro_torch.models import transformer as T
 from repro_torch.runtime.elastic import candidate_meshes
 from repro_torch.sharding import api, rules
 from repro_torch.sharding.api import MeshShape, P
+from repro_torch.tree import leaves
 
 ROOT = Path(__file__).resolve().parents[1]
 MESHES = [(("data", "model"), (16, 16)),
@@ -252,13 +254,19 @@ def test_candidate_meshes_and_mesh_refusals():
 
 def test_launcher_fit_check_counts_a_fresh_start():
     """``card_bytes``: a step's f32 state divided over the mesh, or a fresh
-    start's whole params beside the params' and AdamW's blocks, the
-    larger; deepseek-coder-33b's whole params do not fit an 80 GB card
-    even on 16x16."""
+    start's blocks beside the one whole leaf ``rules.init_params`` draws at
+    a time, the larger; deepseek-coder-33b (its largest leaf, the stacked
+    MLP ``wi``, 34.1 GB) now fits an 80 GB card on 16x16."""
     from repro_torch.launch import train as LT
     n = 1_889_110_016                     # internlm2-1.8B
+    wi = 24 * 2048 * 8192                 # its largest leaf
     cfg = get_config("internlm2_1_8b")
     assert LT.card_bytes(cfg, 1, 1) == n * 16
     assert LT.card_bytes(cfg, 2, 1) == n * 20
-    assert LT.card_bytes(cfg, 1, 256) == n * 4 * (1 + 3 / 256)
-    assert LT.card_bytes(get_config("deepseek_coder_33b"), 1, 256) > 80e9
+    assert LT.card_bytes(cfg, 1, 256) == 4 * (wi + n / 256)
+    deepseek = get_config("deepseek_coder_33b")
+    tree = sum(p.numel() for p in leaves(
+        T.param_spec(deepseek)))          # heads padded to 64
+    assert LT.card_bytes(deepseek, 1, 256) == 4 * (
+        62 * 7168 * 19200 + tree / 256)
+    assert LT.card_bytes(deepseek, 1, 256) < 80e9
