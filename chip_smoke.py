@@ -43,9 +43,10 @@ runs:
    softcap, phase 11's prefills (gemma2 at head dim 256 with softcap 50
    and window 4096, deepseek-coder's GQA 64:8 at 128, RecurrentGemma's
    MQA 16:1 at 256 with window 2048, past it), and a short-query case, in
-   f32 and
-   bf16 through the CUDA-core kernel, and the bf16 cases of head dim 64 and
-   128 through the tensor-core kernel under ``flash_attention.bf16_gate``;
+   f32 and bf16 through the CUDA-core kernel, and the bf16 cases of head
+   dim 64 and 128 through the tensor-core kernel
+   ``csrc/flash_attention_tc.cu``, of 256 through
+   ``csrc/flash_attention_tc256.cu``, under ``flash_attention.bf16_gate``;
 4. sealed continuous-batching serving of internlm2-1.8B at full width (ColoE,
    SE ratio 0.5, fused decrypt, sealed KV cache): 8 greedy requests through
    ``ServeEngine``, launch counts read around that run (exactly 24 cache
@@ -147,7 +148,7 @@ runs:
    512-1024-token prompts; (e) a decode tick and a group prefill timed and
    profiled, and peak memory (``phase_moe``);
 11. the remaining token families at their published widths
-   (``phase_families``): granite-3-2b (20 of 40 layers), gemma2-2b (14
+   (``phase_families``): granite-3-2b (10 of 40 layers), gemma2-2b (8
    of 26) and deepseek-coder-33b (4 of 62) through the continuous engine (the image bit for
    bit, f32 sealed-vs-plaintext logits at 1e-4, a staggered trace with
    its launches gated per dispatch, a verified run, Direct for granite
@@ -156,15 +157,18 @@ runs:
    prefill and 6 decode steps at 1e-4, a recurrence step on the card
    against the CPU at 1e-5, drains under ColoE, Counter and Direct with
    their launches gated, the plaintext baseline); each family's tick and
-   prefill beside plaintext, the tied embeddings' unseal, the scans
-   alone, flash at head dim 256 beside SDPA, peak memory, the phase's
-   wall time;
+   prefill beside plaintext (the dense families' one-shot prefill also
+   counted: one flash launch an attention layer, of the kernel ``_kernel``
+   names), the tied embeddings' unseal, the scans alone, flash at each
+   family's prefill beside SDPA (at head dim 256 the tensor-core kernel on
+   each of its grids, the CUDA-core one, and the plain version), peak
+   memory, the phase's wall time;
 12. the paper's own CNNs (``phase_cnn``): VGG-16, ResNet-18 and ResNet-34 at
    their published widths (13 / 17 / 33 convs of 64-512 channels) on 32 x 32
    CIFAR geometry, random weights from ``--seed``, f32 (cuDNN with TF32
    off): (a) ``init_cnn`` on the card against the CPU within 1e-6
    relative, logits, loss and the gradients with respect to every
-   parameter and the input of a batch of 128 ``image_dataset`` images at
+   parameter and the input of a batch of 32 ``image_dataset`` images at
    1e-4 of each tensor's scale, and ``cnn_channel_masks`` at ratios
    0.2 / 0.5 / 0.8 equal on both; (b) the security protocol
    (``evaluate_config`` with ``evaluate``'s defaults: 2,500 training and
@@ -299,6 +303,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -454,7 +459,7 @@ def main(argv=None) -> int:
         log(f"[build:{name}] SASS tensor-core instructions: "
             + ", ".join(f"{op} {n}" for op, n in counts.items()))
     for name in ("sealed_matmul_tc", "flash_attention_tc",
-                 "sealed_matmul_dec"):
+                 "flash_attention_tc256", "sealed_matmul_dec"):
         if not sass[name]["HGMMA"]:
             raise AssertionError(f"{name} has no wgmma (HGMMA) instruction")
     # which pipes the ChaCha rounds issue on: the integer mix of each
@@ -491,50 +496,57 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     from repro_torch.device import resolve_device
     resolve_device(dev)
-    report["chacha"] = phase_chacha(torch, dev, args.seed)
-    report["chacha_fused"] = phase_chacha_fused(torch, dev, args.seed)
-    report["sealed_matmul"] = phase_sealed_matmul(torch, dev, args.seed)
-    report["flash"] = phase_flash(torch, dev, args.seed)
-    report["serve"] = phase_serve(torch, dev, args)
-    report["group"] = phase_group(torch, dev, args, report["serve"])
-    report["prefix_integrity"] = phase_prefix_integrity(torch, dev, args,
-                                                        report["serve"])
+    report["phase_s"] = {}
+    t_run = time.time()
+
+    def run(key, phase, *a):
+        """report[key] = phase(torch, dev, *a), its wall time logged."""
+        t0 = time.time()
+        report[key] = phase(torch, dev, *a)
+        report["phase_s"][key] = time.time() - t0
+        log(f"[main] {key}: {report['phase_s'][key]:.1f} s; "
+            f"{time.time() - t_run:.1f} s since the build")
+
+    run("chacha", phase_chacha, args.seed)
+    run("chacha_fused", phase_chacha_fused, args.seed)
+    run("sealed_matmul", phase_sealed_matmul, args.seed)
+    run("flash", phase_flash, args.seed)
+    run("serve", phase_serve, args)
+    run("group", phase_group, args, report["serve"])
+    run("prefix_integrity", phase_prefix_integrity, args, report["serve"])
     # phase 7 lets go of phase 4's engines; phase 8 builds its own from the
     # same weights and trace
     serve = {k: report["serve"][k] for k in ("engine", "params", "prompts")}
     cfg = serve["engine"].cfg
-    report["timing"] = phase_timing(torch, dev, args, report)
+    run("timing", phase_timing, args, report)
     serve.pop("engine")
-    report["weights_sampling"] = phase_weights_sampling(
-        torch, dev, args, cfg, serve["params"], serve["prompts"],
-        report["serve"])
+    run("weights_sampling", phase_weights_sampling, args, cfg,
+        serve["params"], serve["prompts"], report["serve"])
     # phase 8 lets go of its engines; phase 9 seals the same weights with
     # the Direct engine and serves the same trace
-    report["direct"] = phase_direct(torch, dev, args, cfg, serve["params"],
-                                    serve["prompts"])
+    run("direct", phase_direct, args, cfg, serve["params"], serve["prompts"])
     del serve
     # phase 10 serves another model: everything above is let go first
-    report["moe"] = phase_moe(torch, dev, args)
+    run("moe", phase_moe, args)
     # phase 11 serves five more, one at a time
-    report["families"] = phase_families(torch, dev, args)
+    run("families", phase_families, args)
     # phase 12: the paper's CNNs, their attacks and timings
-    report["cnn"] = phase_cnn(torch, dev, args)
+    run("cnn", phase_cnn, args)
     # phase 13: training, its optimizer and its sealed checkpoints
-    report["train"] = phase_train(torch, dev, args)
+    run("train", phase_train, args)
     # phase 15 (e)'s dry run (CPU work, meta tensors) runs beside phase 14
     dry = _start_dryrun()
     try:
         # phase 14: the paper's sealed-decode comparison and the make_*
         # steps
-        report["sealed_decode"] = phase_sealed_decode(torch, dev, args)
+        run("sealed_decode", phase_sealed_decode, args)
         # phase 15: sharding on DTensor under NCCL, and the dry run
-        report["sharded"] = phase_sharded(torch, dev, args, report["train"],
-                                          dry)
+        run("sharded", phase_sharded, args, report["train"], dry)
     finally:
         if dry.poll() is None:
             dry.kill()
     # phase 16: the port's three examples
-    report["examples"] = phase_examples(torch, dev, args)
+    run("examples", phase_examples, args)
 
     kernels = kernel_records(report)
     if args.report:
@@ -596,6 +608,12 @@ def kernel_records(report):
          report["flash"]["max_abs_err"]),
         ("flash_attention_tc", FA_REPLACES, group["flash_attention_tc"],
          report["flash"]["max_abs_err_tc"]),
+        # the same variant at head dim 256 (its own source and count):
+        # phase 11's runs of the two families with that head dim, gemma2's
+        # counted one-shot prefill and RecurrentGemma's drains
+        ("flash_attention_tc256", FA_REPLACES,
+         report["families"]["launches"]["flash_attention_tc256"],
+         report["flash"]["max_abs_err_tc256"]),
         # the weight MACs, counted over the verified run of phase 8 (c):
         # one sweep, one launch a leaf
         ("chacha20_weight_tile_tags", CC_REPLACES,
@@ -618,6 +636,15 @@ def kernel_records(report):
     fused.update(report["prefix_integrity"]["timing"])
     for name, recs in fused.items():    # the main path's shape: the first
         t[name] = dict(recs[0])
+    # the dh-256 kernel at RecurrentGemma's second group prefill (phase 11:
+    # 2 x 2,223, past its window)
+    rg = next(r for r in report["families"]["flash"]
+              if r["kernel"] == "flash_attention_tc256"
+              and not r["warpgroups"] and r["shape"] == "rg prefill 2")
+    t["flash_attention_tc256"] = dict(rg, shape=(
+        f"RecurrentGemma group prefill b={rg['b']} s={rg['s']} "
+        f"{rg['hq']}/{rg['hkv']} heads dh={rg['dh']} window {rg['window']} "
+        f"bf16"))
     # phase 10's main path: its continuous trace, the same trace verified
     # and its group drain
     moe = {name: sum(report["moe"][run][name] for run in (
@@ -1414,6 +1441,8 @@ def _moe_flash_case(seed):
 def phase_flash(torch, dev, seed):
     from repro_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    tc_launch = {"flash_attention_tc": FA.flash_attention_tc_cuda,
+                 "flash_attention_tc256": FA.flash_attention_tc256_cuda}
     cases = []
     for b, s, t, hq, hkv, dh, win, cap in (FLASH_CASES
                                            + [_moe_flash_case(seed)]
@@ -1430,14 +1459,14 @@ def phase_flash(torch, dev, seed):
             shape = (f"b={b} s={s} t={t} heads {hq}/{hkv} dh={dh} "
                      f"window={win} softcap={cap} {dname}")
             kerns = ["flash_attention"]
-            if FA._variant(q.dtype, dh) == "flash_attention_tc":
-                kerns.append("flash_attention_tc")
+            if FA._kernel(q.dtype, dh) in tc_launch:
+                kerns.append(FA._kernel(q.dtype, dh))
             for kern in kerns:
                 rec = {"kernel": kern, "b": b, "s": s, "t": t, "hq": hq,
                        "hkv": hkv, "dh": dh, "window": win, "softcap": cap,
                        "dtype": dname, "out_scale": scale}
-                if kern == "flash_attention_tc":
-                    got = FA.flash_attention_tc_cuda(q, k, v, **kw)
+                if kern in tc_launch:
+                    got = tc_launch[kern](q, k, v, **kw)
                     torch.cuda.synchronize()
                     ok, share, rms = FA.bf16_gate(q, k, v, got, **kw)
                     rec.update(max_abs_err=float((got.float() - want).abs()
@@ -1470,11 +1499,11 @@ def phase_flash(torch, dev, seed):
                 del got
             del q, k, v, want
     torch.cuda.empty_cache()
-    return {"cases": cases,
-            "max_abs_err": max(c["max_abs_err"] for c in cases
-                               if c["kernel"] == "flash_attention"),
-            "max_abs_err_tc": max(c["max_abs_err"] for c in cases
-                                  if c["kernel"] == "flash_attention_tc")}
+    out = {"cases": cases}
+    for kern in ("flash_attention", *tc_launch):
+        out["max_abs_err" + kern[len("flash_attention"):]] = max(
+            c["max_abs_err"] for c in cases if c["kernel"] == kern)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1845,7 +1874,7 @@ def phase_group(torch, dev, args, serve):
     # tensor-core flash kernel
     want = {"sealed_matmul": 0, "sealed_matmul_tc": 0, "sealed_matmul_dec": 0,
             "flash_attention_tc": st["prefills"] * cfg.num_layers,
-            "flash_attention": 0}
+            "flash_attention": 0, "flash_attention_tc256": 0}
     groups = [prompts[i:i + SLOTS] for i in range(0, len(prompts), SLOTS)]
     for g in groups:
         for rows, head_rows in ((len(g) * max(len(p) for p in g), len(g)),):
@@ -1908,7 +1937,8 @@ def phase_group(torch, dev, args, serve):
     log(f"[group] launches of the f32 sealed prefill and step: {f32}")
     if (f32["flash_attention"] != cfg.num_layers or f32["sealed_matmul"]
             != 2 * per_dispatch or f32["sealed_matmul_tc"]
-            or f32["sealed_matmul_dec"] or f32["flash_attention_tc"]):
+            or f32["sealed_matmul_dec"] or f32["flash_attention_tc"]
+            or f32["flash_attention_tc256"]):
         raise AssertionError("the f32 path did not run the CUDA-core "
                              "kernels")
 
@@ -3946,7 +3976,7 @@ def phase_moe(torch, dev, args):
         raise AssertionError("not every MoE group request completed")
     plen = max(len(p) for p in gprompts)
     want = {"flash_attention_tc": gst["prefills"] * cfg.num_layers,
-            "flash_attention": 0}
+            "flash_attention": 0, "flash_attention_tc256": 0}
     for rows, head_rows, times in ((MOE_GROUP * plen, MOE_GROUP,
                                     gst["prefills"]),
                                    (MOE_GROUP, MOE_GROUP,
@@ -4059,7 +4089,7 @@ def _moe_direct(torch, dev, cfg, params, prompts, arrivals, plain_tokens,
 # (arch, layers run: 0 for the full depth) of the dense families served
 # through the continuous engine, and of the recurrent ones served through
 # the group engine (the reference serves them only there)
-FAMILY_DENSE = (("granite_3_2b", 20), ("gemma2_2b", 14),
+FAMILY_DENSE = (("granite_3_2b", 10), ("gemma2_2b", 8),
                 ("deepseek_coder_33b", 4))
 FAMILY_RECURRENT = (("recurrentgemma_9b", 6), ("mamba2_130m", 0))
 # the dense families that also run the Direct engine
@@ -4100,6 +4130,24 @@ def _family_trace(arch, seed, vocab):
     return prompts, np.zeros((len(prompts),)), longest + NEW_TOKENS + 16
 
 
+# the flash kernels' launch counts (``flash_attention._kernel``)
+FLASH_KERNELS = ("flash_attention", "flash_attention_tc",
+                 "flash_attention_tc256")
+
+
+def _flash_want(torch, cfg, prefills):
+    """Flash launches of ``prefills`` one-shot prefills of ``cfg``: one an
+    attention layer, all counted where ``_kernel`` says for its dtype and
+    head dim."""
+    from repro_torch.kernels import flash_attention as FA
+    attn = cfg.n_superblocks() * sum(k in ("attn", "local_attn")
+                                     for k in cfg.pattern)
+    want = dict.fromkeys(FLASH_KERNELS, 0)
+    want[FA._kernel(getattr(torch, cfg.dtype), cfg.head_dim)] = (
+        attn * prefills)
+    return want
+
+
 def _group_launch_want(torch, eng, prompts):
     """Launches of each fused-matmul and flash kernel a sealed group
     engine's drain of ``prompts`` (groups of ``eng.slots`` in order, each
@@ -4107,17 +4155,13 @@ def _group_launch_want(torch, eng, prompts):
     prefill's contractions have (members x longest prompt) rows, its head
     and each step one row a member; one flash launch a prefill and
     attention layer."""
-    from repro_torch.kernels import flash_attention as FA
     cfg = eng.cfg
-    attn = cfg.n_superblocks() * sum(k in ("attn", "local_attn")
-                                     for k in cfg.pattern)
-    flash = FA._variant(getattr(torch, cfg.dtype), cfg.head_dim)
+    groups = range(0, len(prompts), eng.slots)
     want = {"sealed_matmul": 0, "sealed_matmul_tc": 0,
-            "sealed_matmul_dec": 0, "flash_attention": 0,
-            "flash_attention_tc": 0}
-    for i in range(0, len(prompts), eng.slots):
+            "sealed_matmul_dec": 0}
+    want.update(_flash_want(torch, cfg, len(groups)))
+    for i in groups:
         g = prompts[i:i + eng.slots]
-        want[flash] += attn
         if eng.sealed is None or not eng.sealed.fused_paths():
             continue
         for rows, head_rows, times in ((len(g) * max(len(p) for p in g),
@@ -4215,6 +4259,7 @@ def _dense_family(torch, dev, args, arch, layers):
     from repro_torch.config import SealConfig
     from repro_torch.configs import get_config
     from repro_torch.core import sealed_store as SS
+    from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
     from repro_torch.serve.engine import ServeEngine
 
@@ -4273,7 +4318,7 @@ def _dense_family(torch, dev, args, arch, layers):
     disp = st["prefills"] + st["decode_steps"]
     want = {k: v * disp for k, v in _fused_launches(eng, 64, 64).items()}
     want.update(_chacha_launches(eng, disp, paged=True))
-    want.update(flash_attention=0, flash_attention_tc=0)
+    want.update(dict.fromkeys(FLASH_KERNELS, 0))
     log(f"[family] {cfg.name} sealed trace: {secs:.2f} s, {st['tokens']} "
         f"tokens, {st['prefills']} chunk dispatches + {st['decode_steps']} "
         f"ticks; launches {_nonzero(launches)}")
@@ -4289,6 +4334,19 @@ def _dense_family(torch, dev, args, arch, layers):
     timing["prefill"] = _time_each(torch, f"one-shot prefill of "
                                     f"{tuple(toks.shape)}", {
         "sealed": lambda: T.prefill(cfg, eng.params(), toks, 256)})
+    # that prefill once more, counted: the dense families' only flash
+    # launches in this phase (their continuous path runs none)
+    t0 = time.time()
+    ops.reset_launch_counts()
+    T.prefill(cfg, eng.params(), toks, 256)
+    torch.cuda.synchronize()
+    out["prefill_launches"] = ops.launch_counts()
+    want = _flash_want(torch, cfg, 1)
+    log(f"[family] {cfg.name} one-shot prefill of {tuple(toks.shape)}, "
+        f"counted: {time.time() - t0:.2f} s, launches "
+        f"{_nonzero(out['prefill_launches'])}")
+    _gate(f"{cfg.name} one-shot prefill",
+          {k: out["prefill_launches"][k] for k in want}, want)
     if cfg.tie_embeddings:
         timing["embed_unseal"] = _time_embed_unseal(torch, eng.sealed, key)
     eng.queue.clear()
@@ -4543,10 +4601,9 @@ def _recurrent_family(torch, dev, args, arch, layers):
 
     plain = GroupServeEngine(cfg, params, seal=None, **kw)
     ph, plaunch, psecs = _drive_counted(torch, plain, prompts, arrivals)
-    _gate(f"{cfg.name} plaintext", {k: plaunch[k] for k in (
-        "flash_attention", "flash_attention_tc")}, {
+    _gate(f"{cfg.name} plaintext", {k: plaunch[k] for k in FLASH_KERNELS}, {
         k: v for k, v in _group_launch_want(torch, plain, prompts).items()
-        if k.startswith("flash")})
+        if k in FLASH_KERNELS})
     same = sum(a == b for h, g in zip(tokens, ph) for a, b in zip(h, g.out))
     total = sum(len(h) for h in tokens)
     out["greedy_agreement"] = same / total
@@ -4610,11 +4667,15 @@ def _recurrent_family(torch, dev, args, arch, layers):
 
 
 def _family_flash(torch, dev, seed):
-    """The flash kernel that ``_variant`` picks at this phase's bf16
-    prefill shapes (head dim 256 on the CUDA cores: gemma2, RecurrentGemma;
-    64 and 128 on the tensor cores: granite, deepseek), beside its bound
-    and SDPA (causal only: SDPA takes no softcap, and a window only as a
-    mask, so where those bind it is a yardstick, not the same function)."""
+    """The flash kernel that ``_kernel`` names at this phase's bf16 prefill
+    shapes (all on the tensor cores: 64 and 128 granite, deepseek; 256
+    gemma2, RecurrentGemma), beside its bound and SDPA (causal only: SDPA
+    takes no softcap, and a window only as a mask, so where those bind it
+    is a yardstick, not the same function). At head dim 256 also the
+    kernel with its grid forced to one q head a block and (an even group)
+    to two, each bitwise equal to the kernel's own pick; the CUDA-core
+    kernel, which ran there before ``flash_attention_tc256.cu``; and the
+    plain version."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=dev).manual_seed(seed + 43)
@@ -4633,23 +4694,59 @@ def _family_flash(torch, dev, seed):
         pairs = b * hq * sum(min(i + 1, span) for i in range(s))
         nbytes = 2 * (2 * b * s * hq * dh + 2 * b * s * hkv * dh)
         b_ms, b_by = bound_ms(nbytes, bf16_flops=4.0 * dh * pairs)
-        kern = FA._variant(q.dtype, dh)
-        launch = {"flash_attention": FA.flash_attention_cuda,
-                  "flash_attention_tc": FA.flash_attention_tc_cuda}[kern]
-        ms = _time_ms(torch, lambda: launch(q, k, v, **kw), 5, flush)
         lib_ms, lib_name, lib_all, _ = _time_sdpa(
             torch, F, q, k, v, dh ** -0.5, flush,
             FA.flash_attention_plain(q, k, v, scale=dh ** -0.5))
-        rec = {"shape": label, "kernel": kern, "b": b, "s": s, "hq": hq,
-               "hkv": hkv, "dh": dh, "window": win, "softcap": cap,
-               "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
-               "sdpa_causal_ms": lib_ms, "sdpa": lib_name,
-               "sdpa_backends_ms": lib_all}
-        out.append(rec)
-        log(f"[family] {kern} {label} b={b} s={s} heads {hq}/{hkv} dh={dh} "
-            f"window {win} softcap {cap} bf16: {ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}; {b_ms / ms:.3f}), SDPA causal "
-            f"{lib_ms:.4f} ms ({lib_name}; {lib_all})")
+        kern = FA._kernel(q.dtype, dh)
+        # (kernel, warpgroups: 0 for the kernel's own grid, launch)
+        runs = [(kern, 0, {"flash_attention_tc": FA.flash_attention_tc_cuda,
+                           "flash_attention_tc256":
+                               FA.flash_attention_tc256_cuda}[kern])]
+        plain_ms = None
+        t0 = time.time()
+        if dh == 256:
+            even = (hq // hkv) % 2 == 0
+            want = FA.flash_attention_tc256_cuda(q, k, v, **kw)
+            for w in (1, 2) if even else (1,):
+                launch = functools.partial(FA.flash_attention_tc256_cuda,
+                                           warpgroups=w)
+                if not torch.equal(launch(q, k, v, **kw), want):
+                    raise AssertionError(f"flash_attention_tc256 at {label}:"
+                                         f" the grid of {w} warpgroups "
+                                         f"differs from the kernel's pick")
+                runs.append((kern, w, launch))
+            runs.append(("flash_attention", 0, FA.flash_attention_cuda))
+            plain_ms = _time_ms(torch, lambda: FA.flash_attention_plain(
+                q, k, v, **kw), 2)
+            del want
+        for name, w, launch in runs:
+            ms = _time_ms(torch, lambda: launch(q, k, v, **kw), 5, flush)
+            rec = {"shape": label, "kernel": name, "warpgroups": w, "b": b,
+                   "s": s, "hq": hq, "hkv": hkv, "dh": dh, "window": win,
+                   "softcap": cap, "ms": ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "plain_ms": plain_ms,
+                   "library_ms": lib_ms, "library": lib_name,
+                   "library_backends_ms": lib_all}
+            out.append(rec)
+            grid = f" (grid forced: {w} warpgroups a block)" if w else ""
+            log(f"[family] {name}{grid} {label} b={b} s={s} heads "
+                f"{hq}/{hkv} dh={dh} window {win} softcap {cap} bf16: "
+                f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+                f"{b_ms / ms:.3f}), SDPA causal {lib_ms:.4f} ms ({lib_name}"
+                f"; {lib_all})"
+                + (f", plain {plain_ms:.3f} ms" if plain_ms else ""))
+        if dh == 256:
+            recs = out[-len(runs):]
+            new_ms, old_ms = recs[0]["ms"], recs[-1]["ms"]
+            log(f"[family] flash at {label} dh=256: tensor cores "
+                f"{new_ms:.4f} ms (its own grid; "
+                + ", ".join(f"forced {r['warpgroups']}: {r['ms']:.4f} ms"
+                            for r in recs[1:-1])
+                + f"), CUDA cores {old_ms:.4f} ms ({old_ms / new_ms:.1f}x), "
+                f"SDPA causal {lib_ms:.4f} ms ({new_ms / lib_ms:.2f}x of "
+                f"it), bound {b_ms:.4f} ms ({b_ms / new_ms:.3f} of the "
+                f"kernel's time); the grids' check, the CUDA-core and "
+                f"plain timings took {time.time() - t0:.2f} s")
         del q, k, v
     torch.cuda.empty_cache()
     return out
@@ -4729,7 +4826,7 @@ def phase_families(torch, dev, args):
     """Phase 11: the remaining token families at their published widths,
     random weights from ``--seed``, bf16 unless said, ColoE SE 0.5 fused.
 
-    (a) granite-3-2b (20 of 40 layers), gemma2-2b (14 of 26; local/global
+    (a) granite-3-2b (10 of 40 layers), gemma2-2b (8 of 26; local/global
     attention with a 4096 window, softcaps 50/30, head dim 256, tied head)
     and deepseek-coder-33b (4 of its 62 layers; 56 query heads padded to
     64, GQA 8:1) through the continuous engine: the image sealed and
@@ -4750,10 +4847,12 @@ def phase_families(torch, dev, args):
     baseline's), and the plaintext baseline's.
     (c) Each family's decode tick (or group decode step) and prefill,
     sealed beside plaintext: events, host clock, the profiler's idle share
-    and top kernels; the tied models' per-dispatch unseal of the
-    embedding; the RG-LRU scan and SSD chunked pass alone; flash at head
-    dim 256 beside SDPA; each family's peak memory, and the phase's wall
-    time. One model is held at a time."""
+    and top kernels; the dense families' one-shot prefill once more with
+    its flash launches gated; the tied models' per-dispatch unseal of the
+    embedding; the RG-LRU scan and SSD chunked pass alone; flash at each
+    prefill shape beside SDPA (at head dim 256 the tensor-core kernel
+    beside the CUDA-core one and the plain version); each family's peak
+    memory, and the phase's wall time. One model is held at a time."""
     t_phase = time.time()
     gc.collect()
     torch.cuda.empty_cache()
@@ -4769,9 +4868,15 @@ def phase_families(torch, dev, args):
     for arch, _ in FAMILY_DENSE + FAMILY_RECURRENT:
         fam = out[arch]
         runs += [fam[k] for k in ("launches", "verify_launches",
-                                  "direct_launches") if k in fam]
+                                  "direct_launches", "prefill_launches")
+                 if k in fam]
         runs += [d["launches"] for d in fam.get("drains", {}).values()]
     out["launches"] = {n: sum(r[n] for r in runs) for n in runs[0]}
+    log(f"[family] flash launches over the phase's gated runs: "
+        f"{ {k: out['launches'][k] for k in FLASH_KERNELS} }")
+    if not out["launches"]["flash_attention_tc256"]:
+        raise AssertionError("the dh-256 tensor-core flash kernel ran no "
+                             "time on phase 11's main path")
     out["wall_s"] = time.time() - t_phase
     log(f"[family] phase 11: {out['wall_s']:.1f} s; peak allocated by "
         f"family (GiB): "
@@ -4787,6 +4892,8 @@ def phase_families(torch, dev, args):
 CNN_IDS = ("vgg16", "resnet18", "resnet34")
 # the protocol's training batch, at the CIFAR geometry of config()
 CNN_BATCH = 128
+# (a)'s batch: five gradient passes, three of them on the host
+CNN_PARITY_BATCH = 32
 # the networks run through the full security protocol
 CNN_PROTOCOL = ("resnet18", "vgg16")
 CNN_RATIOS = (0.2, 0.5, 0.8)
@@ -4938,7 +5045,7 @@ def _cnn_parity(torch, dev, cid, seed):
     def errs(got, want):
         return [_rel_err(torch, g, w) for g, w in zip(got, want)]
 
-    x, y = image_dataset(CNN_BATCH, img=cfg.img_size, seed=seed)
+    x, y = image_dataset(CNN_PARITY_BATCH, img=cfg.img_size, seed=seed)
     card, names, _ = _cnn_grads(torch, C, cfg, p_cpu, x, y, dev)
     cpu, _, _ = _cnn_grads(torch, C, cfg, p_cpu, x, y, "cpu")
     card_own, _, card_pins = _cnn_grads(torch, C, cfg, p_cpu, x, y, dev,

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (flash_attention_tc.cu, sealed_matmul_tc.cu, sealed_matmul_dec.cu):
-// mbarriers, TMA tile loads, wgmma shared-memory descriptors and the few
-// wgmma shapes those kernels issue, and the host-side encoding of TMA
-// tensor maps.
+// (flash_attention_tc.cu, flash_attention_tc256.cu, sealed_matmul_tc.cu,
+// sealed_matmul_dec.cu): mbarriers, TMA tile loads, wgmma shared-memory
+// descriptors and the few wgmma shapes those kernels issue, setmaxnreg, and
+// the host-side encoding of TMA tensor maps.
 //
 // Shared-memory operands use the 128-byte swizzle throughout: a tile is cut
 // into 1024-byte atoms of 8 rows x 128 bytes, and the 16-byte chunk c of row
@@ -144,6 +144,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 #define HOP_F32(d) HOP_F8(d, 0), HOP_F8(d, 8), HOP_F8(d, 16), HOP_F8(d, 24)
 #define HOP_F64(d) \
   HOP_F32(d), HOP_F8(d, 32), HOP_F8(d, 40), HOP_F8(d, 48), HOP_F8(d, 56)
+#define HOP_F32_AT(d, i) \
+  HOP_F8(d, i), HOP_F8(d, i + 8), HOP_F8(d, i + 16), HOP_F8(d, i + 24)
+#define HOP_F128(d) \
+  HOP_F32_AT(d, 0), HOP_F32_AT(d, 32), HOP_F32_AT(d, 64), HOP_F32_AT(d, 96)
 #define HOP_R32                                                           \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
@@ -154,6 +158,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
   "%58, %59, %60, %61, %62, %63}"
+#define HOP_R128                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "  \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "  \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "  \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "       \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "       \
+  "%122, %123, %124, %125, %126, %127}"
 
 // scale_d = 0 overwrites D with the product, 1 adds the product to D.
 
@@ -202,6 +217,19 @@ __device__ __forceinline__ void wgmma_n128_rs_mn(float (&d)[64],
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOP_R64
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : HOP_F64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 256) += A (64 x 16, registers) . B (16 x 256, smem, MN-major):
+// the widest product wgmma takes
+__device__ __forceinline__ void wgmma_n256_rs_mn(float (&d)[128],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " HOP_R128
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : HOP_F128(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
@@ -259,8 +287,24 @@ __device__ __forceinline__ void wgmma_ss_tk(float (&d)[N / 2], uint64_t da,
 #undef HOP_F8
 #undef HOP_F32
 #undef HOP_F64
+#undef HOP_F32_AT
+#undef HOP_F128
 #undef HOP_R32
 #undef HOP_R64
+#undef HOP_R128
+
+// Hand registers between warpgroups: every warp of the calling warpgroup
+// runs it, with a count in 24..256, a multiple of 8. The kernel's warp
+// roles must split in one if / else that never joins again, or ptxas
+// ignores it (warning C7508).
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
 
 // ------------------------------------------------------- host: tensor maps
 

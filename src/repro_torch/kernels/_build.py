@@ -23,9 +23,9 @@ from typing import Dict, List, Tuple
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("chacha20", "sealed_matmul", "flash_attention",
-           "sealed_matmul_tc", "flash_attention_tc", "sealed_matmul_dec",
-           "chacha20_cache", "chacha20_lines", "chacha20_weights",
-           "aes128")
+           "sealed_matmul_tc", "flash_attention_tc", "flash_attention_tc256",
+           "sealed_matmul_dec", "chacha20_cache", "chacha20_lines",
+           "chacha20_weights", "aes128")
 
 _P, _I, _L, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_float, ctypes.c_uint)
@@ -41,6 +41,8 @@ PROTOTYPES = {
                         + [_F, _F, _I, _I, _P]},
     "flash_attention_tc": {"flash_attention_tc": [_P] * 4 + [_I] * 6
                            + [_L] * 12 + [_F, _F, _I, _P]},
+    "flash_attention_tc256": {"flash_attention_tc256": [_P] * 4 + [_I] * 6
+                              + [_L] * 12 + [_F, _F, _I, _I, _P]},
     "chacha20_cache": {
         "cache_view": [_P] * 3 + [_L] * 2 + [_P] * 5 + [_I] * 4 + [_U] * 6
                       + [_I, _P],

@@ -2,21 +2,25 @@
 PyTorch version.
 
 Port of ``repro/kernels/flash_attention.py::flash_attention`` (kernel body
-``_kernel``), as two kernels:
+``_kernel``), as two variants:
 
-* ``csrc/flash_attention.cu`` (``flash_attention_cuda``): f32 FMAs on the
-  CUDA cores; f32 inputs (exact to the f32 contract) and every head dim up
-  to 256;
-* ``csrc/flash_attention_tc.cu`` (``flash_attention_tc_cuda``): bf16
-  ``wgmma`` on the tensor cores with a TMA ring of K/V tiles, for bf16
-  inputs with head dim 64 or 128. Its one change of contract: probabilities
+* ``flash_attention`` (``flash_attention_cuda``, ``csrc/flash_attention.cu``):
+  f32 FMAs on the CUDA cores; f32 inputs (exact to the f32 contract) at
+  every head dim up to 256, and bf16 at head dims other than 64, 128, 256;
+* ``flash_attention_tc`` (``flash_attention_tc_cuda``): bf16 ``wgmma`` on
+  the tensor cores with a TMA ring of K/V tiles, for bf16 inputs with head
+  dim 64 or 128 (``csrc/flash_attention_tc.cu``: 128-key tiles) or 256
+  (``flash_attention_tc256_cuda``, ``csrc/flash_attention_tc256.cu``:
+  64-key tiles, a producer warpgroup and register hand-over, q heads of one
+  kv head paired in a block). Its one change of contract: probabilities
   are rounded to bf16 before ``p @ v``, as the reference's serving
   attention and every tensor-core flash kernel do; ``bf16_gate`` is the
   tolerance that follows from it.
 
-``kernels/ops.py::flash_attention`` picks one by ``_variant`` from dtype
-and head dim alone; each counts its own launches. The CUDA sources' header
-comments give the contract and the designs.
+``kernels/ops.py::flash_attention`` picks a variant by ``_variant`` from
+dtype and head dim alone. Each source counts its own launches, under the
+name ``_kernel`` gives (``flash_attention_tc256`` for the dh-256 source).
+The CUDA sources' header comments give the contract and the designs.
 
 Unlike the Pallas kernel, ``s`` and ``t`` need not be tile multiples (a
 prefill is as long as its prompt), and the kernel takes the model's
@@ -38,18 +42,28 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-TC_HEAD_DIMS = (64, 128)
+TC_HEAD_DIMS = (64, 128, 256)
 BF16_ROUNDING = 2.0 ** -8   # twice the largest relative bf16 rounding
 F32_TERM = 2e-5             # the f32 contract's share of the output scale
 
 
 def _variant(dtype: torch.dtype, dh: int) -> str:
     """The kernel a CUDA call runs: ``"flash_attention_tc"`` (tensor cores)
-    for bf16 with head dim 64 or 128, else ``"flash_attention"`` (CUDA
+    for bf16 with head dim 64, 128 or 256, else ``"flash_attention"`` (CUDA
     cores). Depends on dtype and head dim only."""
     if dtype == torch.bfloat16 and dh in TC_HEAD_DIMS:
         return "flash_attention_tc"
     return "flash_attention"
+
+
+def _kernel(dtype: torch.dtype, dh: int) -> str:
+    """The launch count (``ops.launch_counts``) a CUDA call adds to:
+    ``_variant``'s, with the tensor-core variant's head dim 256, which has a
+    source of its own, counted as ``"flash_attention_tc256"``."""
+    name = _variant(dtype, dh)
+    if name == "flash_attention_tc" and dh == 256:
+        return "flash_attention_tc256"
+    return name
 
 
 def flash_attention_plain(q, k, v, *, scale: float, softcap: float = 0.0,
@@ -131,7 +145,7 @@ def bf16_gate(q, k, v, got, **kw):
 
 def check_tc(q, k, v, window: int):
     """Raise unless q, k, v fit the tensor-core kernel: ``check``'s
-    contract, bf16, head dim 64 or 128, a contiguous head dim, and 16-byte
+    contract, bf16, head dim 64, 128 or 256, a contiguous head dim, and 16-byte
     aligned bases and strides (what a TMA tensor map can describe)."""
     check(q, k, v, window)
     if q.dtype != torch.bfloat16 or q.shape[-1] not in TC_HEAD_DIMS:
@@ -145,11 +159,10 @@ def check_tc(q, k, v, window: int):
                              f"strides {tuple(x.stride())}, which TMA needs")
 
 
-def flash_attention_tc_cuda(q, k, v, *, scale: float, softcap: float = 0.0,
-                            window: int = 0) -> torch.Tensor:
-    """Launch ``csrc/flash_attention_tc.cu`` on PyTorch's current stream.
-    q (b, s, hq, dh), k and v (b, t, hkv, dh), bf16 on one card, dh 64 or
-    128, views taken as they are (``check_tc``)."""
+def _launch_tc(lib, q, k, v, scale, softcap, window, *extra):
+    """Launch ``csrc/<lib>.cu`` (a tensor-core kernel) on PyTorch's current
+    stream and return its output; ``extra`` follows the window in the C
+    entry's arguments."""
     check_tc(q, k, v, window)
     dev = q.device
     if k.device != dev or v.device != dev:
@@ -159,15 +172,45 @@ def flash_attention_tc_cuda(q, k, v, *, scale: float, softcap: float = 0.0,
     out = torch.empty((b, s, hq, dh), dtype=q.dtype, device=dev)
     if out.numel() == 0 or t == 0:
         return out.zero_()
-    fn = _build.load("flash_attention_tc").flash_attention_tc
+    fn = getattr(_build.load(lib), lib)
     strides = [st for x in (q, k, v, out) for st in x.stride()[:3]]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 b, s, t, hq, hkv, dh, *strides, float(scale), float(softcap),
-                int(window), stream)
-    _build.check(rc, "flash_attention_tc")
+                int(window), *extra, stream)
+    _build.check(rc, lib)
+    return out
+
+
+def flash_attention_tc_cuda(q, k, v, *, scale: float, softcap: float = 0.0,
+                            window: int = 0) -> torch.Tensor:
+    """Launch the tensor-core variant on PyTorch's current stream:
+    ``csrc/flash_attention_tc.cu`` for dh 64 or 128, and for dh 256
+    ``flash_attention_tc256_cuda``. q (b, s, hq, dh), k and v (b, t, hkv,
+    dh), bf16 on one card, views taken as they are (``check_tc``)."""
+    if q.shape[-1] == 256:
+        return flash_attention_tc256_cuda(q, k, v, scale=scale,
+                                          softcap=softcap, window=window)
+    out = _launch_tc("flash_attention_tc", q, k, v, scale, softcap, window)
     flash_attention_tc_cuda.launches += 1
+    return out
+
+
+def flash_attention_tc256_cuda(q, k, v, *, scale: float,
+                               softcap: float = 0.0, window: int = 0,
+                               warpgroups: int = 0) -> torch.Tensor:
+    """Launch ``csrc/flash_attention_tc256.cu`` (bf16, head dim 256) on
+    PyTorch's current stream, as ``flash_attention_tc_cuda``. The kernel
+    picks its grid unless ``warpgroups`` forces it: 1 (one q head of 64
+    rows a block) or 2 (two q heads of one kv head a block, for an even
+    ``hq // hkv``)."""
+    if q.shape[-1] != 256:
+        raise ValueError(f"flash_attention_tc256 takes head dim 256, got "
+                         f"{q.shape[-1]}")
+    out = _launch_tc("flash_attention_tc256", q, k, v, scale, softcap, window,
+                     int(warpgroups))
+    flash_attention_tc256_cuda.launches += 1
     return out
 
 
@@ -200,6 +243,7 @@ def flash_attention_cuda(q, k, v, *, scale: float, softcap: float = 0.0,
 
 flash_attention_cuda.launches = 0
 flash_attention_tc_cuda.launches = 0
+flash_attention_tc256_cuda.launches = 0
 
 
 def flash_attention(q, k, v, *, scale: float, softcap: float = 0.0,
@@ -208,7 +252,7 @@ def flash_attention(q, k, v, *, scale: float, softcap: float = 0.0,
     positions ``arange(s)`` and ``arange(t)``: optional tanh softcap and
     sliding window, GQA by ``h // (hq // hkv)``; output in q's dtype. A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel
-    ``_variant`` names (tensor cores for bf16 with head dim 64 or 128), or
+    ``_variant`` names (tensor cores for bf16 with head dim 64, 128 or 256), or
     raises; with grad mode on, a CUDA input that requires grad raises
     (``ops._refuse_autograd``). The reference's tile sizes and
     ``interpret`` are its Pallas grid's and have no counterpart here. The

@@ -45,6 +45,7 @@ _COUNTED = {"chacha20": _cc.chacha20_blocks,
             "sealed_matmul_dec": _sm.sealed_matmul_dec_cuda,
             "flash_attention": _fa.flash_attention_cuda,
             "flash_attention_tc": _fa.flash_attention_tc_cuda,
+            "flash_attention_tc256": _fa.flash_attention_tc256_cuda,
             "aes128_lines_encrypt": _aes.lines_encrypt_cuda,
             "aes128_lines_decrypt": _aes.lines_decrypt_cuda}
 

@@ -45,6 +45,7 @@ def _sdpa_ref(arrays, win, cap, dtype=jnp.float32):
     (1, 512, 8, 1, 32, 128, 50.0),   # MQA + window + softcap
     (2, 256, 6, 6, 16, 0, 0.0),      # MHA
     (1, 128, 2, 2, 64, 32, 0.0),     # small window
+    (1, 256, 4, 2, 256, 100, 50.0),  # gemma2's head dim, window, softcap
 ])
 def test_plain_matches_reference_sdpa(b, s, hq, hkv, dh, win, cap):
     arrays = _qkv(s + dh, b, s, s, hq, hkv, dh)
@@ -101,6 +102,7 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
 
     monkeypatch.setattr(FA, "flash_attention_cuda", no_kernel)
     monkeypatch.setattr(FA, "flash_attention_tc_cuda", no_kernel)
+    monkeypatch.setattr(FA, "flash_attention_tc256_cuda", no_kernel)
     arrays = _qkv(5, 1, 70, 70, 4, 2, 16)
     q, k, v = (torch.from_numpy(a) for a in arrays)
     before = ops.launch_counts()["flash_attention"]
@@ -125,21 +127,37 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(shapes, dtype, err):
 @pytest.mark.parametrize("dtype,dh,want", [
     (torch.bfloat16, 128, "flash_attention_tc"),   # internlm2's heads
     (torch.bfloat16, 64, "flash_attention_tc"),
-    (torch.bfloat16, 256, "flash_attention"),      # gemma2-like heads
+    (torch.bfloat16, 256, "flash_attention_tc"),   # gemma2, RecurrentGemma
     (torch.bfloat16, 32, "flash_attention"),
     (torch.float32, 128, "flash_attention"),       # the exact f32 path
     (torch.float32, 64, "flash_attention"),
+    (torch.float32, 256, "flash_attention"),
 ])
 def test_variant_picks_by_dtype_and_head_dim(dtype, dh, want):
     assert FA._variant(dtype, dh) == want
 
 
-def _tc_emulation(q, k, v, scale, tiles=None, tile=64):
-    """The tensor-core kernel's arithmetic in plain PyTorch: f32 scores of
-    bf16 inputs, scaled in f32, causal mask with dead scores -1e30, online
-    softmax over 64-key tiles with f32 row sums, probabilities rounded to
-    bf16 per tile before ``p @ v``, output rounded to bf16. ``tiles`` lists
-    the kv tiles visited (the kernel's: each once, in order)."""
+@pytest.mark.parametrize("dtype,dh,want", [
+    (torch.bfloat16, 256, "flash_attention_tc256"),  # its own source
+    (torch.bfloat16, 128, "flash_attention_tc"),
+    (torch.bfloat16, 64, "flash_attention_tc"),
+    (torch.float32, 256, "flash_attention"),
+])
+def test_kernel_counts_each_source_apart(dtype, dh, want):
+    """Launches are counted by source: the tensor-core variant's head dim
+    256 under its own name, which ``ops.launch_counts`` carries."""
+    assert FA._kernel(dtype, dh) == want
+    assert want in ops.launch_counts()
+
+
+def _tc_emulation(q, k, v, scale, tiles=None, tile=64, softcap=0.0,
+                  window=0):
+    """The tensor-core kernels' arithmetic in plain PyTorch: f32 scores of
+    bf16 inputs, scaled in f32, tanh softcap, causal (and window) mask with
+    dead scores -1e30, online softmax over ``tile``-key tiles with f32 row
+    sums, probabilities rounded to bf16 per tile before ``p @ v``, output
+    rounded to bf16. ``tiles`` lists the kv tiles visited (the kernels':
+    each once, in order)."""
     s, hq, t, hkv = q.shape[1], q.shape[2], k.shape[1], k.shape[2]
     kf = k.float().repeat_interleave(hq // hkv, dim=2)
     vf = v.float().repeat_interleave(hq // hkv, dim=2)
@@ -153,8 +171,13 @@ def _tc_emulation(q, k, v, scale, tiles=None, tile=64):
     for j in tiles:
         lo, hi = j * tile, min(t, (j + 1) * tile)
         sc = torch.einsum("bshd,bthd->bhst", q.float(), kf[:, lo:hi]) * scale
-        sc = torch.where(torch.arange(lo, hi)[None] <= q_pos, sc,
-                         torch.full((), -1e30))
+        if softcap:
+            sc = softcap * torch.tanh(sc / softcap)
+        k_pos = torch.arange(lo, hi)[None]
+        live = k_pos <= q_pos
+        if window:
+            live &= q_pos - k_pos < window
+        sc = torch.where(live, sc, torch.full((), -1e30))
         m_new = torch.maximum(m, sc.amax(-1))
         alpha = torch.exp(m - m_new)
         p = torch.exp(sc - m_new[..., None])
@@ -166,19 +189,30 @@ def _tc_emulation(q, k, v, scale, tiles=None, tile=64):
     return out.transpose(1, 2).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("tiles,ok", [
-    (None, True),                    # every tile once: the kernel
-    ([0, 2, 3], False),              # one 64-key tile dropped
-    ([0, 1, 1, 2, 3], False),        # one tile counted twice
-    ([1, 2, 3], False),              # the first tile dropped
+# head dim, window, softcap: the first the dh 64/128 kernels' contract at a
+# small head dim, the second the dh-256 kernel's at gemma2's heads
+_GATE_SHAPES = {"dh32": (32, 0, 0.0), "dh256": (256, 100, 50.0)}
+
+
+@pytest.mark.parametrize("tiles,ok,shape", [
+    pytest.param(None, True, "dh32", id="None-True"),   # every tile once
+    pytest.param([0, 2, 3], False, "dh32", id="tiles1-False"),  # one dropped
+    pytest.param([0, 1, 1, 2, 3], False, "dh32",        # one counted twice
+                 id="tiles2-False"),
+    pytest.param([1, 2, 3], False, "dh32", id="tiles3-False"),  # the first
+    pytest.param(None, True, "dh256", id="dh256-None-True"),
+    pytest.param([0, 1, 3], False, "dh256", id="dh256-tile2-dropped"),
 ])
-def test_bf16_gate_sees_tile_faults(tiles, ok):
-    """``bf16_gate`` accepts a plain emulation of the tensor-core kernel's
-    bf16 rounding of P, and rejects it with a tile dropped or doubled."""
-    arrays = _qkv(11, 1, 256, 256, 4, 2, 32)
+def test_bf16_gate_sees_tile_faults(tiles, ok, shape):
+    """``bf16_gate`` accepts a plain emulation of the tensor-core kernels'
+    bf16 rounding of P over 64-key tiles, and rejects it with a tile
+    dropped or doubled; at head dim 256 with a window and softcap 50 too."""
+    dh, win, cap = _GATE_SHAPES[shape]
+    arrays = _qkv(11, 1, 256, 256, 4, 2, dh)
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in arrays)
-    got = _tc_emulation(q, k, v, 32 ** -0.5, tiles)
-    passed, share, rms = FA.bf16_gate(q, k, v, got, scale=32 ** -0.5)
+    kw = dict(scale=dh ** -0.5, softcap=cap, window=win)
+    got = _tc_emulation(q, k, v, kw["scale"], tiles, 64, cap, win)
+    passed, share, rms = FA.bf16_gate(q, k, v, got, **kw)
     assert passed == ok, (share, rms)
     if ok:   # inside the gate with room: P's and the output's roundings
         assert share < 0.75 and rms < 0.75 * 2.0 ** -8
@@ -186,12 +220,15 @@ def test_bf16_gate_sees_tile_faults(tiles, ok):
 
 @pytest.mark.parametrize("case", ["f32", "dh32", "head_stride", "base"])
 def test_tc_check_refuses_what_tma_cannot_describe(case):
-    """The tensor-core kernel takes bf16, head dim 64 or 128, and views
-    whose bases and strides are 16-byte aligned; its wrapper refuses the
-    rest before any launch."""
+    """The tensor-core kernels take bf16, head dim 64, 128 or 256, and
+    views whose bases and strides are 16-byte aligned; their wrapper
+    refuses the rest before any launch."""
+    for dh in (64, 128, 256):                    # the shapes they take
+        FA.check_tc(torch.zeros((1, 8, 4, dh), dtype=torch.bfloat16),
+                    torch.zeros((1, 8, 2, dh), dtype=torch.bfloat16),
+                    torch.zeros((1, 8, 2, dh), dtype=torch.bfloat16), 0)
     q = torch.zeros((1, 8, 4, 64), dtype=torch.bfloat16)
     k = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
-    FA.check_tc(q, k, k, 0)                      # the shape it takes
     if case == "f32":
         q, k = q.float(), k.float()
     elif case == "dh32":

@@ -16,8 +16,8 @@ tensor cores at bf16 decode and prefill sizes) against the plain version at
 and sum in f32; only the order of the sums differs), and the decode kernel
 bitwise against itself; the CUDA-core flash kernel against
 its plain version's f32 result at 2e-5 of the output scale in f32, plus one
-bf16 rounding of each element in bf16; the tensor-core flash kernel (bf16,
-head dim 64 or 128, probabilities rounded to bf16 before ``p @ v``) under
+bf16 rounding of each element in bf16; the tensor-core flash kernels (bf16,
+head dim 64, 128 or 256, probabilities rounded to bf16 before ``p @ v``) under
 ``flash_attention.bf16_gate``; the card's sealed logits and the group
 engine's tokens against the CPU's plain f32 path at 1e-4 relative and
 exactly; the AES kernel (FIPS-197, blocks, Direct lines) bitwise against
@@ -192,6 +192,12 @@ FLASH_CASES = [  # b, s, t, hq, hkv, dh, window, softcap
     (1, 96, 160, 2, 1, 64, 0, 0.0),         # s < t: top-left causal
     (2, 333, 333, 8, 2, 128, 0, 0.0),       # ragged 128-row q tiles
     (1, 700, 700, 4, 4, 64, 200, 30.0),     # window edges inside tiles
+    # head dim 256 (csrc/flash_attention_tc256.cu in bf16): MQA 16:1 past
+    # its window, ragged 64-row tiles; GQA 2:1 with s < t and softcap 50;
+    # MHA, an odd group, on one warpgroup a block
+    (2, 333, 333, 16, 1, 256, 200, 0.0),
+    (1, 100, 230, 4, 2, 256, 0, 50.0),
+    (1, 1100, 1100, 16, 16, 256, 300, 0.0),
 ]
 
 
@@ -207,13 +213,13 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     v = torch.randn((b, t, hkv, dh), generator=gen, device=cuda)
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
     kw = dict(scale=dh ** -0.5, softcap=cap, window=win)
-    variant = FA._variant(dtype, dh)
-    before = ops.launch_counts()[variant]
+    kernel = FA._kernel(dtype, dh)
+    before = ops.launch_counts()[kernel]
     got = ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert ops.launch_counts()[variant] == before + 1
+    assert ops.launch_counts()[kernel] == before + 1
     assert got.dtype == dtype and got.shape == (b, s, hq, dh)
-    if variant == "flash_attention_tc":
+    if kernel != "flash_attention":
         ok, share, rms = FA.bf16_gate(q, k, v, got, **kw)
         assert ok, (share, rms)
         return
@@ -226,6 +232,31 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
         allowed = allowed + 2.0 ** -8 * want.abs()
     diff = (got.float() - want).abs()
     assert bool((diff <= allowed).all()), float((diff / allowed).max())
+
+
+@pytest.mark.parametrize("case", [
+    (2, 333, 333, 16, 1, 256, 200, 0.0),    # MQA 16:1 past its window
+    (1, 100, 230, 4, 2, 256, 0, 50.0),      # GQA 2:1, s < t, softcap 50
+], ids=str)
+def test_flash_tc256_grids_agree(cuda, case):
+    """The dh-256 kernel's two grids (one q head of 64 rows a block, or two
+    q heads of one kv head a block) give the same bits, inside
+    ``bf16_gate``; an odd group is refused the paired grid."""
+    b, s, t, hq, hkv, dh, win, cap = case
+    gen = torch.Generator(device=cuda).manual_seed(s + hq)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(
+        torch.bfloat16) for shape in ((b, s, hq, dh), (b, t, hkv, dh),
+                                      (b, t, hkv, dh)))
+    kw = dict(scale=dh ** -0.5, softcap=cap, window=win)
+    one, two = (FA.flash_attention_tc256_cuda(q, k, v, warpgroups=w, **kw)
+                for w in (1, 2))
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+    ok, share, rms = FA.bf16_gate(q, k, v, two, **kw)
+    assert ok, (share, rms)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        FA.flash_attention_tc256_cuda(q.new_zeros((b, s, 3 * hkv, dh)), k,
+                                      v, warpgroups=2, **kw)
 
 
 def test_group_engine_on_the_card_matches_cpu(cuda):

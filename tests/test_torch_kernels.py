@@ -166,6 +166,7 @@ def test_launch_counts_untouched_on_cpu():
                                   "sealed_matmul_dec": 0,
                                   "flash_attention": 0,
                                   "flash_attention_tc": 0,
+                                  "flash_attention_tc256": 0,
                                   "chacha20_cache_view": 0,
                                   "chacha20_cache_splice": 0,
                                   "chacha20_cache_copy": 0,
